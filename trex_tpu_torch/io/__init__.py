@@ -1,0 +1,148 @@
+"""Data I/O and host-side tree moves (counterpart of the subset of
+``trex_tpu/io/__init__.py`` the parsimony path needs).
+
+Alignments come in as FASTA/PHYLIP/NEXUS text and leave as int32
+state-set masks; trees leave as newick. Move generation (SPR, NNI) and
+canonical numbering run on the host in Python (``io.fallback``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from trex_tpu_torch.io.fallback import (
+    _canonicalize,
+    py_nni_neighbors,
+    py_spr_move,
+    py_write_newick,
+)
+from trex_tpu_torch.io.formats import (
+    DNA,
+    IUPAC_DNA_MASKS,
+    PROTEIN,
+    encode_alignment_masks,
+    mask_lookup,
+    parse_nexus,
+    parse_phylip,
+)
+from trex_tpu_torch.topology import Topology, from_numpy
+
+_NEEDS_QUOTING = set(" ()[]{}:;,'\"")
+
+
+def _quote_names(names: list[str] | None) -> list[str] | None:
+    """Single-quote labels containing newick metacharacters ('' escape)."""
+    if names is None:
+        return None
+    return [
+        "'" + n.replace("'", "''") + "'"
+        if any(ch in _NEEDS_QUOTING for ch in n)
+        else n
+        for n in names
+    ]
+
+
+def save_newick(topology: Topology, leaf_names: list[str] | None = None) -> str:
+    """Serialize a topology to plain newick (no lengths or support labels).
+
+    Labels with newick metacharacters are single-quoted.
+    """
+    children, _ = topology.to_numpy()
+    return py_write_newick(children, _quote_names(leaf_names))
+
+
+def _split_fasta(text: str) -> tuple[list[str], np.ndarray]:
+    """FASTA text -> (names, (n_seqs, L) uint8 raw character matrix)."""
+    names: list[str] = []
+    chunks: list[str] = []
+    current: list[str] = []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith(">"):
+            if names:
+                chunks.append("".join(current))
+                current = []
+            names.append(line[1:].split()[0] if len(line) > 1 else "")
+        else:
+            current.append(line)
+    if names:
+        chunks.append("".join(current))
+    if not names:
+        raise ValueError("no sequences in FASTA input")
+    lengths = {len(c) for c in chunks}
+    if len(lengths) != 1:
+        raise ValueError(f"unaligned sequences (lengths {sorted(lengths)})")
+    data = np.frombuffer(
+        "".join(chunks).encode("ascii"), dtype=np.uint8
+    ).reshape(len(names), -1)
+    return names, data
+
+
+def parse_fasta_masks(
+    text: str, alphabet: str = DNA
+) -> tuple[list[str], np.ndarray]:
+    """Parse FASTA into (names, (n_seqs, L) int32 state-set bitmasks).
+
+    IUPAC nucleotide codes, gaps, ``?`` and ``N``/``X`` become multi-bit
+    masks (for other alphabets only gap/missing characters are ambiguous),
+    so parsimony minimizes over every resolution of the ambiguity.
+    """
+    names, data = _split_fasta(text)
+    masks = mask_lookup(alphabet)[data]
+    bad = masks == 0
+    if bad.any():
+        seq_i, col = np.argwhere(bad)[0]
+        raise ValueError(
+            f"character {chr(data[seq_i, col])!r} at sequence {seq_i} column "
+            f"{col} is not in the alphabet or IUPAC table"
+        )
+    return names, masks
+
+
+def canonicalize_topology(children: np.ndarray) -> np.ndarray:
+    """Structure-determined canonical numbering of one host children array.
+
+    Accepts any valid rooted-binary ``children`` (root = last ancestor) and
+    returns the canonical children — the byte identity every host-built
+    topology carries.
+    """
+    children = np.asarray(children)
+    n_leaves = children.shape[0] + 1
+    kids = {
+        n_leaves + a: [int(children[a, 0]), int(children[a, 1])]
+        for a in range(n_leaves - 1)
+    }
+    ch, _, _ = _canonicalize(n_leaves, kids, 2 * n_leaves - 2)
+    return ch
+
+
+def nni_neighbors_host(topology: Topology) -> tuple[np.ndarray, np.ndarray]:
+    """NNI neighbors as host numpy (children, parents)."""
+    children, _ = topology.to_numpy()
+    return py_nni_neighbors(children)
+
+
+def spr_move(topology: Topology, prune_node: int, regraft_node: int) -> Topology | None:
+    """One subtree-prune-regraft move on the topology's device (None if invalid)."""
+    children, _ = topology.to_numpy()
+    result = py_spr_move(children, prune_node, regraft_node)
+    if result is None:
+        return None
+    return from_numpy(*result, device=topology.device)
+
+
+__all__ = [
+    "DNA",
+    "PROTEIN",
+    "IUPAC_DNA_MASKS",
+    "canonicalize_topology",
+    "encode_alignment_masks",
+    "nni_neighbors_host",
+    "parse_fasta_masks",
+    "parse_nexus",
+    "parse_phylip",
+    "save_newick",
+    "spr_move",
+]

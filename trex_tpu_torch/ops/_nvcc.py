@@ -1,0 +1,83 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use; load them with ctypes.
+
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface, compiled for
+Hopper (``sm_90a``) into ``build/trex_tpu_torch/lib<name>-<digest>.so`` at
+the root of the checkout. The digest covers the source and the flags, so
+an edited kernel is rebuilt and a stale library is never loaded. A failed
+build raises: no caller falls back to a plain version for a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "trex_tpu_torch"
+KERNELS = ("fitch_batched", "insertion_delta")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}
+"""nvcc output of each library built by this process (``-Xptxas -v``
+register, shared-memory and spill report)."""
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin); the port's CUDA "
+            "kernels are built from csrc/ at first use"
+        )
+    return path
+
+
+def library_path(name: str) -> Path:
+    source = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names=KERNELS) -> None:
+    """Compile every library in ``names`` that is not built yet: one nvcc
+    process per source, all started together."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        running.append((name, proc, tmp, out))
+    failed = []
+    for name, proc, tmp, out in running:
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode:
+            failed.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    if name not in _LIBS:
+        path = library_path(name)
+        if not path.exists():
+            build([name])
+        _LIBS[name] = ctypes.CDLL(str(path))
+    return _LIBS[name]
