@@ -50,6 +50,24 @@ def random_masks(
     return masks
 
 
+def evolved_masks(
+    rng: np.random.Generator, children: np.ndarray, length: int, rate: float
+) -> np.ndarray:
+    """(n_leaves, L) int32 DNA masks of sequences evolved down ``children``
+    (each site mutates with probability ``rate`` per edge), so that branch
+    lengths fitted to them are well determined."""
+    n_leaves = children.shape[0] + 1
+    seqs = np.empty((2 * n_leaves - 1, length), np.int64)
+    seqs[-1] = rng.integers(0, 4, length)
+    for a in range(n_leaves - 2, -1, -1):
+        for c in children[a]:
+            s = seqs[n_leaves + a].copy()
+            hit = rng.random(length) < rate
+            s[hit] = rng.integers(0, 4, int(hit.sum()))
+            seqs[c] = s
+    return (1 << seqs[:n_leaves]).astype(np.int32)
+
+
 def integer_weights(rng: np.random.Generator, length: int) -> np.ndarray:
     """(L,) f32 integer-valued site weights (compressed-pattern counts)."""
     return rng.integers(1, 5, length).astype(np.float32)

@@ -88,14 +88,18 @@ def test_cli_defaults_to_the_card(fasta):
 @pytest.mark.parametrize(
     "flags, slice_name",
     [
-        (["--criterion", "ml"], "slice 2"),
+        (["--criterion", "ml", "--model", "gtr"], "slice 2 item 7"),
+        (["--criterion", "ml", "--model-file", "lg.dat"], "slice 2 item 7"),
+        (["--criterion", "distance"], "slice 2b"),
+        (["--criterion", "ml", "--alrt", "10"], "queue A item 13"),
+        (["--criterion", "ml", "--ufboot", "10"], "queue A item 13"),
         (["--ratchet", "2"], "slice 1b"),
         (["--bootstrap", "5"], "slice 1b"),
         (["--decay"], "slice 1b"),
         (["--outgroup", "taxon_0"], "slice 1b"),
         (["--neighborhood", "tbr"], "slice 1b"),
         (["--mesh", "2,1"], "queue A"),
-        (["--start", "nj"], "slice 2"),
+        (["--start", "nj"], "slice 2b"),
         (["--start", "random"], "slice 1b"),
     ],
 )

@@ -46,7 +46,7 @@ def _start_tree(
     from trex_tpu_torch.search.stepwise import stepwise_addition_multi
 
     if kind != "stepwise":
-        later = {"nj": "slice 2", "upgma": "slice 2", "diff": "slice 3"}
+        later = {"nj": "slice 2b", "upgma": "slice 2b", "diff": "slice 3"}
         raise SystemExit(
             f"--start {kind} is not ported yet: {later.get(kind, 'slice 1b')} "
             "of ROADMAP.md"

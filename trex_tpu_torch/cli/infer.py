@@ -1,5 +1,5 @@
-"""File-based tree inference: the ``infer`` command's parsimony branch
-(counterpart of ``trex_tpu/cli/infer.py``)."""
+"""File-based tree inference: the ``infer`` command's parsimony and ML
+branches (counterpart of ``trex_tpu/cli/infer.py``)."""
 
 from __future__ import annotations
 
@@ -21,6 +21,11 @@ _NOT_PORTED = (
     ("decay", False, "slice 1b (SPR-decay support)"),
     ("outgroup", None, "slice 1b (rerooting)"),
     ("constraint", None, "slice 1b (constrained search)"),
+    ("model", "jc", "slice 2 item 7 (model fitting: optimize_model)"),
+    ("model_file", None, "slice 2 item 7 (model fitting: optimize_model)"),
+    ("model_rounds", 0, "slice 2 item 7 (model fitting: optimize_model)"),
+    ("alrt", 0, "queue A item 13 (supports)"),
+    ("ufboot", 0, "queue A item 13 (supports)"),
 )
 
 
@@ -30,14 +35,17 @@ class InferRun:
     """The printed JSON object."""
     result: SearchResult
     seconds: dict[str, float]
-    """Wall seconds of the starting trees ("start") and the climbs ("climb")."""
+    """Wall seconds of the starting trees ("start"), the climbs ("climb")
+    and, for ``--criterion ml``, the branch-length fits ("newton")."""
+    lengths: torch.Tensor | None = None
+    """The fitted branch lengths (``--criterion ml``)."""
 
 
 def _check_ported(args) -> None:
-    if args.criterion != "parsimony":
+    if args.criterion == "distance":
         raise SystemExit(
-            f"--criterion {args.criterion} is not ported yet: ML and distance "
-            "methods are slice 2 of ROADMAP.md"
+            "--criterion distance is not ported yet: slice 2b of ROADMAP.md "
+            "(NJ/UPGMA, item 9)"
         )
     for name, unset, where in _NOT_PORTED:
         if getattr(args, name) != unset:
@@ -62,7 +70,8 @@ def _sync(device: torch.device) -> None:
 
 
 def run_infer(args) -> InferRun:
-    """FASTA in, inferred tree out: stepwise start trees + a parsimony climb."""
+    """FASTA in, inferred tree out: stepwise start trees, then a parsimony
+    or (``--criterion ml``) likelihood climb."""
     import numpy as np
 
     from trex_tpu_torch.alignment import compress_alignment
@@ -98,8 +107,10 @@ def run_infer(args) -> InferRun:
     if args.restarts > 1:
         out["restarts"] = args.restarts
 
-    cost = CostModel.hamming(n_states, device=device).matrix
     leaves = torch.as_tensor(patterns, device=device)
+    if args.criterion == "ml":
+        return _run_ml(args, out, names, leaves, n_states, weights, starts, t1 - t0)
+    cost = CostModel.hamming(n_states, device=device).matrix
     result = None
     for st in starts:
         attempt = parsimony_hill_climb(
@@ -114,7 +125,11 @@ def run_infer(args) -> InferRun:
     _sync(device)
     t2 = time.perf_counter()
     out["parsimony_score"] = result.score
-    newick = save_newick(result.topology, names)
+    _finish(args, out, result, save_newick(result.topology, names))
+    return InferRun(out, result, {"start": t1 - t0, "climb": t2 - t1})
+
+
+def _finish(args, out: dict, result: SearchResult, newick: str) -> None:
     out.update(
         search_rounds=result.rounds,
         evaluations=result.evaluations,
@@ -123,7 +138,42 @@ def run_infer(args) -> InferRun:
     if args.output_tree:
         with open(args.output_tree, "w") as fh:
             fh.write(newick + "\n")
-    return InferRun(out, result, {"start": t1 - t0, "climb": t2 - t1})
+
+
+def _run_ml(args, out, names, leaves, n_states, weights, starts, start_seconds) -> InferRun:
+    """The ML branch: a likelihood climb from each start, then the Newton
+    branch-length fit; the start with the lowest fitted NLL wins."""
+    from trex_tpu_torch.io import save_newick
+    from trex_tpu_torch.search.ml import ml_hill_climb
+
+    seconds = {"start": start_seconds, "climb": 0.0, "newton": 0.0}
+    best = None
+    for st in starts:
+        timings: dict[str, float] = {}
+        # Compressed patterns + weights are exact for ML too: the total
+        # log-likelihood is a weighted per-site sum.
+        result, lengths, losses = ml_hill_climb(
+            st, leaves, n_states,
+            max_rounds=args.rounds,
+            neighborhood=args.neighborhood,
+            sequences_are_masks=True,
+            site_weights=weights,
+            timings=timings,
+        )
+        seconds["climb"] += timings["climb"]
+        seconds["newton"] += timings["newton"]
+        if best is None or float(losses[-1]) < float(best[2][-1]):
+            best = (result, lengths, losses)
+    result, lengths, losses = best
+    out.update(
+        neg_log_likelihood=float(losses[-1]),
+        ranking_score=result.score,
+        model=args.model,
+    )
+    lengths_np = lengths.cpu().numpy()
+    out["mean_branch_length"] = float(lengths_np.mean())
+    _finish(args, out, result, save_newick(result.topology, names, lengths_np))
+    return InferRun(out, result, seconds, lengths)
 
 
 def cmd_infer(args) -> None:

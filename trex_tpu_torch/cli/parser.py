@@ -25,7 +25,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--alphabet", choices=("dna", "protein"), default="dna")
     p.add_argument("--criterion", choices=("parsimony", "ml", "distance"),
                    default="parsimony",
-                   help="parsimony (ml and distance: a later slice)")
+                   help="parsimony or ml (distance: a later slice)")
+    p.add_argument("--model", default="jc",
+                   help="substitution model for --criterion ml: jc (the "
+                        "fitted models: a later slice)")
+    p.add_argument("--model-file", type=str, default=None,
+                   help="PAML-format rate file (a later slice)")
+    p.add_argument("--model-rounds", type=int, default=0,
+                   help="ML model <-> tree iterations (a later slice)")
     p.add_argument("--start",
                    choices=("stepwise", "nj", "upgma", "random", "balanced",
                             "diff"),
@@ -41,6 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default="spr-scan",
                    help="spr-scan = analytic all-SPR evaluation; nni = "
                         "enumerated NNI batch scored by the Fitch kernel "
+                        "(parsimony) or the likelihood kernel (ml) "
                         "(spr/tbr: a later slice)")
     p.add_argument("--rounds", type=int, default=100,
                    help="max hill-climb rounds")
@@ -52,6 +60,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bootstrap replicates (a later slice)")
     p.add_argument("--outgroup", type=str, default=None,
                    help="outgroup rooting (a later slice)")
+    p.add_argument("--alrt", type=int, default=0,
+                   help="SH-aLRT supports (a later slice)")
+    p.add_argument("--ufboot", type=int, default=0,
+                   help="ultrafast bootstrap supports (a later slice)")
     p.add_argument("--restarts", type=int, default=1,
                    help="independent searches: the --start tree plus N-1 "
                         "more random-addition starts; best final score wins")

@@ -1,8 +1,9 @@
 """Data I/O and host-side tree moves (counterpart of the subset of
-``trex_tpu/io/__init__.py`` the parsimony path needs).
+``trex_tpu/io/__init__.py`` the parsimony and ML paths need).
 
 Alignments come in as FASTA/PHYLIP/NEXUS text and leave as int32
-state-set masks; trees leave as newick. Move generation (SPR, NNI) and
+state-set masks; trees leave as newick, with or without branch lengths.
+Move generation (SPR, NNI) and
 canonical numbering run on the host in Python (``io.fallback``).
 """
 
@@ -42,13 +43,33 @@ def _quote_names(names: list[str] | None) -> list[str] | None:
     ]
 
 
-def save_newick(topology: Topology, leaf_names: list[str] | None = None) -> str:
-    """Serialize a topology to plain newick (no lengths or support labels).
+def save_newick(
+    topology: Topology,
+    leaf_names: list[str] | None = None,
+    branch_lengths=None,
+) -> str:
+    """Serialize a topology to newick, optionally with branch lengths.
 
-    Labels with newick metacharacters are single-quoted.
+    ``branch_lengths``: (n_all,) lengths indexed by child node, written
+    ``:{x:.8g}`` on each child edge; the root entry is ignored. Labels with
+    newick metacharacters are single-quoted.
     """
     children, _ = topology.to_numpy()
-    return py_write_newick(children, _quote_names(leaf_names))
+    names = _quote_names(leaf_names)
+    if branch_lengths is None:
+        return py_write_newick(children, names)
+    blens = np.asarray(
+        branch_lengths.cpu() if hasattr(branch_lengths, "cpu") else branch_lengths,
+        dtype=np.float64,
+    )
+    n_leaves = children.shape[0] + 1
+    repr_ = list(names or [f"L{i}" for i in range(n_leaves)]) + [""] * (n_leaves - 1)
+    for a in range(n_leaves - 1):
+        c0, c1 = int(children[a, 0]), int(children[a, 1])
+        repr_[n_leaves + a] = (
+            f"({repr_[c0]}:{blens[c0]:.8g},{repr_[c1]}:{blens[c1]:.8g})"
+        )
+    return repr_[2 * n_leaves - 2] + ";"
 
 
 def _split_fasta(text: str) -> tuple[list[str], np.ndarray]:

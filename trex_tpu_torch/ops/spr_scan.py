@@ -144,24 +144,14 @@ def spr_scan(
     """
     masks = as_masks(leaf_sequences, sequences_are_masks)
     device = masks.device
-    n_leaves, length = masks.shape
-    n_all = topology.n_all
-    root = n_all - 1
+    length = masks.shape[1]
     weights = site_weights_or_ones(site_weights, length, device)
     children = topology.children.to(device=device, dtype=torch.int32)
     parents = topology.parents.to(device=device, dtype=torch.int32)
 
     full_scan = prune_nodes is None
-    if full_scan:
-        prune_nodes = torch.arange(n_all - 1, dtype=torch.int64, device=device)
-    else:
-        prune_nodes = torch.as_tensor(prune_nodes, device=device).to(torch.int64)
-    q_rows = parents[prune_nodes].to(torch.int64) - n_leaves  # (P,)
-    row_pair = children[q_rows]  # (P, 2)
-    siblings = row_pair[:, 0] + row_pair[:, 1] - prune_nodes.to(torch.int32)
-    var_children = children.unsqueeze(0).repeat(prune_nodes.shape[0], 1, 1)
-    var_children[torch.arange(prune_nodes.shape[0], device=device), q_rows] = (
-        siblings[:, None].expand(-1, 2)
+    prune_nodes, var_children, siblings = prune_variants(
+        children, parents, prune_nodes
     )
 
     base_events = _up_pass(children[None], masks)[1][0]
@@ -179,13 +169,54 @@ def spr_scan(
         ]
     )
 
+    return mask_invalid(scores, parents, prune_nodes, siblings, full_scan), base_score
+
+
+def prune_variants(children: torch.Tensor, parents: torch.Tensor, prune_nodes=None):
+    """(prune_nodes (P,) int64, var_children (P, n_anc, 2), siblings (P,)).
+
+    Variant i is the tree with ``prune_nodes[i]`` cut away: its parent's
+    row becomes the pass-through pair ``(s, s)`` of its sibling s. Default
+    prune set: every non-root node.
+    """
+    device = children.device
+    n_all = parents.shape[-1]
+    n_leaves = n_all - children.shape[0]
+    if prune_nodes is None:
+        prune_nodes = torch.arange(n_all - 1, dtype=torch.int64, device=device)
+    else:
+        prune_nodes = torch.as_tensor(prune_nodes, device=device).to(torch.int64)
+    q_rows = parents[prune_nodes].to(torch.int64) - n_leaves  # (P,)
+    row_pair = children[q_rows]  # (P, 2)
+    siblings = row_pair[:, 0] + row_pair[:, 1] - prune_nodes.to(torch.int32)
+    var_children = children.unsqueeze(0).repeat(prune_nodes.shape[0], 1, 1)
+    var_children[torch.arange(prune_nodes.shape[0], device=device), q_rows] = (
+        siblings[:, None].expand(-1, 2)
+    )
+    return prune_nodes, var_children, siblings
+
+
+def mask_invalid(
+    scores: torch.Tensor,
+    parents: torch.Tensor,
+    prune_nodes: torch.Tensor,
+    siblings: torch.Tensor,
+    full_scan: bool,
+) -> torch.Tensor:
+    """``scores`` (P, n_all) with +inf at the invalid (prune, regraft)
+    pairs: v inside the pruned subtree, v == parent(p), v == the remaining
+    tree's root. ``full_scan`` appends the all-inf root row (square output).
+    """
+    device = scores.device
+    n_all = parents.shape[-1]
+    root = n_all - 1
     # in_S[p, v]: walk v's parent chain and check whether it meets p. The
     # chain is stationary once it reaches the root (never a prune node), so
     # max depth + 1 steps give the same table as n_all steps.
     idx = torch.arange(n_all, dtype=torch.int32, device=device)
     prune32 = prune_nodes.to(torch.int32)
     ptr = idx.clone()
-    in_s = torch.zeros((n_prune, n_all), dtype=torch.bool, device=device)
+    in_s = torch.zeros((prune_nodes.shape[0], n_all), dtype=torch.bool, device=device)
     for _ in range(_max_depth(parents.cpu().numpy()) + 1):
         in_s |= ptr[None, :] == prune32[:, None]
         ptr = parents[ptr.long()]
@@ -198,13 +229,9 @@ def spr_scan(
         | (idx[None, :] == root)
     )
     scores = torch.where(invalid, torch.inf, scores)
-
     if full_scan:
-        # Pad the prune axis to n_all (root row all-inf): square output.
-        scores = torch.cat(
-            [scores, torch.full((1, n_all), torch.inf, device=device)]
-        )
-    return scores, base_score
+        scores = torch.cat([scores, torch.full((1, n_all), torch.inf, device=device)])
+    return scores
 
 
 def _segment_best(scores: torch.Tensor, valid_rows: int):
@@ -239,21 +266,34 @@ def spr_scan_best_segmented(
     strict improvement keeps the earliest minimum). Returns
     (best_score, prune_node, regraft_node, base_score, n_finite).
     """
-    n_all = topology.n_all
+    return best_over_segments(
+        lambda pn: spr_scan(
+            topology, leaf_sequences, site_weights,
+            sequences_are_masks=sequences_are_masks,
+            prune_nodes=pn, prune_chunk=prune_chunk,
+        ),
+        topology.n_all, torch.as_tensor(leaf_sequences).device, max_cells,
+    )
+
+
+def best_over_segments(scan_segment, n_all: int, device, max_cells: int | None = None):
+    """Best move of a scan run segment by segment: ``scan_segment(pn)``
+    returns the (len(pn), n_all) scores and the base score for the prune
+    nodes ``pn``. Segments hold at most ``max_cells / n_all`` prune nodes
+    (default: as many as a fraction of ``device``'s available memory
+    holds) and each reduces on the device; the move is the first minimum
+    of the whole table. Returns (best_score, prune_node, regraft_node,
+    base_score, n_finite).
+    """
     n_prune = n_all - 1
     if max_cells is None:
-        device = torch.as_tensor(leaf_sequences).device
         max_cells = scan_budget_bytes(device) // _BYTES_PER_CELL
     seg = max(1, min(n_prune, max_cells // n_all))
     pending = []
     base = None
     for s0 in range(0, n_prune, seg):
         pn = torch.arange(s0, min(s0 + seg, n_prune), dtype=torch.int64)
-        sc, base = spr_scan(
-            topology, leaf_sequences, site_weights,
-            sequences_are_masks=sequences_are_masks,
-            prune_nodes=pn, prune_chunk=prune_chunk,
-        )
+        sc, base = scan_segment(pn)
         pending.append((s0, _segment_best(sc, pn.shape[0])))
     best = np.inf
     best_p = best_v = 0

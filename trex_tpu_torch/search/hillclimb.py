@@ -40,6 +40,7 @@ def parsimony_hill_climb(
     neighborhood: str = "nni",
     site_weights=None,
     sequences_are_masks: bool = False,
+    score_batch_fn=None,
     device=None,
 ) -> SearchResult:
     """Greedy hill climb from ``start``; stops at a local optimum.
@@ -54,6 +55,9 @@ def parsimony_hill_climb(
             ``parents`` placeholder, since scoring reads ``children`` only)
             or ``"spr-scan"`` (unit cost only). ``"spr"`` and ``"tbr"``
             wait for a later slice.
+        score_batch_fn: optional ``(topologies, cost_matrix, leaves) ->
+            (B,) scores`` (lower is better) that replaces the parsimony
+            scorer of the ``"nni"`` neighborhood — the ML climb's hook.
         device: where the climb runs; default the device of a tensor
             ``leaf_sequences``, else ``cuda``.
     """
@@ -70,6 +74,11 @@ def parsimony_hill_climb(
     start = start.to(device)
 
     if neighborhood == "spr-scan":
+        if score_batch_fn is not None:
+            raise ValueError(
+                "spr-scan evaluates candidates analytically; a custom "
+                "score_batch_fn is not supported"
+            )
         return _spr_scan_climb(
             start, leaves, max_rounds,
             site_weights=weights,
@@ -84,6 +93,8 @@ def parsimony_hill_climb(
     from trex_tpu_torch.topology import from_numpy
 
     def score_batch(topos: Topology):
+        if score_batch_fn is not None:
+            return score_batch_fn(topos, cost_matrix, leaves)
         return batched_scores_fastest(
             topos, cost_matrix, leaves, weights,
             sequences_are_masks=sequences_are_masks,
