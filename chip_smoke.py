@@ -3,31 +3,39 @@
 
     python3 chip_smoke.py        # from the root of a checkout
 
-Builds the three CUDA kernels from ``trex_tpu_torch/csrc`` (one ``nvcc``
-per source, in parallel), holds each against its plain PyTorch version on
-the card at its path's shapes (the parsimony kernels bit for bit, since
-their scores are integer-valued; the likelihood kernel within rtol 1e-5 of
-|lnL|), times them, then runs the ``infer`` command's routes on simulated
-alignments:
+Builds the four CUDA kernel libraries from ``trex_tpu_torch/csrc`` (one
+``nvcc`` per source, in parallel), holds each against its plain PyTorch
+version on the card at its paths' shapes (the parsimony kernels K1, K2 and
+K5 bit for bit, since their scores are integer-valued; the likelihood
+kernel within rtol 1e-5 of |lnL|), times them, then runs the port's routes
+on simulated alignments, each with every launch count set to 0 just
+before it and read just after:
 
-- the main path, the default ``infer`` (stepwise addition, best of 4
-  orders, then SPR-scan climb) on 512 taxa x 2048 sites, counting the
-  launches of each kernel — the insertion kernel (K2) at every stepwise
-  step, the Fitch kernel (K1) for each order's exact rescoring;
+- the default ``infer`` (stepwise addition, best of 4 orders, then
+  SPR-scan climb) on 512 taxa x 2048 sites — the insertion kernel (K2) at
+  every stepwise step, the Fitch kernel (K1) for each order's exact
+  rescoring;
 - the NNI route (``--neighborhood nni --rounds 20``) on 128 x 1024,
   whose candidate batches K1 scores;
 - the ML NNI route (``--criterion ml --neighborhood nni --rounds 10``) on
   the main path's 512 x 2048 alignment, whose candidate batches the
   likelihood kernel (K3/K4) ranks, then the Newton branch-length fit;
 - the default ML route (``--criterion ml``, analytic SPR scan, plain
-  torch) on 128 x 1024 with ``--rounds 5``, a reduced size.
+  torch) on 128 x 1024 with ``--rounds 5``, a reduced size;
+- the weighted-parsimony NNI climb (stepwise start, then
+  ``parsimony_hill_climb`` under transition/transversion costs on integer
+  states) on 512 x 2048, whose candidate batches the min-plus Sankoff
+  kernel (K5) scores;
+- ``score`` on a generated 512-leaf mutation tree (its score held against
+  K5's rescoring), and ``bench`` on 64 x 1024 with 61 states (K5) and 4
+  (K1).
 
-It also profiles the main path's two calls (stepwise addition, SPR-scan
-climb) and the ML NNI route's two (climb, Newton fit) with
-``torch.profiler`` for the device's busy and idle share and the top
-kernels, and checks on a small divergent alignment that the card's
-``infer`` returns the same tree and score as the CPU's, for both criteria
-and both neighborhoods.
+It also profiles the default ``infer``'s two calls (stepwise addition,
+SPR-scan climb), the ML NNI route's two (climb, Newton fit) and the
+weighted climb with ``torch.profiler`` for the device's busy and idle share
+and the top kernels, and checks on small divergent alignments that the
+card returns the same results as the CPU: ``infer`` for both criteria and
+both neighborhoods, the weighted climb, and ``score --alignment``.
 
 Each phase prints one JSON line. The line before the last is
 ``{"kernels": [...]}``; the last is
@@ -63,6 +71,12 @@ MAIN_SHAPE = dict(n_taxa=512, n_sites=2048)
 NNI_SHAPE = dict(n_taxa=128, n_sites=1024)
 ML_SCAN_SHAPE = dict(n_taxa=128, n_sites=1024)
 REF_SHAPE = dict(n_taxa=24, n_sites=300)
+K5_BENCH_SHAPE = dict(n_taxa=64, n_sites=1024, batch=2048)
+K5_Q20_SHAPE = dict(n_taxa=64, n_sites=1024, batch=256, n_states=20)
+K5_Q61_SHAPE = dict(n_taxa=64, n_sites=1024, batch=64, n_states=61)
+WEIGHTED_ROUNDS = 10
+SCORE_ARGS = ["score", "--leaves", "512", "--sites", "2048", "--states", "4"]
+BENCH_ARGS = ["bench", "--leaves", "64", "--sites", "1024", "--batch", "512", "--reps", "5"]
 K34_RTOL = 1e-5
 RANKING_LENGTH = 0.1
 
@@ -72,10 +86,12 @@ def emit(phase: str, **fields) -> None:
 
 
 def simulate_fasta(
-    path: str, n_taxa: int, n_sites: int, seed: int, branch=(0.02, 0.1)
+    path: str, n_taxa: int, n_sites: int, seed: int, branch=(0.02, 0.1),
+    missing: float = 0.01,
 ) -> None:
     """JC69 alignment down a random coalescent tree, branch lengths
-    uniform in ``branch``, with about 1% of characters replaced by N or -."""
+    uniform in ``branch``, with a ``missing`` share of characters replaced
+    by N or -."""
     rng = np.random.default_rng(seed)
     kids: dict[int, tuple[int, int]] = {}
     active = list(range(n_taxa))
@@ -102,8 +118,8 @@ def simulate_fasta(
     with open(path, "w") as fh:
         for t in range(n_taxa):
             row = letters[seqs[t]].copy()
-            missing = rng.random(n_sites) < 0.01
-            row[missing] = rng.choice(np.frombuffer(b"N-", dtype=np.uint8), int(missing.sum()))
+            hit = rng.random(n_sites) < missing
+            row[hit] = rng.choice(np.frombuffer(b"N-", dtype=np.uint8), int(hit.sum()))
             fh.write(f">taxon{t}\n{row.tobytes().decode()}\n")
 
 
@@ -165,7 +181,7 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 def measure(
     torch, kernel, plain, n_bytes: float, n_ops: float, reps: int = 30,
-    rtol: float | None = None,
+    rtol: float | None = None, plain_reps: int = 5,
 ) -> dict:
     """Hold ``kernel()`` against ``plain()`` — bit for bit, or within
     ``rtol`` of |plain| — and time both (``ms``: the per-call median)."""
@@ -190,7 +206,7 @@ def measure(
         "equal": bool(torch.equal(got, want)), "max_abs_err": err, "max_rel_err": rel,
         "ms": time_ms(torch, kernel, reps),
         "ms_back_to_back": back_to_back_ms(torch, kernel, reps),
-        "plain_ms": time_ms(torch, plain, 5, 1),
+        "plain_ms": time_ms(torch, plain, plain_reps, 1),
         "bound_ms": bound, "bound_by": bound_by,
     }
 
@@ -213,6 +229,17 @@ def k34_work(batch: int, n_taxa: int, n_sites: int, q: int, per_branch: bool):
     return n_bytes, float(batch * (n_taxa - 1) * n_sites * (4 * q * q + 3 * q))
 
 
+def k5_work(batch: int, n_taxa: int, n_sites: int, q: int, hamming: bool):
+    """K5's (bytes, float32 ops): children, leaves, cost and weights in,
+    scores out; per tree, ancestor and site, 2 children x Q^2 x (add + min)
+    for the general messages (Hamming: 2 x (Q - 1 mins, 1 add, Q mins)),
+    plus Q adds to combine them; per tree and site a Q - 1 min and the
+    weight multiply."""
+    n_bytes = 4.0 * (batch * (n_taxa - 1) * 2 + n_taxa * n_sites + q * q + n_sites + batch)
+    per_node = 2 * (2 * q - 1 + 1) + q if hamming else 2 * q * q * 2 + q
+    return n_bytes, float(batch * n_sites * ((n_taxa - 1) * per_node + q))
+
+
 def strip_lengths(newick: str) -> str:
     import re
 
@@ -220,20 +247,37 @@ def strip_lengths(newick: str) -> str:
 
 
 def run_cli(argv: list[str]):
-    """The ``infer`` command in this process; returns its InferRun."""
+    """The ``infer``, ``score`` or ``bench`` command in this process; returns
+    what its ``run_*`` function returns (InferRun, the JSON object, or the
+    JSON object and the scores)."""
     from trex_tpu_torch.cli import build_parser
     from trex_tpu_torch.cli.infer import run_infer
+    from trex_tpu_torch.cli.score import run_score
+    from trex_tpu_torch.cli.search_cmds import run_bench
 
+    run = {"infer": run_infer, "score": run_score, "bench": run_bench}[argv[0]]
     with contextlib.redirect_stdout(io.StringIO()):
-        return run_infer(build_parser().parse_args(argv))
+        return run(build_parser().parse_args(argv))
 
 
-def profile_phase(torch, fn, unprofiled_wall: float) -> dict:
+def dna_states(fasta: str) -> np.ndarray:
+    """(n, L) int32 ACGT states of a FASTA file without ambiguity codes."""
+    from trex_tpu_torch.cli._common import _load_alignment
+
+    _, masks, _ = _load_alignment(fasta, "dna")
+    single = masks[..., None] == (1 << np.arange(4, dtype=np.int32))
+    if not single.any(-1).all():
+        raise ValueError(f"{fasta} has ambiguous characters")
+    return single.argmax(-1).astype(np.int32)
+
+
+def profile_phase(torch, fn, unprofiled_wall: float | None) -> dict:
     """Device-busy time and the top kernels of ``fn()`` under
     ``torch.profiler``. One stream, so the summed kernel and copy time is
     the busy time; the idle share is taken against the same call's wall
     time without the profiler (``unprofiled_wall``), since tracing
-    ~10^5 launches slows the host."""
+    ~10^5 launches slows the host — or, for ``None``, against the
+    profiled call's own wall time (a call of few launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -243,6 +287,8 @@ def profile_phase(torch, fn, unprofiled_wall: float) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if unprofiled_wall is None:
+        unprofiled_wall = wall
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
@@ -279,15 +325,35 @@ def main() -> int:
         batched_log_likelihood_cuda,
         batched_log_likelihood_plain,
     )
+    from trex_tpu_torch.ops.dispatch import batched_scores_fastest
+    from trex_tpu_torch.ops.sankoff_cuda import (
+        batched_sankoff_score_cuda,
+        batched_sankoff_score_plain,
+    )
     from trex_tpu_torch.search import stepwise
     from trex_tpu_torch.search.hillclimb import parsimony_hill_climb
     from trex_tpu_torch.search.ml import ml_hill_climb
+    from trex_tpu_torch.cli import build_parser
+    from trex_tpu_torch.cli.search_cmds import bench_inputs
+    from trex_tpu_torch.models.mutation_tree import generate_groundtruth
+    from trex_tpu_torch.topology import Topology, balanced_topology
     from trex_tpu_torch.types import CostModel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    wrappers = {
+        "k1": batched_fitch_score_cuda, "k2": insertion_delta_cuda,
+        "k34": batched_log_likelihood_cuda, "k5": batched_sankoff_score_cuda,
+    }
+
+    def reset_counts() -> None:
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def launch_counts() -> dict:
+        return {name: fn.launches for name, fn in wrappers.items()}
 
     # 1. Card.
     smi = subprocess.run(
@@ -300,7 +366,8 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # 2. Build the three kernels from the checkout's sources, in parallel.
+    # 2. Build the four kernel libraries from the checkout's sources, in
+    # parallel.
     t0 = time.perf_counter()
     _nvcc.build()
     ptxas = {
@@ -362,18 +429,15 @@ def main() -> int:
 
     # 5. Main path: the default infer on 512 x 2048, on the card. The
     # parsimony path ranks nothing by likelihood: K3/K4 must not launch.
-    for fn in (batched_fitch_score_cuda, insertion_delta_cuda, batched_log_likelihood_cuda):
-        fn.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     run = run_cli(["infer", "--alignment", main_fasta])
     torch.cuda.synchronize()
     main_wall = time.perf_counter() - t0
-    main_k1 = batched_fitch_score_cuda.launches
-    main_k2 = insertion_delta_cuda.launches
-    main_k34 = batched_log_likelihood_cuda.launches
-    if main_k2 <= 0 or main_k1 <= 0 or main_k34 != 0:
-        raise AssertionError(
-            f"main path launches: K1 {main_k1}, K2 {main_k2}, K3/K4 {main_k34}")
+    main_counts = launch_counts()
+    main_k1, main_k2, main_k34 = (main_counts[k] for k in ("k1", "k2", "k34"))
+    if main_k2 <= 0 or main_k1 <= 0 or main_k34 != 0 or main_counts["k5"] != 0:
+        raise AssertionError(f"main path launches: {main_counts}")
     out = run.out
     # K1 at the main path's own shape (one tree, 512 x 2048): the returned
     # tree rescored by the kernel and the plain version must both give the
@@ -391,7 +455,7 @@ def main() -> int:
          evaluations=out["evaluations"], stepwise_s=run.seconds["start"],
          climb_s=run.seconds["climb"], wall_s=main_wall,
          k1_launches=main_k1, k2_launches=main_k2, k34_launches=main_k34,
-         rescored=rescored,
+         k5_launches=main_counts["k5"], rescored=rescored,
          k1_at_this_shape=k1_main)
 
     # 5b. Where the main path's time goes: its two calls, profiled one by one.
@@ -438,6 +502,29 @@ def main() -> int:
     k34_route = k34_on(ml_batch, pat_t, w_t, p_shared, True)
     emit("k34", shape="b: ML NNI route, shared P", n_taxa=aln.shape[0],
          n_sites=int(patterns.shape[1]), batch=int(ml_batch.shape[0]), **k34_route)
+    # K5 (c): the same batch and alignment in the mask mode with pattern
+    # weights (the infer-style input), under transition/transversion costs.
+    tt_cost = CostModel.transition_transversion(1.0, 2.0, device=dev).matrix
+
+    def k5_on(children, leaves, cost, weights, hamming=False, masks=False,
+              plain_reps=5) -> dict:
+        def call(fn):
+            return lambda: fn(children, leaves, cost, weights, hamming=hamming,
+                              sequences_are_masks=masks)
+        return measure(
+            torch, call(batched_sankoff_score_cuda), call(batched_sankoff_score_plain),
+            *k5_work(children.shape[0], leaves.shape[0], leaves.shape[1],
+                     cost.shape[0], hamming),
+            plain_reps=plain_reps,
+        )
+
+    k5_shapes = {}
+    k5_shapes["c"] = dict(
+        shape="c: masks + pattern weights, transition/transversion(1, 2)",
+        n_taxa=aln.shape[0], n_sites=int(patterns.shape[1]),
+        batch=int(ml_batch.shape[0]), **k5_on(ml_batch, pat_t, tt_cost, w_t, masks=True,
+                                             plain_reps=2))
+    emit("k5", **k5_shapes["c"])
     del ml_batch
     # (c) per-branch P, JC lengths U(0.05, 1.0); states with 5% missing
     # (negative), so state mode's missing data is held against the plain
@@ -458,8 +545,7 @@ def main() -> int:
     # 6. NNI route: candidate batches through K1.
     nni_fasta = os.path.join(workdir, "nni.fasta")
     simulate_fasta(nni_fasta, NNI_SHAPE["n_taxa"], NNI_SHAPE["n_sites"], SEED + 2)
-    for fn in (batched_fitch_score_cuda, insertion_delta_cuda, batched_log_likelihood_cuda):
-        fn.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     nni = run_cli(["infer", "--alignment", nni_fasta, "--neighborhood", "nni",
                    "--rounds", "20"])
@@ -487,17 +573,13 @@ def main() -> int:
 
     # 6b. ML NNI route on the main path's alignment: candidate batches
     # ranked by K3/K4, then the Newton fit.
-    for fn in (batched_fitch_score_cuda, insertion_delta_cuda, batched_log_likelihood_cuda):
-        fn.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     ml = run_cli(["infer", "--alignment", main_fasta, "--criterion", "ml",
                   "--neighborhood", "nni", "--rounds", "10"])
     torch.cuda.synchronize()
     ml_wall = time.perf_counter() - t0
-    ml_launches = {
-        "k1": batched_fitch_score_cuda.launches, "k2": insertion_delta_cuda.launches,
-        "k34": batched_log_likelihood_cuda.launches,
-    }
+    ml_launches = launch_counts()
     if ml_launches["k34"] <= 0 or ml_launches["k2"] <= 0:
         raise AssertionError(f"the ML NNI route skipped a kernel: {ml_launches}")
     # The returned tree rescored at P(0.1) by the kernel and by the plain
@@ -549,8 +631,7 @@ def main() -> int:
     # size: its scan rounds are launch-bound Python loops.
     scan_fasta = os.path.join(workdir, "ml_scan.fasta")
     simulate_fasta(scan_fasta, ML_SCAN_SHAPE["n_taxa"], ML_SCAN_SHAPE["n_sites"], SEED + 4)
-    for fn in (batched_fitch_score_cuda, insertion_delta_cuda, batched_log_likelihood_cuda):
-        fn.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     scan = run_cli(["infer", "--alignment", scan_fasta, "--criterion", "ml",
                     "--rounds", "5"])
@@ -570,6 +651,151 @@ def main() -> int:
          k1_launches=batched_fitch_score_cuda.launches,
          k2_launches=insertion_delta_cuda.launches,
          k34_launches=batched_log_likelihood_cuda.launches)
+
+    # 6e. K5 against its plain version, bit for bit, at its other shapes.
+    # (a) bench.py's shape under transition/transversion(1, 2) costs.
+    n, length, batch = (K5_BENCH_SHAPE[k] for k in ("n_taxa", "n_sites", "batch"))
+    trees = torch.as_tensor(random_trees(rng, n, batch), device=dev)
+    states = torch.as_tensor(rng.integers(0, 4, (n, length)).astype(np.int32), device=dev)
+    ones = torch.ones((length,), device=dev)
+    k5 = k5_on(trees, states, tt_cost, ones)
+    k5_shapes["a"] = dict(shape="a: bench.py's shape, transition/transversion(1, 2)",
+                          **K5_BENCH_SHAPE, **k5)
+    emit("k5", **k5_shapes["a"])
+    # (f) the closed-form Hamming mode on the same trees and states, with K1
+    # on them (as singleton masks) beside it.
+    hamming4 = CostModel.hamming(4, device=dev).matrix
+    k5_shapes["f"] = dict(shape="f: closed-form Hamming, Q = 4", **K5_BENCH_SHAPE,
+                          **k5_on(trees, states, hamming4, ones, hamming=True),
+                          k1_same_inputs=k1_on(trees, torch.ones_like(states) << states, ones))
+    emit("k5", **k5_shapes["f"])
+    del trees
+    # (d) protein-sized Q = 20 under a seeded asymmetric integer cost 0..3.
+    n, length, batch, q = K5_Q20_SHAPE.values()
+    q20_cost = rng.integers(0, 4, (q, q)).astype(np.float32)
+    np.fill_diagonal(q20_cost, 0.0)
+    k5_shapes["d"] = dict(shape="d: Q = 20, asymmetric integer cost", **K5_Q20_SHAPE, **k5_on(
+        torch.as_tensor(random_trees(rng, n, batch), device=dev),
+        torch.as_tensor(rng.integers(0, q, (n, length)).astype(np.int32), device=dev),
+        torch.as_tensor(q20_cost, device=dev), ones))
+    emit("k5", **k5_shapes["d"])
+    # (e) Hamming at Q = 61 (codons) through the dispatch: past Fitch's 32
+    # states, so K5 in its general mode, on the runtime-Q kernel.
+    n, length, batch, q = K5_Q61_SHAPE.values()
+    trees61 = torch.as_tensor(random_trees(rng, n, batch), device=dev)
+    topos61 = Topology(trees61, torch.zeros((batch, 2 * n - 1), dtype=torch.int32, device=dev))
+    states61 = torch.as_tensor(rng.integers(0, q, (n, length)).astype(np.int32), device=dev)
+    hamming61 = CostModel.hamming(q, device=dev).matrix
+    k5_shapes["e"] = dict(
+        shape="e: Hamming, Q = 61, through the dispatch (general mode)", **K5_Q61_SHAPE,
+        **measure(torch, lambda: batched_scores_fastest(topos61, hamming61, states61),
+                  lambda: batched_sankoff_score_plain(trees61, states61, hamming61, ones),
+                  *k5_work(batch, n, length, q, False)))
+    emit("k5", **k5_shapes["e"])
+    del trees61, topos61
+
+    # 6f. This slice's main path: the weighted-parsimony NNI climb at full
+    # width — stepwise start (best of 4 orders; K2, K1), then
+    # parsimony_hill_climb under transition/transversion(1, 2) on int32
+    # states, whose candidate batches K5 scores. The climb runs under the
+    # profiler (few launches per round, so its wall time is kept).
+    wt_fasta = os.path.join(workdir, "weighted.fasta")
+    # Longer branches than the main path's, so the stepwise start is not
+    # already an NNI optimum under the weighted cost.
+    simulate_fasta(wt_fasta, MAIN_SHAPE["n_taxa"], MAIN_SHAPE["n_sites"], SEED + 5,
+                   branch=(0.05, 0.3), missing=0.0)
+    wt_states = dna_states(wt_fasta)
+    wt_t = torch.as_tensor(wt_states, device=dev)
+    wt_ones = torch.ones((wt_t.shape[1],), device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    wt_start, wt_start_score = stepwise.stepwise_addition_multi(
+        wt_states, 4, n_orders=4, seed=0, device=dev)
+    torch.cuda.synchronize()
+    wt_stepwise_s = time.perf_counter() - t0
+    climbs = []
+    wt_profile = profile_phase(torch, lambda: climbs.append(parsimony_hill_climb(
+        wt_start, tt_cost, wt_t, neighborhood="nni", max_rounds=WEIGHTED_ROUNDS)), None)
+    wt_wall = time.perf_counter() - t0
+    wt_counts = launch_counts()
+    if wt_counts["k5"] <= 0 or wt_counts["k2"] <= 0 or wt_counts["k34"] != 0:
+        raise AssertionError(f"weighted route launches: {wt_counts}")
+    climb = climbs[0]
+    # The returned tree rescored by K5 and by its plain version.
+    wt_tree = climb.topology.children[None].contiguous()
+    wt_rescored = {
+        name: float(fn(wt_tree, wt_t, tt_cost, wt_ones, hamming=False)[0])
+        for name, fn in (("kernel", batched_sankoff_score_cuda),
+                         ("plain", batched_sankoff_score_plain))
+    }
+    if set(wt_rescored.values()) != {climb.score}:
+        raise AssertionError(f"weighted climb score {climb.score} != {wt_rescored}")
+    emit("weighted_route",
+         command="stepwise_addition_multi(4 orders) + parsimony_hill_climb(nni, "
+                 f"transition_transversion(1, 2), max_rounds={WEIGHTED_ROUNDS})",
+         n_taxa=int(wt_t.shape[0]), n_sites=int(wt_t.shape[1]),
+         start_unit_cost_score=wt_start_score, weighted_score=climb.score,
+         rounds=climb.rounds, evaluations=climb.evaluations, trace=climb.trace,
+         stepwise_s=wt_stepwise_s, climb_s=wt_profile["profiled_wall_s"], wall_s=wt_wall,
+         launches=wt_counts, rescored=wt_rescored, profile=wt_profile)
+    # K5 (b): the route's own batch, the NNI neighbourhood of its start tree.
+    wt_batch = torch.as_tensor(nni_neighbors_host(wt_start)[0], device=dev)
+    k5_shapes["b"] = dict(
+        shape="b: the weighted NNI route's batch, transition/transversion(1, 2)",
+        n_taxa=int(wt_t.shape[0]), n_sites=int(wt_t.shape[1]),
+        batch=int(wt_batch.shape[0]),
+        **k5_on(wt_batch, wt_t, tt_cost, wt_ones, plain_reps=2))
+    emit("k5", **k5_shapes["b"])
+    del wt_batch, wt_start, climbs, climb
+
+    # 6g. The score command on generated data (plain-torch Sankoff DP and
+    # reconstruction on the card), its score held against K5's rescoring
+    # of the same balanced tree; then bench on the codon alphabet (K5) and
+    # on DNA (K1), each batch held against the plain version.
+    reset_counts()
+    t0 = time.perf_counter()
+    scored = run_cli(SCORE_ARGS)
+    torch.cuda.synchronize()
+    score_wall = time.perf_counter() - t0
+    score_counts = launch_counts()
+    n_leaves, n_sites = int(SCORE_ARGS[2]), int(SCORE_ARGS[4])
+    gt = generate_groundtruth(n_leaves, 4, 3, n_sites, seed=0, device=dev)
+    balanced = balanced_topology(n_leaves, dev).children[None].contiguous()
+    gt_leaves = gt.all_sequences[:n_leaves].to(torch.int32)
+    gt_ones = torch.ones((n_sites,), device=dev)
+    score_rescored = {
+        name: float(fn(balanced, gt_leaves, hamming4, gt_ones, hamming=False)[0])
+        for name, fn in (("kernel", batched_sankoff_score_cuda),
+                         ("plain", batched_sankoff_score_plain))
+    }
+    if set(score_rescored.values()) != {scored["parsimony_score"]}:
+        raise AssertionError(f"score {scored} != K5 rescoring {score_rescored}")
+    emit("score", command=" ".join(SCORE_ARGS), **scored, wall_s=score_wall,
+         launches=score_counts, k5_rescored=score_rescored)
+    del gt, balanced, gt_leaves
+    bench_runs = {}
+    for n_states in (61, 4):
+        argv = BENCH_ARGS + ["--states", str(n_states)]
+        reset_counts()
+        t0 = time.perf_counter()
+        bench_out, bench_scores = run_cli(argv)
+        torch.cuda.synchronize()
+        bench_wall = time.perf_counter() - t0
+        bench_counts = launch_counts()
+        topos, cost, leaves = bench_inputs(build_parser().parse_args(argv), dev)
+        ones_b = torch.ones((leaves.shape[1],), device=dev)
+        if n_states > 32:
+            want = batched_sankoff_score_plain(topos.children, leaves, cost, ones_b)
+        else:
+            want = batched_fitch_score_plain(
+                topos.children, torch.ones_like(leaves) << leaves, ones_b)
+        kernel = "k5" if n_states > 32 else "k1"
+        if bench_counts[kernel] <= 0 or not torch.equal(bench_scores, want):
+            raise AssertionError(f"bench --states {n_states}: {bench_counts}, scores differ")
+        bench_runs[n_states] = dict(bench_out, wall_s=bench_wall, launches=bench_counts)
+        emit("bench", command=" ".join(argv), same_scores_as_plain=True,
+             **bench_runs[n_states])
+        del topos, leaves, bench_scores, want
 
     # 7. Reference: on a small, divergent alignment (the climbs take rounds)
     # the card's run returns the same tree and score as the CPU run — the
@@ -607,6 +833,37 @@ def main() -> int:
              n_taxa=REF_SHAPE["n_taxa"], neg_log_likelihood=on_card["neg_log_likelihood"],
              ranking_score=on_card["ranking_score"],
              search_rounds=on_card["search_rounds"], same_tree=True, rel_err=rel)
+    # The weighted NNI climb (from a one-order stepwise start) and
+    # ``score --alignment`` with ``--output-fasta``: card and CPU identical.
+    wref_fasta = os.path.join(workdir, "weighted_ref.fasta")
+    simulate_fasta(wref_fasta, REF_SHAPE["n_taxa"], REF_SHAPE["n_sites"], SEED + 6,
+                   branch=(0.2, 0.6), missing=0.0)
+    wref = dna_states(wref_fasta)
+    climbed = {}
+    for device in ("cuda", "cpu"):
+        start, _ = stepwise.stepwise_addition_multi(wref, 4, n_orders=1, seed=0, device=device)
+        result = parsimony_hill_climb(
+            start, CostModel.transition_transversion(1.0, 2.0, device=device).matrix,
+            torch.as_tensor(wref, device=device), neighborhood="nni", max_rounds=50)
+        climbed[device] = (result.topology.children.cpu().tolist(), result.score,
+                           result.rounds, result.evaluations)
+    if climbed["cuda"] != climbed["cpu"]:
+        raise AssertionError(f"weighted climb: card {climbed['cuda'][1:]} != cpu {climbed['cpu'][1:]}")
+    emit("reference", route="weighted nni climb, transition/transversion(1, 2)",
+         n_taxa=REF_SHAPE["n_taxa"], weighted_score=climbed["cuda"][1],
+         rounds=climbed["cuda"][2], evaluations=climbed["cuda"][3], same_tree_and_score=True)
+    scored_on = {}
+    for device in ("cuda", "cpu"):
+        fasta_out = os.path.join(workdir, f"score_{device}.fasta")
+        out = run_cli(["score", "--alignment", ref_fasta, "--output-fasta", fasta_out,
+                       "--device", device])
+        out.pop("output_fasta")
+        with open(fasta_out) as fh:
+            scored_on[device] = (out, fh.read())
+    if scored_on["cuda"] != scored_on["cpu"]:
+        raise AssertionError(f"score --alignment: card {scored_on['cuda'][0]} != cpu")
+    emit("reference", command="score --alignment --output-fasta", **scored_on["cuda"][0],
+         same_output_and_fasta=True)
     shutil.rmtree(workdir)
 
     kernels = [
@@ -616,6 +873,8 @@ def main() -> int:
             "replaces": "trex_tpu/ops/sankoff_pallas.py:183",
             "launches": main_k1, "nni_route_launches": nni_k1,
             "ml_nni_route_launches": ml_launches["k1"],
+            "weighted_route_launches": wt_counts["k1"],
+            "bench_q4_launches": bench_runs[4]["launches"]["k1"],
             "shape": K1_SHAPE, **k1, "library_ms": None,
             "at_main_path": k1_main, "at_nni_route": k1_nni,
         },
@@ -625,6 +884,7 @@ def main() -> int:
             "replaces": "trex_tpu/ops/insertion_pallas.py:84",
             "launches": main_k2, "nni_route_launches": nni_k2,
             "ml_nni_route_launches": ml_launches["k2"],
+            "weighted_route_launches": wt_counts["k2"],
             "shape": {"n_taxa": MAIN_SHAPE["n_taxa"], "padded_patterns": sites},
             **k2, "library_ms": None,
         },
@@ -635,8 +895,20 @@ def main() -> int:
                          "trex_tpu/ops/likelihood_pallas.py:135"],
             # Its path is the ML NNI route; the parsimony main path runs none.
             "launches": ml_launches["k34"], "main_path_launches": main_k34,
+            "weighted_route_launches": wt_counts["k34"],
             "shape": K34_SHAPE, **k34, "library_ms": None,
             "at_ml_nni_route": k34_route, "per_branch": k34_branch,
+        },
+        {
+            "name": "sankoff_batched", "route": "cuda",
+            "source": "trex_tpu_torch/csrc/sankoff_batched.cu",
+            "replaces": "trex_tpu/ops/sankoff_pallas.py:62",
+            # Its path is the weighted NNI route; bench runs it at Q = 61.
+            "launches": wt_counts["k5"], "main_path_launches": main_counts["k5"],
+            "bench_q61_launches": bench_runs[61]["launches"]["k5"],
+            "score_launches": score_counts["k5"],
+            "shape": K5_BENCH_SHAPE, **k5, "library_ms": None,
+            "at_shapes": {key: k5_shapes[key] for key in "bcdef"},
         },
     ]
     emit("done", seconds=time.perf_counter() - t_start)

@@ -10,11 +10,18 @@ import pytest
 import torch
 from _torch_parity import integer_weights, parents_of, random_children, random_masks
 
+from trex_tpu.ops.fitch import fitch_reconstruct as jax_fitch_reconstruct
 from trex_tpu.ops.fitch import fitch_score as jax_fitch_score
+from trex_tpu.ops.fitch import fitch_state_sets as jax_fitch_state_sets
 from trex_tpu.ops.sankoff_pallas import batched_fitch_score_pallas
 from trex_tpu.topology import Topology as JaxTopology
 from trex_tpu_torch.ops.dispatch import batched_scores_fastest
-from trex_tpu_torch.ops.fitch import batched_fitch_score, fitch_score
+from trex_tpu_torch.ops.fitch import (
+    batched_fitch_score,
+    fitch_reconstruct,
+    fitch_score,
+    fitch_state_sets,
+)
 from trex_tpu_torch.ops.fitch_cuda import (
     batched_fitch_score_cuda,
     batched_fitch_score_plain,
@@ -101,12 +108,35 @@ def test_batched_entry_and_dispatch_agree():
     np.testing.assert_array_equal(direct.numpy(), dispatched.numpy())
 
 
+@pytest.mark.parametrize("masks", [True, False])
+def test_state_sets_and_reconstruction_match_jax(masks):
+    children, leaves, _ = _inputs(7)
+    if not masks:
+        leaves = np.random.default_rng(7).integers(0, 4, leaves.shape).astype(np.int32)
+    topo = from_numpy(children[0], parents_of(children[0]))
+    sets, ambiguity = fitch_state_sets(topo, torch.as_tensor(leaves), sequences_are_masks=masks)
+    ref_sets, ref_ambiguity = jax_fitch_state_sets(
+        _jax_topo(children[0]), jnp.asarray(leaves), sequences_are_masks=masks
+    )
+    np.testing.assert_array_equal(sets.numpy(), np.asarray(ref_sets))
+    np.testing.assert_array_equal(ambiguity.numpy(), np.asarray(ref_ambiguity))
+    seqs, score = fitch_reconstruct(topo, torch.as_tensor(leaves), 4, sequences_are_masks=masks)
+    ref_seqs, ref_score = jax_fitch_reconstruct(
+        _jax_topo(children[0]), jnp.asarray(leaves), n_states=4, sequences_are_masks=masks
+    )
+    np.testing.assert_array_equal(seqs.numpy(), np.asarray(ref_seqs))
+    assert score.dtype == torch.float32 and float(score) == float(ref_score)
+
+
 def test_dispatch_rejects_general_costs():
+    # General costs go to the Sankoff kernel (K5), which takes state-set
+    # masks only up to 32 states: a larger general cost on masks is refused.
     children, masks, _ = _inputs(5)
-    cost = CostModel.hamming(4).matrix * 2.0
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    cost = CostModel.hamming(40).matrix * 2.0
+    with pytest.raises(ValueError, match="at most 32 states"):
         batched_scores_fastest(
-            from_numpy(children, parents_of(children)), cost, torch.as_tensor(masks)
+            from_numpy(children, parents_of(children)), cost, torch.as_tensor(masks),
+            sequences_are_masks=True,
         )
 
 

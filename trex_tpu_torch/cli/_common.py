@@ -2,7 +2,24 @@
 
 from __future__ import annotations
 
+import argparse
+
 import numpy as np
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    """The generated-data flags the JAX commands share."""
+    p.add_argument("--leaves", type=int, default=16)
+    p.add_argument("--sites", type=int, default=128)
+    p.add_argument("--states", type=int, default=4)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--metrics-file", type=str, default=None)
+
+
+def _add_device(p: argparse.ArgumentParser, what: str) -> None:
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help=f"where {what} runs (default cuda; raises when no "
+                        "card is present)")
 
 
 def _load_alignment(path: str, alphabet_name: str):

@@ -1,5 +1,5 @@
 """Argument parser and entry point (counterpart of ``trex_tpu/cli/parser.py``;
-the ``infer`` command only)."""
+the ``score``, ``infer`` and ``bench`` commands)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,10 @@ import argparse
 import torch
 
 import trex_tpu_torch.cli as _cli_pkg
+from trex_tpu_torch.cli._common import _add_common, _add_device
 from trex_tpu_torch.cli.infer import cmd_infer
+from trex_tpu_torch.cli.score import cmd_score
+from trex_tpu_torch.cli.search_cmds import cmd_bench
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -17,6 +20,32 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("score", help="exact Sankoff scoring + reconstruction")
+    _add_common(p)
+    p.add_argument("--mutations", type=int, default=3)
+    p.add_argument("--alignment", "--fasta", dest="fasta", type=str,
+                   default=None,
+                   help="score a real alignment (FASTA/PHYLIP/NEXUS, "
+                        "auto-detected) instead of generated data")
+    p.add_argument("--tree", type=str, default=None,
+                   help="newick tree to score (default: stepwise addition)")
+    p.add_argument("--alphabet", choices=("dna", "protein"), default="dna")
+    p.add_argument("--criterion", choices=("parsimony", "ml"),
+                   default="parsimony",
+                   help="parsimony (ml: a later slice)")
+    p.add_argument("--model", type=str, default="jc",
+                   help="substitution model for --criterion ml (a later slice)")
+    p.add_argument("--model-file", type=str, default=None,
+                   help="PAML-format rate file (a later slice)")
+    p.add_argument("--site-rates", type=str, default=None,
+                   help="posterior per-site rates (a later slice)")
+    p.add_argument("--asr", choices=("marginal", "joint"), default="marginal",
+                   help="ASR flavor for --criterion ml (a later slice)")
+    p.add_argument("--output-fasta", type=str, default=None,
+                   help="write leaves + reconstructed ancestors here")
+    _add_device(p, "the scoring")
+    p.set_defaults(fn=cmd_score)
 
     p = sub.add_parser("infer", help="infer a tree from an alignment file")
     p.add_argument("--alignment", "--fasta", dest="fasta", type=str,
@@ -71,10 +100,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output-tree", type=str, default=None)
     p.add_argument("--mesh", type=str, default=None, metavar="T,S",
                    help="only '1,1' (one device) is ported")
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="where the search runs (default cuda; raises when "
-                        "no card is present)")
+    _add_device(p, "the search")
     p.set_defaults(fn=cmd_infer)
+
+    p = sub.add_parser("bench", help="batched scoring throughput")
+    _add_common(p)
+    p.add_argument("--batch", type=int, default=512)
+    p.add_argument("--reps", type=int, default=20)
+    _add_device(p, "the scoring")
+    p.set_defaults(fn=cmd_bench)
     return parser
 
 

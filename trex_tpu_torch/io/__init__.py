@@ -2,7 +2,8 @@
 ``trex_tpu/io/__init__.py`` the parsimony and ML paths need).
 
 Alignments come in as FASTA/PHYLIP/NEXUS text and leave as int32
-state-set masks; trees leave as newick, with or without branch lengths.
+state-set masks (reconstructed states go back out as FASTA); trees come in
+and leave as newick, with or without branch lengths.
 Move generation (SPR, NNI) and
 canonical numbering run on the host in Python (``io.fallback``).
 """
@@ -14,6 +15,7 @@ import numpy as np
 from trex_tpu_torch.io.fallback import (
     _canonicalize,
     py_nni_neighbors,
+    py_parse_newick,
     py_spr_move,
     py_write_newick,
 )
@@ -29,6 +31,98 @@ from trex_tpu_torch.io.formats import (
 from trex_tpu_torch.topology import Topology, from_numpy
 
 _NEEDS_QUOTING = set(" ()[]{}:;,'\"")
+
+
+def _preprocess_newick(text: str) -> tuple[str, dict[str, str]]:
+    """Strip ``[...]`` comments and lift quoted labels to placeholder tokens;
+    returns the cleaned text and the token -> original-label map (``''``
+    escapes a quote inside a label)."""
+    out: list[str] = []
+    quoted: dict[str, str] = {}
+    i, counter = 0, 0
+    while i < len(text):
+        c = text[i]
+        if c == "[":
+            end = text.find("]", i)
+            if end < 0:
+                raise ValueError("unterminated [comment] in newick input")
+            i = end + 1
+        elif c == "'":
+            buf: list[str] = []
+            j = i + 1
+            while j < len(text):
+                if text[j] == "'" and j + 1 < len(text) and text[j + 1] == "'":
+                    buf.append("'")
+                    j += 2
+                elif text[j] == "'":
+                    break
+                else:
+                    buf.append(text[j])
+                    j += 1
+            else:
+                raise ValueError("unterminated quoted label in newick input")
+            token = f"__q{counter}__"
+            counter += 1
+            quoted[token] = "".join(buf)
+            out.append(token)
+            i = j + 1
+        else:
+            out.append(c)
+            i += 1
+    return "".join(out), quoted
+
+
+def load_newick(text: str, device="cpu") -> tuple[Topology, np.ndarray, list[str]]:
+    """Parse newick into (Topology, branch lengths by child node, leaf names).
+
+    Tolerates ``[...]`` comments, single-quoted labels, internal-node
+    labels and missing branch lengths. Leaves are numbered in order of
+    appearance, ancestors canonically.
+    """
+    text, quoted = _preprocess_newick(text)
+    children, parents, blens, names = py_parse_newick(text)
+    if quoted:
+        names = [quoted.get(n, n) for n in names]
+    return from_numpy(children, parents, device), blens, names
+
+
+def relabel_leaves(topology: Topology, new_ids: np.ndarray) -> Topology:
+    """Permute leaf indices (``new_ids[i]`` = new index of current leaf i)
+    and re-canonicalize the ancestor numbering."""
+    children, _ = topology.to_numpy()
+    n_leaves = topology.n_leaves
+
+    def mapped(node: int) -> int:
+        return int(new_ids[node]) if node < n_leaves else node
+
+    kids = {
+        n_leaves + a: [mapped(int(children[a, 0])), mapped(int(children[a, 1]))]
+        for a in range(n_leaves - 1)
+    }
+    ch, par, _ = _canonicalize(n_leaves, kids, topology.n_all - 1)
+    return from_numpy(ch, par, topology.device)
+
+
+def align_leaf_order(
+    topology: Topology, names: list[str], target_names: list[str]
+) -> Topology:
+    """Renumber leaves so leaf i carries ``target_names[i]`` (a tree file's
+    appearance order to an alignment's row order)."""
+    index_of = {name: i for i, name in enumerate(target_names)}
+    if set(names) != set(target_names):
+        raise ValueError("leaf name sets differ")
+    return relabel_leaves(topology, np.asarray([index_of[n] for n in names], dtype=np.int32))
+
+
+def write_fasta(names: list[str], sequences, alphabet: str = DNA) -> str:
+    """Serialize an integer state matrix (numpy or tensor) back to FASTA."""
+    table = np.frombuffer(alphabet.encode("ascii"), dtype=np.uint8)
+    seqs = np.asarray(sequences.cpu() if hasattr(sequences, "cpu") else sequences)
+    rows = []
+    for name, row in zip(names, seqs.astype(np.int64)):
+        rows.append(f">{name}")
+        rows.append(table[row].tobytes().decode("ascii"))
+    return "\n".join(rows) + "\n"
 
 
 def _quote_names(names: list[str] | None) -> list[str] | None:
@@ -158,12 +252,16 @@ __all__ = [
     "DNA",
     "PROTEIN",
     "IUPAC_DNA_MASKS",
+    "align_leaf_order",
     "canonicalize_topology",
     "encode_alignment_masks",
+    "load_newick",
     "nni_neighbors_host",
     "parse_fasta_masks",
     "parse_nexus",
     "parse_phylip",
+    "relabel_leaves",
     "save_newick",
     "spr_move",
+    "write_fasta",
 ]

@@ -1,5 +1,5 @@
-"""Host-side tree moves and writers in pure Python (counterpart of the
-subset of ``trex_tpu/io/fallback.py`` the parsimony path needs).
+"""Host-side tree moves, newick parser and writer in pure Python (counterpart
+of the subset of ``trex_tpu/io/fallback.py`` the parsimony path needs).
 
 The JAX package calls a native library for these when it is built; these
 Python versions share its contracts (canonical numbering, move validity,
@@ -59,6 +59,80 @@ def _canonicalize(n_leaves: int, kids: dict[int, list[int]], root: int):
         parents[c1] = p
     parents[n_all - 1] = n_all - 1
     return children, parents, relabel
+
+
+def py_parse_newick(text: str):
+    """Parse rooted binary newick; returns (children, parents, blens, names)
+    with leaves numbered in order of appearance and ancestors canonical."""
+    pos = 0
+    nodes: list[dict] = []
+
+    def skip_ws():
+        nonlocal pos
+        while pos < len(text) and text[pos].isspace():
+            pos += 1
+
+    def parse_clade() -> int:
+        nonlocal pos
+        skip_ws()
+        if pos >= len(text):
+            raise ValueError("unexpected end of newick")
+        node = {"kids": [], "label": "", "blen": 0.0, "leaf": False}
+        nodes.append(node)
+        idx = len(nodes) - 1
+        if text[pos] == "(":
+            pos += 1
+            while True:
+                node["kids"].append(parse_clade())
+                skip_ws()
+                if pos < len(text) and text[pos] == ",":
+                    pos += 1
+                    continue
+                break
+            skip_ws()
+            if pos >= len(text) or text[pos] != ")":
+                raise ValueError("missing ')'")
+            pos += 1
+        else:
+            node["leaf"] = True
+        start = pos
+        while pos < len(text) and text[pos] not in ":,()' ;\t\n":
+            pos += 1
+        node["label"] = text[start:pos]
+        skip_ws()
+        if pos < len(text) and text[pos] == ":":
+            pos += 1
+            bstart = pos
+            while pos < len(text) and (text[pos].isdigit() or text[pos] in ".+-eE"):
+                pos += 1
+            node["blen"] = float(text[bstart:pos])
+        return idx
+
+    root = parse_clade()
+    leaves = [i for i, n in enumerate(nodes) if n["leaf"]]
+    for n in nodes:
+        if not n["leaf"] and len(n["kids"]) != 2:
+            raise ValueError("non-binary newick node")
+    n_leaves = len(leaves)
+    engine_id = {}
+    names = []
+    for k, i in enumerate(leaves):
+        engine_id[i] = k
+        names.append(nodes[i]["label"])
+    nxt = n_leaves
+    for i, n in enumerate(nodes):
+        if not n["leaf"]:
+            engine_id[i] = nxt
+            nxt += 1
+    kids = {
+        engine_id[i]: [engine_id[c] for c in n["kids"]]
+        for i, n in enumerate(nodes)
+    }
+    children, parents, relabel = _canonicalize(n_leaves, kids, engine_id[root])
+    blens = np.zeros(2 * n_leaves - 1)
+    for i, n in enumerate(nodes):
+        blens[relabel[engine_id[i]]] = n["blen"]
+    return children, parents, blens, names
 
 
 def py_write_newick(children: np.ndarray, leaf_names: list[str] | None = None) -> str:

@@ -1,21 +1,19 @@
 """Candidate-batch scoring dispatch (counterpart of ``trex_tpu/ops/dispatch.py``).
 
-Hamming costs with at most 32 states go to Fitch bitsets (K1). Other cost
-matrices need the min-plus Sankoff kernel (K5), which a later slice ports.
+Hamming costs with at most 32 states go to Fitch bitsets (K1); every other
+cost matrix, and Hamming with more than 32 states, goes to the min-plus
+Sankoff kernel (K5) in its general mode, with integer states or state-set
+masks. On the card both are hand-written CUDA kernels; on the CPU their
+plain versions run.
 """
 
 from __future__ import annotations
 
 import torch
 
-from trex_tpu_torch.ops.fitch import batched_fitch_score
+from trex_tpu_torch.ops.fitch import batched_fitch_score, site_weights_or_ones
+from trex_tpu_torch.ops.sankoff_cuda import batched_sankoff_score_cuda, is_hamming
 from trex_tpu_torch.topology import Topology
-
-
-def _is_hamming(cost_matrix: torch.Tensor) -> bool:
-    c = torch.as_tensor(cost_matrix).detach().cpu().to(torch.float64)
-    q = c.shape[-1]
-    return bool(torch.equal(c, torch.ones((q, q), dtype=torch.float64) - torch.eye(q, dtype=torch.float64)))
 
 
 def batched_scores_fastest(
@@ -26,16 +24,25 @@ def batched_scores_fastest(
     *,
     sequences_are_masks: bool = False,
 ) -> torch.Tensor:
-    """(B,) f32 parsimony scores of a candidate batch.
+    """(B,) f32 parsimony scores of a candidate batch, on the device of
+    ``leaf_sequences``.
 
-    Hamming costs (Q <= 32) only: Fitch bitsets, through K1 on the card.
+    Hamming cost with Q <= 32: Fitch (K1). Otherwise min-plus Sankoff (K5)
+    with the closed form turned off, as the JAX dispatch does. Integer
+    leaves of any integer type reach the kernels as int32.
     """
-    if not (_is_hamming(cost_matrix) and cost_matrix.shape[-1] <= 32):
-        raise NotImplementedError(
-            "only Hamming costs with <= 32 states are ported; general cost "
-            "matrices need the Sankoff kernel (K5), slice 3 of ROADMAP.md"
+    q = cost_matrix.shape[-1]
+    if is_hamming(cost_matrix) and q <= 32:
+        return batched_fitch_score(
+            topologies, leaf_sequences, site_weights,
+            sequences_are_masks=sequences_are_masks,
         )
-    return batched_fitch_score(
-        topologies, leaf_sequences, site_weights,
+    device = leaf_sequences.device
+    return batched_sankoff_score_cuda(
+        topologies.children.to(device=device, dtype=torch.int32).contiguous(),
+        leaf_sequences.to(torch.int32).contiguous(),
+        torch.as_tensor(cost_matrix, device=device).to(torch.float32).contiguous(),
+        site_weights_or_ones(site_weights, leaf_sequences.shape[-1], device),
+        hamming=False,
         sequences_are_masks=sequences_are_masks,
     )

@@ -63,3 +63,83 @@ def fitch_score(
     return batched_fitch_score(
         batch, leaf_sequences, site_mask, sequences_are_masks=sequences_are_masks
     )[0]
+
+
+def _up_pass(topology: Topology, masks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fitch upward sets (n_all, L) int32 and per-site event counts (L,) int32."""
+    n_leaves = topology.n_leaves
+    children = topology.children.to(device=masks.device, dtype=torch.int64)
+    sets = torch.zeros((topology.n_all, masks.shape[-1]), dtype=torch.int32, device=masks.device)
+    sets[:n_leaves] = masks
+    events = torch.zeros((masks.shape[-1],), dtype=torch.int32, device=masks.device)
+    for a in range(topology.n_ancestors):
+        c = sets[children[a]]
+        inter = c[0] & c[1]
+        empty = inter == 0
+        sets[n_leaves + a] = torch.where(empty, c[0] | c[1], inter)
+        events += empty
+    return sets, events
+
+
+def fitch_state_sets(
+    topology: Topology,
+    leaf_sequences: torch.Tensor,
+    *,
+    sequences_are_masks: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-node optimal-state sets and their ambiguity.
+
+    Returns:
+        sets: (n_all, L) int32 Fitch upward state-set bitmasks.
+        ambiguity: (n_all, L) int32 popcounts (1 = unambiguous).
+    """
+    sets, _ = _up_pass(topology, as_masks(leaf_sequences, sequences_are_masks))
+    bits = torch.arange(32, dtype=torch.int64, device=sets.device)
+    ambiguity = (((sets.to(torch.int64) & 0xFFFFFFFF)[..., None] >> bits) & 1).sum(-1)
+    return sets, ambiguity.to(torch.int32)
+
+
+def _lowest_state(mask: torch.Tensor, n_states: int) -> torch.Tensor:
+    """Index of the lowest set bit of each int32 mask (0 for an empty one)."""
+    lsb = mask & -mask
+    states = torch.zeros_like(mask)
+    for b in range(n_states):
+        states = torch.where(lsb == (1 << b), b, states)
+    return states
+
+
+def fitch_reconstruct(
+    topology: Topology,
+    leaf_sequences: torch.Tensor,
+    n_states: int,
+    *,
+    sequences_are_masks: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fitch score and one optimal ancestral labeling (top-down refinement).
+
+    The root takes the lowest state of its set; a child keeps its parent's
+    state when that state is in the child's set, else takes the lowest
+    state of its own set. With ``sequences_are_masks=True`` the leaves are
+    resolved by the same rule instead of passed through.
+
+    Returns:
+        sequences: (n_all, L) int32 states (unambiguous leaves verbatim).
+        score: 0-d f32 unweighted event count.
+    """
+    n_leaves = topology.n_leaves
+    sets, events = _up_pass(topology, as_masks(leaf_sequences, sequences_are_masks))
+    children = topology.children.to(device=sets.device, dtype=torch.int64)
+    chosen = torch.zeros_like(sets)
+    chosen[-1] = _lowest_state(sets[-1], n_states)
+    for a in range(topology.n_ancestors - 1, -1, -1):
+        parent_state = chosen[n_leaves + a]
+        parent_bit = torch.ones_like(parent_state) << parent_state
+        for k in range(2):
+            child_set = sets[children[a, k]]
+            keep = (child_set & parent_bit) != 0
+            chosen[children[a, k]] = torch.where(
+                keep, parent_state, _lowest_state(child_set, n_states)
+            )
+    if not sequences_are_masks:
+        chosen[:n_leaves] = leaf_sequences.to(torch.int32)
+    return chosen, events.sum().to(torch.float32)

@@ -6,9 +6,14 @@ Two neighborhoods:
   (``ops.spr_scan``) — no candidate trees are built; the best move is
   applied on the host with ``io.spr_move``;
 - ``"nni"``: the host enumerates the 2(n-2) NNI neighbors and the device
-  scores the whole batch in one call (``ops.dispatch``, K1 on the card).
+  scores the whole batch in one call (``ops.dispatch``): on the card K1
+  for a Hamming cost with at most 32 states, K5 (min-plus Sankoff) for any
+  other cost matrix — weighted parsimony, e.g.
+  ``CostModel.transition_transversion(1, 2)`` on integer DNA states.
 
-Both stop at a local optimum or after ``max_rounds`` rounds.
+Both stop at a local optimum or after ``max_rounds`` rounds. Unlike the
+JAX package's default NNI scorer, the port's honours ``site_weights`` and
+``sequences_are_masks``.
 """
 
 from __future__ import annotations
@@ -47,8 +52,10 @@ def parsimony_hill_climb(
 
     Args:
         start: starting topology (moved to the climb's device).
+        cost_matrix: (Q, Q) ``cost[parent_state, child_state]``; the
+            ``"nni"`` scorer picks its kernel from it (``ops.dispatch``).
         leaf_sequences: (n_leaves, L) states or masks, a tensor or a numpy
-            array.
+            array of any integer type (the kernels get int32).
         neighborhood: ``"nni"`` (candidates scored by
             ``ops.dispatch.batched_scores_fastest`` with ``site_weights``
             and ``sequences_are_masks``; the batch carries a broadcast
