@@ -7,7 +7,9 @@ Builds the four CUDA kernel libraries from ``trex_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
 version on the card at its paths' shapes (the parsimony kernels K1, K2 and
 K5 bit for bit, since their scores are integer-valued; the likelihood
-kernel within rtol 1e-5 of |lnL|), times them, then runs the port's routes
+kernel within rtol 1e-5 of |lnL|; K2 at five real stepwise insertions
+and on a 10,000-taxon tree, each with its launch plan), times them, then
+runs the port's routes
 on simulated alignments, each with every launch count set to 0 just
 before it and read just after:
 
@@ -47,7 +49,9 @@ device, or a directory without the port beside this script.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
+import itertools
 import json
 import os
 import shutil
@@ -74,6 +78,19 @@ REF_SHAPE = dict(n_taxa=24, n_sites=300)
 K5_BENCH_SHAPE = dict(n_taxa=64, n_sites=1024, batch=2048)
 K5_Q20_SHAPE = dict(n_taxa=64, n_sites=1024, batch=256, n_states=20)
 K5_Q61_SHAPE = dict(n_taxa=64, n_sites=1024, batch=64, n_states=61)
+# K2 at real stepwise insertions: (a) the main path's alignment halfway,
+# (b) the same early (long parked chain) and last, (c) 2048 taxa, whose
+# 16 KB-per-site table shrinks the sites per block, (d) 20-state masks.
+K2_SHAPES = (
+    dict(shape="a", n_taxa=512, n_sites=2048, n_states=4, insertion=256),
+    dict(shape="b", n_taxa=512, n_sites=2048, n_states=4, insertion=8),
+    dict(shape="b", n_taxa=512, n_sites=2048, n_states=4, insertion=511),
+    dict(shape="c", n_taxa=2048, n_sites=1024, n_states=4, insertion=1024),
+    dict(shape="d", n_taxa=256, n_sites=1024, n_states=20, insertion=128),
+)
+# (e) a random pruned tree too large for the up rows to sit beside the
+# down table, so the kernel reads them from global memory.
+K2_WIDE = dict(shape="e", n_taxa=10_000, n_sites=64)
 WEIGHTED_ROUNDS = 10
 SCORE_ARGS = ["score", "--leaves", "512", "--sites", "2048", "--states", "4"]
 BENCH_ARGS = ["bench", "--leaves", "64", "--sites", "1024", "--batch", "512", "--reps", "5"]
@@ -240,6 +257,69 @@ def k5_work(batch: int, n_taxa: int, n_sites: int, q: int, hamming: bool):
     return n_bytes, float(batch * n_sites * ((n_taxa - 1) * per_node + q))
 
 
+def k2_alignment(fasta_dir: str, n_taxa: int, n_sites: int, n_states: int, seed: int):
+    """(patterns, pattern counts) of a K2 shape's alignment: a simulated
+    DNA FASTA through the CLI's loader and compression for 4 states,
+    random 20-state masks (5% ambiguous subsets) with weights 1..3 else."""
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli._common import _load_alignment
+
+    if n_states == 4:
+        fasta = os.path.join(fasta_dir, f"k2_{n_taxa}x{n_sites}.fasta")
+        simulate_fasta(fasta, n_taxa, n_sites, seed)
+        patterns, counts = compress_alignment(_load_alignment(fasta, "dna")[1])
+        return patterns.astype(np.int32), counts.astype(np.float32)
+    rng = np.random.default_rng(seed)
+    masks = (1 << rng.integers(0, n_states, (n_taxa, n_sites))).astype(np.int32)
+    ambiguous = rng.random((n_taxa, n_sites)) < 0.05
+    masks[ambiguous] = rng.integers(1, 1 << n_states, int(ambiguous.sum()))
+    return masks, rng.integers(1, 4, n_sites).astype(np.float32)
+
+
+def k2_insertions(patterns, counts, n_states: int, steps, device):
+    """Yield (step, (var, up, t, weights)) — K2's inputs at each stepwise
+    insertion in ``steps`` (ascending), the tree grown by the port's own
+    loop in a seeded random order."""
+    from trex_tpu_torch.search import stepwise
+
+    order = [int(t) for t in np.random.default_rng(SEED).permutation(patterns.shape[0])]
+    st = stepwise._seed_state(patterns, order, (1 << n_states) - 1, counts, device)
+    k = 3
+    for step in steps:
+        for k in range(k, step):
+            stepwise._insert(st, k)
+        k = step
+        var, up, t = stepwise._insertion_inputs(st, step)
+        yield step, (var, up, t, st.weights)
+
+
+def k2_wide_inputs(torch, device, n_taxa: int, n_sites: int, seed: int):
+    """K2's inputs (var, up, t, weights) on a random tree with one leaf
+    pruned (its parent row a pass-through pair), random masks 1..15 in
+    every up row and the event flag (bit 30) on a third of the internal
+    rows, weights 1..3."""
+    rng = np.random.default_rng(seed)
+    children = random_trees(rng, n_taxa, 1)[0]
+    t = int(rng.integers(n_taxa))
+    row = int(np.nonzero((children == t).any(axis=1))[0][0])
+    sibling = int(children[row].sum() - t)
+    children[row] = (sibling, sibling)
+    up = rng.integers(1, 16, (2 * n_taxa - 1, n_sites)).astype(np.int32)
+    up[n_taxa:][rng.random(n_taxa - 1) < 1 / 3] |= 1 << 30
+    weights = rng.integers(1, 4, n_sites).astype(np.float32)
+    return (torch.as_tensor(children, device=device), torch.as_tensor(up, device=device),
+            t, torch.as_tensor(weights, device=device))
+
+
+def k2_work(n_all: int, sites: int) -> tuple[float, float]:
+    """K2's (bytes, int32 ops): children, up table and weights in, delta
+    out; the down pass's two combine0 (7 ops each) per ancestor and site,
+    the delta pass's combine0, AND, compare, select and add per node and
+    site."""
+    n_bytes = 4.0 * ((n_all // 2) * 2 + n_all * sites + sites + n_all)
+    return n_bytes, 14.0 * (n_all // 2) * sites + 11.0 * n_all * sites
+
+
 def strip_lengths(newick: str) -> str:
     import re
 
@@ -316,8 +396,10 @@ def main() -> int:
         batched_fitch_score_plain,
     )
     from trex_tpu_torch.ops.insertion_cuda import (
+        device_limits,
         insertion_delta_cuda,
         insertion_delta_plain,
+        launch_plan,
     )
     from trex_tpu_torch.ops.likelihood import jc69_transition
     from trex_tpu_torch.ops.likelihood_asr import optimize_branch_lengths_newton
@@ -399,33 +481,36 @@ def main() -> int:
     )
     emit("k1", shape=K1_SHAPE, trees_per_s=batch / (k1["ms"] / 1e3), **k1)
 
-    # 4. K2 at one real stepwise insertion, 512 taxa x 2048 sites.
+    # 4. K2 at real stepwise insertions, shapes (a)-(d) of K2_SHAPES, and on
+    # the wide tree (e), each bit for bit against its plain version, with
+    # its launch plan.
     main_fasta = os.path.join(workdir, "main.fasta")
     simulate_fasta(main_fasta, MAIN_SHAPE["n_taxa"], MAIN_SHAPE["n_sites"], SEED + 1)
     _, aln, n_states = _load_alignment(main_fasta, "dna")
     patterns, counts = compress_alignment(aln)
-    order = [int(t) for t in np.random.default_rng(SEED).permutation(aln.shape[0])]
-    st = stepwise._seed_state(
-        patterns.astype(np.int32), order, (1 << n_states) - 1,
-        counts.astype(np.float32), dev,
-    )
-    k_probe = aln.shape[0] // 2
-    for k in range(3, k_probe):
-        stepwise._insert(st, k)
-    var, up_states, t_node = stepwise._insertion_inputs(st, k_probe)
-    n_all, sites = up_states.shape
-    k2 = measure(
-        torch,
-        lambda: insertion_delta_cuda(var, up_states, t_node, st.weights),
-        lambda: insertion_delta_plain(var, up_states, t_node, st.weights),
-        4.0 * (var.numel() + up_states.numel() + sites + n_all),
-        # down pass: two combine0 (7 ops each) per ancestor per site; delta
-        # pass: combine0, AND, compare, select, add per node per site.
-        14.0 * (n_all // 2) * sites + 11.0 * n_all * sites,
-    )
-    emit("k2", n_taxa=aln.shape[0], n_sites=aln.shape[1], padded_patterns=sites,
-         insertion_step=k_probe, **k2)
-    del st, var, up_states
+
+    def k2_on(var, up, t, w, plain_reps=5) -> dict:
+        n_all, sites = up.shape
+        plan = launch_plan(n_all, sites, *device_limits(dev))
+        return dict(padded_patterns=sites, plan=dataclasses.asdict(plan), **measure(
+            torch, lambda: insertion_delta_cuda(var, up, t, w),
+            lambda: insertion_delta_plain(var, up, t, w), *k2_work(n_all, sites),
+            plain_reps=plain_reps))
+
+    k2_shapes = []
+    for key, group in itertools.groupby(K2_SHAPES, lambda c: (c["n_taxa"], c["n_sites"])):
+        group = list(group)
+        q = group[0]["n_states"]
+        pats, cnts = k2_alignment(workdir, *key, q, SEED + 1)
+        for step, inputs in k2_insertions(
+                pats, cnts, q, sorted(c["insertion"] for c in group), dev):
+            cell = next(c for c in group if c["insertion"] == step)
+            k2_shapes.append(dict(cell, **k2_on(*inputs)))
+            emit("k2", **k2_shapes[-1])
+    k2_shapes.append(dict(K2_WIDE, **k2_on(
+        *k2_wide_inputs(torch, dev, K2_WIDE["n_taxa"], K2_WIDE["n_sites"], SEED), plain_reps=2)))
+    emit("k2", **k2_shapes[-1])
+    k2 = next(c for c in k2_shapes if c["shape"] == "a")
 
     # 5. Main path: the default infer on 512 x 2048, on the card. The
     # parsimony path ranks nothing by likelihood: K3/K4 must not launch.
@@ -885,8 +970,7 @@ def main() -> int:
             "launches": main_k2, "nni_route_launches": nni_k2,
             "ml_nni_route_launches": ml_launches["k2"],
             "weighted_route_launches": wt_counts["k2"],
-            "shape": {"n_taxa": MAIN_SHAPE["n_taxa"], "padded_patterns": sites},
-            **k2, "library_ms": None,
+            **k2, "library_ms": None, "at_shapes": k2_shapes,
         },
         {
             "name": "likelihood_batched", "route": "cuda",

@@ -13,8 +13,10 @@ from _torch_parity import integer_weights, random_children, random_masks
 
 from trex_tpu.ops.insertion_pallas import insertion_delta_pallas
 from trex_tpu_torch.ops.insertion_cuda import (
+    LaunchPlan,
     insertion_delta_cuda,
     insertion_delta_plain,
+    launch_plan,
 )
 from trex_tpu_torch.ops.spr_scan import _up_pass
 from trex_tpu_torch.search import stepwise
@@ -58,7 +60,8 @@ def test_plain_matches_pallas_on_pruned_variants(seed):
 @pytest.mark.parametrize("k", [3, 6, 9])
 def test_plain_matches_pallas_on_stepwise_states(k):
     """Inputs in the slot-shift layout of a real stepwise construction,
-    including stale chain rows above the frontier."""
+    including stale chain rows above the frontier. The port hands over the
+    flagged up table; the Pallas kernel takes the masked one."""
     rng = np.random.default_rng(10 + k)
     masks = random_masks(rng, N_LEAVES, LENGTH)
     order = [int(x) for x in rng.permutation(N_LEAVES)]
@@ -69,8 +72,53 @@ def test_plain_matches_pallas_on_stepwise_states(k):
         stepwise._insert(st, step)
     var, up_states, t = stepwise._insertion_inputs(st, k)
     ours = insertion_delta_plain(var, up_states, t, st.weights)
-    ref = _pallas(var.numpy(), up_states.numpy(), t, st.weights.numpy())
+    masked = up_states & stepwise._SMASK
+    ref = _pallas(var.numpy(), masked.numpy(), t, st.weights.numpy())
     np.testing.assert_array_equal(ours.numpy(), ref)
+
+
+def test_plain_masks_the_event_flag():
+    """The flagged and the masked table give the same delta."""
+    rng = np.random.default_rng(21)
+    masks = random_masks(rng, N_LEAVES, LENGTH)
+    order = [int(x) for x in rng.permutation(N_LEAVES)]
+    st = stepwise._seed_state(
+        masks, order, 15, integer_weights(rng, LENGTH), torch.device("cpu")
+    )
+    for step in range(3, 7):
+        stepwise._insert(st, step)
+    var, up_states, t = stepwise._insertion_inputs(st, 7)
+    assert bool((up_states >> 30).any())  # some internal rows carry the flag
+    flagged = insertion_delta_plain(var, up_states, t, st.weights)
+    masked = insertion_delta_plain(var, up_states & stepwise._SMASK, t, st.weights)
+    np.testing.assert_array_equal(flagged.numpy(), masked.numpy())
+
+
+H100_OPTIN = 232_448  # an H100's opt-in shared memory per block, bytes
+
+
+@pytest.mark.parametrize(
+    "n_taxa, length, plan",
+    [
+        # 16 sites a block: 128 blocks on 132 SMs, up rows staged.
+        (512, 2048, LaunchPlan(16, 128, 143_276, True)),
+        # 16 KB of down table per site: S shrinks until both tables fit,
+        # then to a multiple of 4.
+        (2048, 1024, LaunchPlan(4, 256, 180_188, True)),
+        (24, 300, LaunchPlan(3, 100, 1_324, True)),
+        # Up rows no longer fit beside the table: the table alone.
+        (10_000, 64, LaunchPlan(1, 64, 80_004, False)),
+    ],
+)
+def test_launch_plan(n_taxa, length, plan):
+    assert launch_plan(2 * n_taxa - 1, length, H100_OPTIN) == plan
+
+
+def test_launch_plan_refuses_a_table_above_the_limit():
+    n_all = 2 * 29_100 - 1  # one site's int32 down table: 232,796 bytes
+    assert launch_plan(n_all, 64, 4 * n_all + 8).shared_bytes == 4 * n_all + 8
+    with pytest.raises(ValueError, match="opt-in limit of 232448 bytes"):
+        launch_plan(n_all, 64, H100_OPTIN)
 
 
 def test_cpu_wrapper_runs_plain_and_counts_no_launch():

@@ -40,7 +40,7 @@ def _run(cli, argv):
 @pytest.mark.parametrize("n_states, n_mutations", [(4, 3), (20, 5)])
 def test_groundtruth_meets_the_contract(n_states, n_mutations):
     n_leaves, length = 16, 64
-    gt = generate_groundtruth(n_leaves, n_states, n_mutations, length, seed=3)
+    gt = generate_groundtruth(n_leaves, n_states, n_mutations, length, seed=3, device="cpu")
     seqs = gt.all_sequences.numpy()
     assert gt.all_sequences.dtype == gt.masked_sequences.dtype == torch.float32
     assert (seqs[-1] == 0).all() and seqs.min() >= 0 and seqs.max() < n_states
@@ -50,8 +50,16 @@ def test_groundtruth_meets_the_contract(n_states, n_mutations):
     np.testing.assert_array_equal(gt.masked_sequences.numpy()[:n_leaves], seqs[:n_leaves])
     assert (gt.masked_sequences.numpy()[n_leaves:] == 0).all()
     np.testing.assert_array_equal(gt.adjacency.numpy(), balanced_adjacency(n_leaves).numpy())
-    again = generate_groundtruth(n_leaves, n_states, n_mutations, length, seed=3)
+    again = generate_groundtruth(
+        n_leaves, n_states, n_mutations, length, seed=3, device="cpu"
+    )
     assert torch.equal(again.all_sequences, gt.all_sequences)
+
+
+def test_groundtruth_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_groundtruth(4, 4, 1, 8, seed=0)
 
 
 def test_score_generated_matches_jax_reconstruction():
@@ -60,7 +68,7 @@ def test_score_generated_matches_jax_reconstruction():
         "score", "--leaves", str(n_leaves), "--sites", "64", "--states", str(states),
         "--seed", "2", "--device", "cpu",
     ])
-    gt = generate_groundtruth(n_leaves, states, 3, 64, seed=2)
+    gt = generate_groundtruth(n_leaves, states, 3, 64, seed=2, device="cpu")
     truth = gt.all_sequences.numpy()
     recon, _, score = jax_reconstruct(
         jax_balanced(n_leaves), JaxCostModel.hamming(states).matrix,

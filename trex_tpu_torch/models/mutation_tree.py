@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from trex_tpu_torch._device import resolve_device
 from trex_tpu_torch.topology import balanced_topology, topology_to_adjacency
 from trex_tpu_torch.types import PhyloData
 
@@ -45,7 +46,7 @@ def generate_groundtruth(
     n_mutations: int,
     seq_length: int,
     seed: int = 42,
-    device="cpu",
+    device="cuda",
 ) -> PhyloData:
     """Generate a balanced mutation tree and its alignment.
 
@@ -55,6 +56,8 @@ def generate_groundtruth(
         n_mutations: exact substitutions per parent -> child edge.
         seq_length: alignment length L.
         seed: seed of the generator.
+        device: where the result lives (``cuda`` by default; raises when
+            there is no card).
 
     Returns:
         ``PhyloData`` on ``device``: float32 leaves-only sequences (ancestor
@@ -63,6 +66,7 @@ def generate_groundtruth(
     """
     if n_leaves <= 0 or (n_leaves & (n_leaves - 1)) != 0:
         raise ValueError("n_leaves must be a power of 2.")
+    device = resolve_device(device)
     n_all = 2 * n_leaves - 1
     topo = balanced_topology(n_leaves)
     generator = torch.Generator().manual_seed(int(seed))

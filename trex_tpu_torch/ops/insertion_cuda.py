@@ -5,16 +5,80 @@ wrapper and its plain PyTorch version (counterpart of
 ``insertion_delta_cuda`` launches ``csrc/insertion_delta.cu`` for CUDA
 tensors and runs ``insertion_delta_plain`` for CPU tensors; there is no
 other fall back. Its ``launches`` attribute counts kernel launches.
+``launch_plan`` sizes the kernel's blocks and shared memory.
+
+Both versions take up tables whose internal rows carry the stepwise event
+flag in bit 30 (``search/stepwise.py``): the flag is masked on every read.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from trex_tpu_torch.ops import _nvcc
 from trex_tpu_torch.ops.spr_scan import _combine0
+
+THREADS = 256  # threads per block (``kThreads`` in the kernel)
+_FLAGLESS = (1 << 30) - 1  # drops the event flag (bits 30 and 31)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How K2 cuts the sites: ``sites_per_block`` sites per block, each
+    block's (n_all, S) down table (and, when ``staged``, its up rows in
+    walk order and the children) in ``shared_bytes`` of shared memory."""
+
+    sites_per_block: int
+    blocks: int
+    shared_bytes: int
+    staged: bool
+
+
+def _shared_bytes(n_all: int, sites: int, staged: bool) -> int:
+    """The kernel's dynamic shared memory: the down table (rows padded to
+    an odd pitch), when staged the up rows in walk order and the children,
+    then the inserted leaf's row and the weights."""
+    n_anc = (n_all - 1) // 2
+    pitch = sites | 1
+    words = n_all * pitch + 2 * sites
+    if staged:
+        words += 2 * n_anc * pitch + 2 * n_anc
+    return 4 * words
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(n_all: int, length: int, smem_optin: int, n_sms: int = 132) -> LaunchPlan:
+    """Sites per block for an (n_all, length) up table on a card with
+    ``smem_optin`` bytes of opt-in shared memory per block and ``n_sms``
+    SMs.
+
+    The walk is one dependent chain per site, so its time does not grow
+    with the sites a block holds: S = ceil(length / n_sms) puts about one
+    block on each SM. The up rows are staged beside the down table when
+    both fit (S shrinks until they do); otherwise the table alone is kept
+    and the up rows are read from global memory. An S of 4 or more is
+    rounded down to a multiple of 4, so that a block loads its up rows as
+    16-byte quads. Raises ``ValueError`` when one site's table does not
+    fit.
+    """
+    target = min(THREADS, max(1, -(-length // n_sms)))
+    for staged in (True, False):
+        sites = target
+        while sites > 1 and _shared_bytes(n_all, sites, staged) > smem_optin:
+            sites -= 1
+        if sites >= 4:
+            sites -= sites % 4
+        need = _shared_bytes(n_all, sites, staged)
+        if need <= smem_optin:
+            return LaunchPlan(sites, -(-length // sites), need, staged)
+    raise ValueError(
+        f"the insertion kernel needs {need} bytes of shared memory per block for "
+        f"{n_all} nodes, above this card's opt-in limit of {smem_optin} bytes"
+    )
 
 
 def insertion_delta_plain(
@@ -28,9 +92,10 @@ def insertion_delta_plain(
     Args:
         var_children: (n_anc, 2) int32 children of the pruned variant (t's
             parent row already a pass-through pair ``(s, s)``).
-        up_states: (n_all, L) int32 flagless Fitch up sets of the variant
-            (stale rows above the stepwise frontier are fine: their
-            contexts only reach positions the caller masks).
+        up_states: (n_all, L) int32 Fitch up sets of the variant, flagless
+            or with the event flag in bit 30 (masked here); stale rows
+            above the stepwise frontier are fine: their contexts only
+            reach positions the caller masks.
         t_node: the inserted leaf.
         weights: (L,) f32 site weights.
 
@@ -40,6 +105,7 @@ def insertion_delta_plain(
     """
     n_anc = var_children.shape[0]
     n_leaves = n_anc + 1
+    up_states = up_states & _FLAGLESS
     down = torch.zeros_like(up_states)
     pairs = var_children.tolist()
     for a in range(n_anc - 1, -1, -1):
@@ -104,14 +170,19 @@ def insertion_delta_cuda(
     var_children = var_children.contiguous()
     up_states = up_states.contiguous()
     weights = weights.contiguous()
-    down = torch.empty_like(up_states)
     lib = _library()
-    with torch.cuda.device(device):
-        rc = lib.trex_insertion_delta(
-            var_children.data_ptr(), up_states.data_ptr(), weights.data_ptr(),
-            down.data_ptr(), delta.data_ptr(), var_children.shape[0] + 1,
-            length, t_node, torch.cuda.current_stream(device).cuda_stream,
-        )
+    plan = launch_plan(n_all, length, *device_limits(device))
+    args = (
+        var_children.data_ptr(), up_states.data_ptr(), weights.data_ptr(),
+        delta.data_ptr(), None, var_children.shape[0] + 1, length, t_node,
+        plan.sites_per_block, int(plan.staged), plan.shared_bytes,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = lib.trex_insertion_delta(*args)
+    else:
+        with torch.cuda.device(device):
+            rc = lib.trex_insertion_delta(*args)
     if rc != 0:
         raise RuntimeError(f"insertion_delta kernel launch failed: CUDA error {rc}")
     insertion_delta_cuda.launches += 1
@@ -121,9 +192,31 @@ def insertion_delta_cuda(
 insertion_delta_cuda.launches = 0
 
 
+_LIMITS: dict[int, tuple[int, int]] = {}
+
+
+def device_limits(device: torch.device) -> tuple[int, int]:
+    """(opt-in shared memory bytes per block, SM count) of a CUDA device."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _LIMITS:
+        optin, sms = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(index):
+            rc = _library().trex_insertion_device_limits(
+                ctypes.byref(optin), ctypes.byref(sms))
+        if rc != 0:
+            raise RuntimeError(f"insertion_delta device query failed: CUDA error {rc}")
+        _LIMITS[index] = (optin.value, sms.value)
+    return _LIMITS[index]
+
+
+@functools.cache
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("insertion_delta")
     fn = lib.trex_insertion_delta
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    query = lib.trex_insertion_device_limits
+    query.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    query.restype = ctypes.c_int
     return lib

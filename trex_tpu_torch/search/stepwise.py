@@ -132,15 +132,16 @@ def _seed_state(
 
 
 def _insertion_inputs(st: _StepwiseState, k: int):
-    """K2's inputs at step k: (pruned variant children, flagless up sets,
-    t). Marks t's leaf row with its real mask."""
+    """K2's inputs at step k: (pruned variant children, the flagged up
+    sets themselves — K2 masks the flag — and t). Marks t's leaf row with
+    its real mask."""
     t = st.order[k]
     st.up[t] = st.masks[t]
     r = st.n_leaves + k - 2  # induced root; the chain bottom n+k-1 is t's parent
     var = st.children.copy()
     var[k - 1] = (r, r)
     var_dev = torch.as_tensor(var, device=st.up.device)
-    return var_dev, st.up & _SMASK, t
+    return var_dev, st.up, t
 
 
 def _insert(st: _StepwiseState, k: int) -> None:
@@ -183,7 +184,7 @@ def _insert(st: _StepwiseState, k: int) -> None:
 
     # Shift the internal up rows identically and drop w's set in (v's row
     # is below the shift range, so read it pre-shift).
-    wset = _merge_flagged(up_states[v], st.masks[t])
+    wset = _merge_flagged(st.up[v], st.masks[t])
     anc = st.up[n:]
     lo, hi = u_old - n, c_node - n
     if hi > lo:
