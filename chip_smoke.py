@@ -7,9 +7,9 @@ Builds the four CUDA kernel libraries from ``trex_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
 version on the card at its paths' shapes (the parsimony kernels K1, K2 and
 K5 bit for bit, since their scores are integer-valued; the likelihood
-kernel within rtol 1e-5 of |lnL|; K2 at five real stepwise insertions
-and on a 10,000-taxon tree, each with its launch plan), times them, then
-runs the port's routes
+kernel within rtol 1e-5 of |lnL|; K1 at eight shapes (a)-(h) and K2 at
+five real stepwise insertions and on a 10,000-taxon tree, each with its
+launch plan), times them, then runs the port's routes
 on simulated alignments, each with every launch count set to 0 just
 before it and read just after:
 
@@ -33,8 +33,8 @@ before it and read just after:
   (K1).
 
 It also profiles the default ``infer``'s two calls (stepwise addition,
-SPR-scan climb), the ML NNI route's two (climb, Newton fit) and the
-weighted climb with ``torch.profiler`` for the device's busy and idle share
+SPR-scan climb), the NNI route, the ML NNI route's two (climb, Newton fit)
+and the weighted climb with ``torch.profiler`` for the device's busy and idle share
 and the top kernels, and checks on small divergent alignments that the
 card returns the same results as the CPU: ``infer`` for both criteria and
 both neighborhoods, the weighted climb, and ``score --alignment``.
@@ -64,11 +64,28 @@ import numpy as np
 
 SEED = 0
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the
-# float32 rate outside the tensor cores (also used for 32-bit integer ALU
-# work).
+# float32 FMA rate outside the tensor cores (128 lanes x 2 flops per SM per
+# clock), for the float work of K3/K4 and K5.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-K1_SHAPE = dict(n_taxa=64, n_sites=1024, batch=2048)
+# 32-bit integer add and logical results: 64 per SM per clock on compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput table) x 132 SMs x the 1980 MHz SM clock; for K1 and K2.
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# K1 at (a) bench.py's headline, 5% ambiguous DNA masks; (d) 20 and (e) 32
+# states; (f) a big table; (g) the long alignment for which the TPU took
+# its 4-sites-a-word layout; (h) (a) at 6 states, the kernel's 8-plane
+# mode. (b), the main path's rescoring, and (c), the NNI route's batch, are
+# taken from those routes' own runs.
+K1_SHAPES = {
+    "a": dict(n_taxa=64, n_sites=1024, batch=2048, n_states=4),
+    "d": dict(n_taxa=64, n_sites=1024, batch=512, n_states=20),
+    "e": dict(n_taxa=64, n_sites=1024, batch=64, n_states=32),
+    "f": dict(n_taxa=2048, n_sites=1024, batch=4, n_states=4),
+    "g": dict(n_taxa=64, n_sites=8192, batch=256, n_states=4),
+    "h": dict(n_taxa=64, n_sites=1024, batch=2048, n_states=6),
+}
+K1_SHAPE = K1_SHAPES["a"]
 K34_SHAPE = dict(n_taxa=64, n_sites=1024, batch=1024)
 K4_BRANCH_SHAPE = dict(n_taxa=64, n_sites=1024, batch=256)
 MAIN_SHAPE = dict(n_taxa=512, n_sites=2048)
@@ -155,6 +172,50 @@ def random_trees(rng, n_taxa: int, batch: int) -> np.ndarray:
     return children
 
 
+def k1_masks(rng, n_taxa: int, n_sites: int, n_states: int) -> np.ndarray:
+    """(n_taxa, n_sites) int32 state-set masks: single states, 5% of them
+    random non-empty subsets; at 32 states bit 31 (the int32 sign bit) is
+    set too."""
+    masks = np.left_shift(np.int64(1), rng.integers(0, n_states, (n_taxa, n_sites)))
+    ambiguous = rng.random((n_taxa, n_sites)) < 0.05
+    masks[ambiguous] = rng.integers(1, 1 << n_states, int(ambiguous.sum()), dtype=np.int64)
+    return (masks - ((masks >> 31) << 32)).astype(np.int32)
+
+
+def k1_inputs(torch, device, key: str, rng):
+    """(children, masks, weights, n_states) of K1 shape ``key`` of
+    K1_SHAPES: masks, random trees, then weights 1..5, drawn from ``rng``
+    in that order."""
+    shape = K1_SHAPES[key]
+    n, length, q = shape["n_taxa"], shape["n_sites"], shape["n_states"]
+    masks = k1_masks(rng, n, length, q)
+    children = random_trees(rng, n, shape["batch"])
+    weights = rng.integers(1, 6, length).astype(np.float32)
+    return (torch.as_tensor(children, device=device), torch.as_tensor(masks, device=device),
+            torch.as_tensor(weights, device=device), q)
+
+
+def k1_route_inputs(torch, device, workdir: str, key: str):
+    """(children, masks, weights, n_states) like K1's route shapes: (b) one
+    random 512-taxon tree on the main path's compressed alignment, (c) the
+    NNI neighbourhood of a random 128-taxon tree on the NNI route's."""
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli._common import _load_alignment
+    from trex_tpu_torch.io import nni_neighbors_host
+    from trex_tpu_torch.topology import from_numpy, parents_from_children
+
+    shape, seed = (MAIN_SHAPE, SEED + 1) if key == "b" else (NNI_SHAPE, SEED + 2)
+    fasta = os.path.join(workdir, f"k1_{key}.fasta")
+    simulate_fasta(fasta, shape["n_taxa"], shape["n_sites"], seed)
+    patterns, counts = compress_alignment(_load_alignment(fasta, "dna")[1])
+    tree = random_trees(np.random.default_rng(SEED), shape["n_taxa"], 1)
+    if key == "c":
+        tree = nni_neighbors_host(from_numpy(tree[0], parents_from_children(tree[0])))[0]
+    return (torch.as_tensor(tree, device=device),
+            torch.as_tensor(np.ascontiguousarray(patterns, dtype=np.int32), device=device),
+            torch.as_tensor(counts.astype(np.float32), device=device), 4)
+
+
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     """Median milliseconds of one call of ``fn`` over ``reps`` calls after
     ``warmup`` calls: CUDA events around each call, which waits for the
@@ -190,18 +251,19 @@ def back_to_back_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def measure(
     torch, kernel, plain, n_bytes: float, n_ops: float, reps: int = 30,
-    rtol: float | None = None, plain_reps: int = 5,
+    rtol: float | None = None, plain_reps: int = 5, ops_per_s: float = F32_OPS_PER_S,
 ) -> dict:
     """Hold ``kernel()`` against ``plain()`` — bit for bit, or within
-    ``rtol`` of |plain| — and time both (``ms``: the per-call median)."""
+    ``rtol`` of |plain| — and time both (``ms``: the per-call median);
+    the bound takes ``n_ops`` at ``ops_per_s``."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err = float((got - want).abs().max()) if got.numel() else 0.0
@@ -218,7 +280,7 @@ def measure(
     torch.cuda.synchronize()
     if not torch.equal(again, got):
         raise AssertionError("kernel does not reproduce its own result bit for bit")
-    bound, bound_by = bound_ms(n_bytes, n_ops)
+    bound, bound_by = bound_ms(n_bytes, n_ops, ops_per_s)
     return {
         "equal": bool(torch.equal(got, want)), "max_abs_err": err, "max_rel_err": rel,
         "ms": time_ms(torch, kernel, reps),
@@ -228,11 +290,16 @@ def measure(
     }
 
 
-def k1_work(batch: int, n_taxa: int, n_sites: int) -> tuple[float, float]:
+def k1_work(batch: int, n_taxa: int, n_sites: int, n_states: int) -> tuple[float, float]:
     """K1's (bytes, int32 ops): children, leaves, weights in, scores out;
-    an AND, a compare, an OR, a select and an add per set update."""
+    the bit-sliced update per (tree, ancestor, 32-site word) — the least
+    work known for the function: Q ANDs and 3-input ORs for o = OR_q
+    (a_q & b_q) (the first plane an AND, each next one LOP3), Q LOP3s for
+    new_q = (a_q & b_q) | (~o & (a_q | b_q)), and 4 for the event counter
+    (a 3-plane vertical counter's increment): 2Q + 4."""
     n_bytes = 4.0 * (batch * (n_taxa - 1) * 2 + n_taxa * n_sites + n_sites + batch)
-    return n_bytes, 5.0 * batch * (n_taxa - 1) * n_sites
+    words = -(-n_sites // 32)
+    return n_bytes, float(batch * (n_taxa - 1) * words * (2 * n_states + 4))
 
 
 def k34_work(batch: int, n_taxa: int, n_sites: int, q: int, per_branch: bool):
@@ -390,13 +457,14 @@ def main() -> int:
     from trex_tpu_torch.alignment import compress_alignment
     from trex_tpu_torch.cli._common import _load_alignment
     from trex_tpu_torch.io import nni_neighbors_host
+    from trex_tpu_torch._device import device_limits
     from trex_tpu_torch.ops import _nvcc
     from trex_tpu_torch.ops.fitch_cuda import (
         batched_fitch_score_cuda,
         batched_fitch_score_plain,
     )
+    from trex_tpu_torch.ops.fitch_cuda import launch_plan as k1_plan
     from trex_tpu_torch.ops.insertion_cuda import (
-        device_limits,
         insertion_delta_cuda,
         insertion_delta_plain,
         launch_plan,
@@ -460,26 +528,27 @@ def main() -> int:
 
     workdir = tempfile.mkdtemp(prefix="trex_chip_smoke_")
 
-    def k1_on(children, masks, weights) -> dict:
-        return measure(
+    def k1_on(children, masks, weights, n_states=4) -> dict:
+        plan = k1_plan(children.shape[0], masks.shape[0], masks.shape[1], n_states,
+                       *device_limits(dev))
+        return dict(plan=dataclasses.asdict(plan), **measure(
             torch,
-            lambda: batched_fitch_score_cuda(children, masks, weights),
+            lambda: batched_fitch_score_cuda(children, masks, weights, n_states=n_states),
             lambda: batched_fitch_score_plain(children, masks, weights),
-            *k1_work(children.shape[0], masks.shape[0], masks.shape[1]),
-        )
+            *k1_work(children.shape[0], masks.shape[0], masks.shape[1], n_states),
+            ops_per_s=INT32_OPS_PER_S,
+        ))
 
-    # 3. K1 at bench.py's shape: 64 taxa x 1024 sites, B = 2048 trees.
+    # 3. K1 at bench.py's shape (a): 64 taxa x 1024 sites, B = 2048 trees;
+    # then at (d)-(h), each with its launch plan.
     rng = np.random.default_rng(SEED)
-    n, length, batch = K1_SHAPE["n_taxa"], K1_SHAPE["n_sites"], K1_SHAPE["batch"]
-    masks_np = (1 << rng.integers(0, 4, (n, length))).astype(np.int32)
-    ambiguous = rng.random((n, length)) < 0.05
-    masks_np[ambiguous] = rng.integers(1, 16, int(ambiguous.sum()))
-    k1 = k1_on(
-        torch.as_tensor(random_trees(rng, n, batch), device=dev),
-        torch.as_tensor(masks_np, device=dev),
-        torch.as_tensor(rng.integers(1, 6, length).astype(np.float32), device=dev),
-    )
-    emit("k1", shape=K1_SHAPE, trees_per_s=batch / (k1["ms"] / 1e3), **k1)
+    k1 = k1_on(*k1_inputs(torch, dev, "a", rng))
+    emit("k1", shape="a", **K1_SHAPE, trees_per_s=K1_SHAPE["batch"] / (k1["ms"] / 1e3), **k1)
+    k1_shapes = {"a": dict(K1_SHAPE, **k1)}
+    for key in "defgh":
+        k1_shapes[key] = dict(K1_SHAPES[key], **k1_on(
+            *k1_inputs(torch, dev, key, np.random.default_rng(SEED + ord(key)))))
+        emit("k1", shape=key, **k1_shapes[key])
 
     # 4. K2 at real stepwise insertions, shapes (a)-(d) of K2_SHAPES, and on
     # the wide tree (e), each bit for bit against its plain version, with
@@ -491,11 +560,12 @@ def main() -> int:
 
     def k2_on(var, up, t, w, plain_reps=5) -> dict:
         n_all, sites = up.shape
-        plan = launch_plan(n_all, sites, *device_limits(dev))
+        limits = device_limits(dev)
+        plan = launch_plan(n_all, sites, limits.smem_optin, limits.n_sms)
         return dict(padded_patterns=sites, plan=dataclasses.asdict(plan), **measure(
             torch, lambda: insertion_delta_cuda(var, up, t, w),
             lambda: insertion_delta_plain(var, up, t, w), *k2_work(n_all, sites),
-            plain_reps=plain_reps))
+            plain_reps=plain_reps, ops_per_s=INT32_OPS_PER_S))
 
     k2_shapes = []
     for key, group in itertools.groupby(K2_SHAPES, lambda c: (c["n_taxa"], c["n_sites"])):
@@ -632,8 +702,8 @@ def main() -> int:
     simulate_fasta(nni_fasta, NNI_SHAPE["n_taxa"], NNI_SHAPE["n_sites"], SEED + 2)
     reset_counts()
     t0 = time.perf_counter()
-    nni = run_cli(["infer", "--alignment", nni_fasta, "--neighborhood", "nni",
-                   "--rounds", "20"])
+    nni_argv = ["infer", "--alignment", nni_fasta, "--neighborhood", "nni", "--rounds", "20"]
+    nni = run_cli(nni_argv)
     torch.cuda.synchronize()
     nni_wall = time.perf_counter() - t0
     nni_k1 = batched_fitch_score_cuda.launches
@@ -655,6 +725,8 @@ def main() -> int:
          stepwise_s=nni.seconds["start"], climb_s=nni.seconds["climb"],
          wall_s=nni_wall, k1_launches=nni_k1, k2_launches=nni_k2,
          k1_at_this_shape=k1_nni)
+    emit("profile", part="NNI route (the whole infer)",
+         **profile_phase(torch, lambda: run_cli(nni_argv), nni_wall))
 
     # 6b. ML NNI route on the main path's alignment: candidate batches
     # ranked by K3/K4, then the Newton fit.
@@ -962,6 +1034,7 @@ def main() -> int:
             "bench_q4_launches": bench_runs[4]["launches"]["k1"],
             "shape": K1_SHAPE, **k1, "library_ms": None,
             "at_main_path": k1_main, "at_nni_route": k1_nni,
+            "at_shapes": dict(k1_shapes, b=k1_main, c=k1_nni),
         },
         {
             "name": "insertion_delta", "route": "cuda",

@@ -3,11 +3,19 @@ reference) and ``trex_tpu_torch`` (the PyTorch port).
 
 Every input is made with numpy from a seed and handed to both packages as
 numpy arrays, so both see identical data.
+
+Importing this module sets PyTorch to one intra-op thread: the parity
+tests' tensors are tiny, and pytest-xdist's workers share the machine's
+cores, so PyTorch's default of one thread per core in every worker only
+oversubscribes them.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+torch.set_num_threads(1)
 
 
 def random_children(rng: np.random.Generator, n_leaves: int, batch: int) -> np.ndarray:

@@ -54,7 +54,8 @@ def test_infer_matches_jax(fasta, neighborhood, tmp_path):
 
 
 def _sources():
-    return sorted((REPO / "trex_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted((REPO / "trex_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "tools").glob("*.py")))
 
 
 def test_port_imports_nothing_of_jax():

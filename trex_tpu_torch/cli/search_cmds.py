@@ -30,11 +30,12 @@ def bench_inputs(args, device: torch.device):
 
 def run_bench(args) -> tuple[dict, torch.Tensor]:
     """The printed JSON object of ``bench`` and the batch's (B,) scores."""
-    from trex_tpu_torch.ops.dispatch import batched_scores_fastest
+    from trex_tpu_torch.ops.dispatch import batched_scores_fastest, check_alphabet
     from trex_tpu_torch.utils.profiling import timed
 
     device = resolve_device(args.device)
     topos, cost, leaves = bench_inputs(args, device)
+    check_alphabet(cost, leaves)
     mean_s, scores = timed(
         batched_scores_fastest, topos, cost, leaves, device=device, reps=args.reps
     )

@@ -265,16 +265,6 @@ cudaError_t launch(int device, int optin_bytes, int blocks, int shared_bytes,
 
 }  // namespace
 
-// The current device's opt-in shared memory per block (bytes) and SM count.
-// Returns the CUDA error code (0 = success).
-extern "C" int trex_insertion_device_limits(int* optin_bytes, int* n_sms) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = device_optin(device, optin_bytes);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(n_sms, cudaDevAttrMultiProcessorCount, device);
-  return static_cast<int>(err);
-}
-
 // var_children (n_anc, 2) int32, up (n_all, L) int32 up sets (bit 30 may
 // carry a flag; it is masked), weights (L,) f32, delta (n_all,) f32
 // zero-filled by the caller; phase_cycles null, or (blocks, 3) int64 that

@@ -38,17 +38,19 @@ def batched_fitch_score(
     site_mask: torch.Tensor | None = None,
     *,
     sequences_are_masks: bool = False,
+    n_states: int | None = None,
 ) -> torch.Tensor:
     """(B,) f32 unit-cost parsimony scores of a batch of trees.
 
     ``site_mask`` weights each site's events; ``sequences_are_masks=True``
     reads ``leaf_sequences`` as int32 state-set bitmasks (ambiguity codes,
-    gaps) rather than integer states.
+    gaps) rather than integer states. ``n_states``, where the caller knows
+    the alphabet, spares the kernel's wrapper reading it from the masks.
     """
     masks = as_masks(leaf_sequences, sequences_are_masks)
     weights = site_weights_or_ones(site_mask, masks.shape[-1], masks.device)
     children = topologies.children.to(device=masks.device, dtype=torch.int32)
-    return batched_fitch_score_cuda(children.contiguous(), masks, weights)
+    return batched_fitch_score_cuda(children.contiguous(), masks, weights, n_states=n_states)
 
 
 def fitch_score(
@@ -57,11 +59,13 @@ def fitch_score(
     site_mask: torch.Tensor | None = None,
     *,
     sequences_are_masks: bool = False,
+    n_states: int | None = None,
 ) -> torch.Tensor:
     """Unit-cost parsimony score of one tree (0-d f32 tensor)."""
     batch = Topology(topology.children[None], topology.parents[None])
     return batched_fitch_score(
-        batch, leaf_sequences, site_mask, sequences_are_masks=sequences_are_masks
+        batch, leaf_sequences, site_mask, sequences_are_masks=sequences_are_masks,
+        n_states=n_states,
     )[0]
 
 

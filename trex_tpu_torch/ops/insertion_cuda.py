@@ -19,6 +19,7 @@ import functools
 
 import torch
 
+from trex_tpu_torch._device import device_limits
 from trex_tpu_torch.ops import _nvcc
 from trex_tpu_torch.ops.spr_scan import _combine0
 
@@ -171,7 +172,8 @@ def insertion_delta_cuda(
     up_states = up_states.contiguous()
     weights = weights.contiguous()
     lib = _library()
-    plan = launch_plan(n_all, length, *device_limits(device))
+    limits = device_limits(device)
+    plan = launch_plan(n_all, length, limits.smem_optin, limits.n_sms)
     args = (
         var_children.data_ptr(), up_states.data_ptr(), weights.data_ptr(),
         delta.data_ptr(), None, var_children.shape[0] + 1, length, t_node,
@@ -192,31 +194,10 @@ def insertion_delta_cuda(
 insertion_delta_cuda.launches = 0
 
 
-_LIMITS: dict[int, tuple[int, int]] = {}
-
-
-def device_limits(device: torch.device) -> tuple[int, int]:
-    """(opt-in shared memory bytes per block, SM count) of a CUDA device."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
-    if index not in _LIMITS:
-        optin, sms = ctypes.c_int(), ctypes.c_int()
-        with torch.cuda.device(index):
-            rc = _library().trex_insertion_device_limits(
-                ctypes.byref(optin), ctypes.byref(sms))
-        if rc != 0:
-            raise RuntimeError(f"insertion_delta device query failed: CUDA error {rc}")
-        _LIMITS[index] = (optin.value, sms.value)
-    return _LIMITS[index]
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("insertion_delta")
     fn = lib.trex_insertion_delta
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    query = lib.trex_insertion_device_limits
-    query.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-    query.restype = ctypes.c_int
     return lib

@@ -20,9 +20,11 @@ package's scores, whatever its summation order.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
+from trex_tpu_torch._device import device_limits
 from trex_tpu_torch.ops import _nvcc
 from trex_tpu_torch.ops.sankoff import batched_root_rows, leaf_dp
 from trex_tpu_torch.utils.chunking import scan_budget_bytes
@@ -31,7 +33,6 @@ _THREADS = 128  # sites per block of the kernel
 _MAX_CHUNK = 65535  # grid.y limit: trees per kernel launch
 _SCRATCH_BYTES = 2 << 30  # ancestor scratch per call on the card
 _FIXED_STATES = (4, 20)  # template instantiations; other Q: runtime-Q kernel
-_H100_SMEM_OPTIN = 232448
 _STATIC_SMEM = 4 * _THREADS  # the block reduction's static shared array
 _MASK_STATES = 32  # int32 state-set bitmasks hold at most 32 states
 
@@ -40,11 +41,23 @@ def _chunk_trees(batch: int, per_tree_bytes: int, budget: int) -> int:
     return max(1, min(batch, _MAX_CHUNK, budget // max(per_tree_bytes, 1)))
 
 
+_HAMMING: dict[int, tuple] = {}
+
+
 def is_hamming(cost: torch.Tensor) -> bool:
-    """Host-side test for the unit cost ``ones - eye``."""
+    """Host-side test for the unit cost ``ones - eye``. The answer is kept
+    per tensor and version, so a cost matrix reused across calls (a climb's,
+    ``bench``'s) is copied to the host once, not on every call."""
+    key = id(cost)
+    hit = _HAMMING.get(key)
+    if hit is not None and hit[0]() is cost and hit[1] == cost._version:
+        return hit[2]
     c = cost.detach().cpu().to(torch.float64)
     q = c.shape[-1]
-    return bool(torch.equal(c, torch.ones((q, q), dtype=torch.float64) - torch.eye(q, dtype=torch.float64)))
+    answer = bool(torch.equal(
+        c, torch.ones((q, q), dtype=torch.float64) - torch.eye(q, dtype=torch.float64)))
+    _HAMMING[key] = (weakref.ref(cost, lambda _: _HAMMING.pop(key, None)), cost._version, answer)
+    return answer
 
 
 def ordered_site_sum(values: torch.Tensor) -> torch.Tensor:
@@ -106,8 +119,7 @@ def max_states(device: torch.device) -> int:
     """The largest Q the runtime-Q kernel holds in one block's shared
     memory on ``device``: (Q^2 + 2 x 128 x Q) floats of cost matrix and
     child rows."""
-    props = torch.cuda.get_device_properties(device)
-    limit = getattr(props, "shared_memory_per_block_optin", _H100_SMEM_OPTIN) - _STATIC_SMEM
+    limit = device_limits(device).smem_optin - _STATIC_SMEM
     q = 1
     while 4 * ((q + 1) ** 2 + 2 * _THREADS * (q + 1)) <= limit:
         q += 1

@@ -68,7 +68,7 @@ def parsimony_hill_climb(
         device: where the climb runs; default the device of a tensor
             ``leaf_sequences``, else ``cuda``.
     """
-    from trex_tpu_torch.ops.dispatch import batched_scores_fastest
+    from trex_tpu_torch.ops.dispatch import batched_scores_fastest, check_alphabet
 
     if device is None and torch.is_tensor(leaf_sequences):
         device = leaf_sequences.device
@@ -98,6 +98,9 @@ def parsimony_hill_climb(
         )
     from trex_tpu_torch.io import nni_neighbors_host
     from trex_tpu_torch.topology import from_numpy
+
+    if score_batch_fn is None:
+        check_alphabet(cost_matrix, leaves, sequences_are_masks=sequences_are_masks)
 
     def score_batch(topos: Topology):
         if score_batch_fn is not None:

@@ -220,7 +220,8 @@ def _stepwise_scan(
     canon = canonicalize_topology(st.children)
     topo = from_numpy(canon, parents_from_children(canon), device)
     final = float(
-        fitch_score(topo, st.masks, st.weights, sequences_are_masks=True)
+        fitch_score(topo, st.masks, st.weights, sequences_are_masks=True,
+                    n_states=full_mask.bit_length())
     )
     return topo, final
 
