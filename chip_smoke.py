@@ -3,15 +3,15 @@
 
     python3 chip_smoke.py        # from the root of a checkout
 
-Builds the four CUDA kernel libraries from ``trex_tpu_torch/csrc`` (one
+Builds the five CUDA kernel libraries from ``trex_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
-version on the card at its paths' shapes (the parsimony kernels K1, K2 and
-K5 bit for bit, since their scores are integer-valued; the likelihood
-kernel within rtol 1e-5 of |lnL|; K1 at eight shapes (a)-(h) and K2 at
-five real stepwise insertions and on a 10,000-taxon tree, each with its
-launch plan), times them, then runs the port's routes
-on simulated alignments, each with every launch count set to 0 just
-before it and read just after:
+version on the card at its paths' shapes (the parsimony kernels K1, K2, K5
+and K6 bit for bit, since their scores are integer-valued; the likelihood
+kernel within rtol 1e-5 of |lnL|; K1 at nine shapes (a)-(i), (i) an
+8192-taxon tree in its global mode, and K2 at five real stepwise
+insertions and on a 10,000-taxon tree, each with its launch plan), times
+them, then runs the port's routes on simulated alignments, each with every
+launch count set to 0 just before it and read just after:
 
 - the default ``infer`` (stepwise addition, best of 4 orders, then
   SPR-scan climb) on 512 taxa x 2048 sites — the insertion kernel (K2) at
@@ -30,14 +30,18 @@ before it and read just after:
   kernel (K5) scores;
 - ``score`` on a generated 512-leaf mutation tree (its score held against
   K5's rescoring), and ``bench`` on 64 x 1024 with 61 states (K5) and 4
-  (K1).
+  (K1);
+- the level-synchronous Fitch scorer (K6) on the balanced level-order tree
+  at ``tools/fitch_levels_ab.py``'s shapes (a)-(d), each held bit for bit
+  against its plain version and against K1 on the same topology.
 
 It also profiles the default ``infer``'s two calls (stepwise addition,
 SPR-scan climb), the NNI route, the ML NNI route's two (climb, Newton fit)
 and the weighted climb with ``torch.profiler`` for the device's busy and idle share
 and the top kernels, and checks on small divergent alignments that the
 card returns the same results as the CPU: ``infer`` for both criteria and
-both neighborhoods, the weighted climb, and ``score --alignment``.
+both neighborhoods, the weighted climb, ``score --alignment``, and
+stepwise addition on masks with bits above the alphabet.
 
 Each phase prints one JSON line. The line before the last is
 ``{"kernels": [...]}``; the last is
@@ -75,8 +79,9 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # K1 at (a) bench.py's headline, 5% ambiguous DNA masks; (d) 20 and (e) 32
 # states; (f) a big table; (g) the long alignment for which the TPU took
 # its 4-sites-a-word layout; (h) (a) at 6 states, the kernel's 8-plane
-# mode. (b), the main path's rescoring, and (c), the NNI route's batch, are
-# taken from those routes' own runs.
+# mode; (i) trees too large for shared memory, the global mode. (b), the
+# main path's rescoring, and (c), the NNI route's batch, are taken from
+# those routes' own runs.
 K1_SHAPES = {
     "a": dict(n_taxa=64, n_sites=1024, batch=2048, n_states=4),
     "d": dict(n_taxa=64, n_sites=1024, batch=512, n_states=20),
@@ -84,6 +89,7 @@ K1_SHAPES = {
     "f": dict(n_taxa=2048, n_sites=1024, batch=4, n_states=4),
     "g": dict(n_taxa=64, n_sites=8192, batch=256, n_states=4),
     "h": dict(n_taxa=64, n_sites=1024, batch=2048, n_states=6),
+    "i": dict(n_taxa=8192, n_sites=1024, batch=4, n_states=4),
 }
 K1_SHAPE = K1_SHAPES["a"]
 K34_SHAPE = dict(n_taxa=64, n_sites=1024, batch=1024)
@@ -108,6 +114,20 @@ K2_SHAPES = (
 # (e) a random pruned tree too large for the up rows to sit beside the
 # down table, so the kernel reads them from global memory.
 K2_WIDE = dict(shape="e", n_taxa=10_000, n_sites=64)
+# K6 (and K1 beside it) on the balanced level-order tree: (a) the JAX
+# A/B's own shape (benchmarks/fitch_levels.py), (b) the main path's
+# rescoring size (K1's 511-step chain at B = 1), (c) the NNI route's size,
+# (d) 20 states with bit 31 in 5% of the masks; (a1024) (a) at half the
+# batch (``tools/fitch_levels_ab.py`` only) and (e) 2048 leaves, whose
+# rows K6 reads from global memory (a check).
+K6_SHAPES = {
+    "a": dict(n_leaves=64, n_sites=1024, batch=2048, n_states=4),
+    "a1024": dict(n_leaves=64, n_sites=1024, batch=1024, n_states=4),
+    "b": dict(n_leaves=512, n_sites=2048, batch=1, n_states=4),
+    "c": dict(n_leaves=128, n_sites=1024, batch=256, n_states=4),
+    "d": dict(n_leaves=64, n_sites=1024, batch=512, n_states=20, bit31=True),
+    "e": dict(n_leaves=2048, n_sites=2048, batch=1, n_states=4),
+}
 WEIGHTED_ROUNDS = 10
 SCORE_ARGS = ["score", "--leaves", "512", "--sites", "2048", "--states", "4"]
 BENCH_ARGS = ["bench", "--leaves", "64", "--sites", "1024", "--batch", "512", "--reps", "5"]
@@ -324,6 +344,78 @@ def k5_work(batch: int, n_taxa: int, n_sites: int, q: int, hamming: bool):
     return n_bytes, float(batch * n_sites * ((n_taxa - 1) * per_node + q))
 
 
+def k6_inputs(torch, device, key: str):
+    """(masks, children, weights, alphabet, states used) of K6 shape
+    ``key``: masks as ``k1_masks`` from seed SEED + 10 (bit 31 added to 5%
+    of them where the shape says so), the balanced level-order children
+    repeated for K1, weights 1, the alphabet K1 is handed (one past the
+    highest bit the masks use) and the number of bits they use."""
+    from trex_tpu_torch.ops.fitch_levels import balanced_topology_levels
+
+    shape = K6_SHAPES[key]
+    n, length, batch = shape["n_leaves"], shape["n_sites"], shape["batch"]
+    rng = np.random.default_rng(SEED + 10)
+    masks = k1_masks(rng, n, length, shape["n_states"]).astype(np.int64)
+    if shape.get("bit31"):
+        masks[rng.random(masks.shape) < 0.05] |= 1 << 31
+    masks = (masks - ((masks >> 31) << 32)).astype(np.int32)
+    children = balanced_topology_levels(n, device).children
+    used = int(np.bitwise_or.reduce(masks.astype(np.uint32), axis=None))
+    return (torch.as_tensor(masks, device=device),
+            children[None].expand(batch, -1, -1).contiguous(),
+            torch.ones((length,), device=device), used.bit_length(), bin(used).count("1"))
+
+
+def k6_work(batch: int, n_leaves: int, n_sites: int, states_used: int) -> tuple[float, float]:
+    """K6's (bytes, int32 ops): the leaf masks in, the scores out; K1's
+    count of 2Q + 4 per (tree, ancestor, 32-site word), the same work, Q
+    the states the masks use (``states_used``, bits set anywhere)."""
+    n_bytes = 4.0 * (n_leaves * n_sites + batch)
+    words = -(-n_sites // 32)
+    return n_bytes, float(batch * (n_leaves - 1) * words * (2 * states_used + 4))
+
+
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Device milliseconds per call of ``fn`` (every kernel and memset it
+    launches) under ``torch.profiler`` (for the tools; after this script's
+    profile phases it read 0 for some kernels, so its K6 phase takes
+    ``graph_ms``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in events) / 1e3 / reps
+
+
+def graph_ms(torch, fn, calls: int = 20, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``calls`` calls captured in
+    one CUDA graph, replayed ``replays`` times between two CUDA events, so
+    no host work runs between the kernels (a launch gap of about 1 us a
+    kernel stays in)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
 def k2_alignment(fasta_dir: str, n_taxa: int, n_sites: int, n_states: int, seed: int):
     """(patterns, pattern counts) of a K2 shape's alignment: a simulated
     DNA FASTA through the CLI's loader and compression for 4 states,
@@ -464,6 +556,11 @@ def main() -> int:
         batched_fitch_score_plain,
     )
     from trex_tpu_torch.ops.fitch_cuda import launch_plan as k1_plan
+    from trex_tpu_torch.ops.fitch_levels import (
+        fitch_levels_balanced,
+        fitch_levels_plain,
+    )
+    from trex_tpu_torch.ops.fitch_levels import launch_plan as k6_plan
     from trex_tpu_torch.ops.insertion_cuda import (
         insertion_delta_cuda,
         insertion_delta_plain,
@@ -496,6 +593,7 @@ def main() -> int:
     wrappers = {
         "k1": batched_fitch_score_cuda, "k2": insertion_delta_cuda,
         "k34": batched_log_likelihood_cuda, "k5": batched_sankoff_score_cuda,
+        "k6": fitch_levels_balanced,
     }
 
     def reset_counts() -> None:
@@ -516,7 +614,7 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # 2. Build the four kernel libraries from the checkout's sources, in
+    # 2. Build the five kernel libraries from the checkout's sources, in
     # parallel.
     t0 = time.perf_counter()
     _nvcc.build()
@@ -528,7 +626,7 @@ def main() -> int:
 
     workdir = tempfile.mkdtemp(prefix="trex_chip_smoke_")
 
-    def k1_on(children, masks, weights, n_states=4) -> dict:
+    def k1_on(children, masks, weights, n_states=4, plain_reps=5) -> dict:
         plan = k1_plan(children.shape[0], masks.shape[0], masks.shape[1], n_states,
                        *device_limits(dev))
         return dict(plan=dataclasses.asdict(plan), **measure(
@@ -536,19 +634,23 @@ def main() -> int:
             lambda: batched_fitch_score_cuda(children, masks, weights, n_states=n_states),
             lambda: batched_fitch_score_plain(children, masks, weights),
             *k1_work(children.shape[0], masks.shape[0], masks.shape[1], n_states),
-            ops_per_s=INT32_OPS_PER_S,
+            ops_per_s=INT32_OPS_PER_S, plain_reps=plain_reps,
         ))
 
     # 3. K1 at bench.py's shape (a): 64 taxa x 1024 sites, B = 2048 trees;
-    # then at (d)-(h), each with its launch plan.
+    # then at (d)-(i), each with its launch plan ((i) in the global mode,
+    # whose plain version walks 8191 ancestors: 2 timed calls).
     rng = np.random.default_rng(SEED)
     k1 = k1_on(*k1_inputs(torch, dev, "a", rng))
     emit("k1", shape="a", **K1_SHAPE, trees_per_s=K1_SHAPE["batch"] / (k1["ms"] / 1e3), **k1)
     k1_shapes = {"a": dict(K1_SHAPE, **k1)}
-    for key in "defgh":
+    for key in "defghi":
         k1_shapes[key] = dict(K1_SHAPES[key], **k1_on(
-            *k1_inputs(torch, dev, key, np.random.default_rng(SEED + ord(key)))))
+            *k1_inputs(torch, dev, key, np.random.default_rng(SEED + ord(key))),
+            plain_reps=2 if key == "i" else 5))
         emit("k1", shape=key, **k1_shapes[key])
+    if k1_shapes["i"]["plan"]["staged"]:
+        raise AssertionError(f"K1 (i) did not take the global mode: {k1_shapes['i']['plan']}")
 
     # 4. K2 at real stepwise insertions, shapes (a)-(d) of K2_SHAPES, and on
     # the wide tree (e), each bit for bit against its plain version, with
@@ -954,6 +1056,61 @@ def main() -> int:
              **bench_runs[n_states])
         del topos, leaves, bench_scores, want
 
+    # 6h. K6's path: the level-synchronous scorer on the balanced
+    # level-order tree at shapes (a)-(d), through its entry point, every
+    # count set to 0 just before and read just after. Then each shape, and
+    # (e) in the global-read mode, held bit for bit against its plain
+    # version and against K1 on the same topology (K1 also one site per
+    # word, K6's row layout), and timed.
+    k6_in = {key: k6_inputs(torch, dev, key) for key in "abcd"}
+    reset_counts()
+    k6_path = {
+        key: fitch_levels_balanced(x[0], n_leaves=K6_SHAPES[key]["n_leaves"],
+                                   batch=K6_SHAPES[key]["batch"])
+        for key, x in k6_in.items()
+    }
+    torch.cuda.synchronize()
+    k6_counts = launch_counts()
+    if k6_counts["k6"] != len(k6_in) or any(v for k, v in k6_counts.items() if k != "k6"):
+        raise AssertionError(f"K6 path launches: {k6_counts}")
+    k6_shapes = {}
+    for key in "abcde":
+        shape = K6_SHAPES[key]
+        n, length, batch = shape["n_leaves"], shape["n_sites"], shape["batch"]
+        masks, children, ones, alphabet, used = k6_in.get(key) or k6_inputs(torch, dev, key)
+        plain = fitch_levels_plain(masks, n, batch)
+        checks = {
+            "path": k6_path.get(key, plain),
+            "k1_plain": batched_fitch_score_plain(children, masks, ones),
+            **{f"k1_{q}_states": batched_fitch_score_cuda(children, masks, ones, n_states=q)
+               for q in sorted({alphabet, 32})},
+        }
+        for name, got in checks.items():
+            if not torch.equal(got, plain):
+                raise AssertionError(f"K6 ({key}): {name} differs from the plain version")
+        plan = k6_plan(batch, n, length, *device_limits(dev))
+        if plan.staged != (key != "e"):
+            raise AssertionError(f"K6 ({key}) plan {plan}")
+
+        def k6_run(masks=masks, n=n, batch=batch):
+            return fitch_levels_balanced(masks, n_leaves=n, batch=batch)
+
+        def k1_run(q, children=children, masks=masks, ones=ones):
+            return lambda: batched_fitch_score_cuda(children, masks, ones, n_states=q)
+
+        k6_shapes[key] = dict(
+            shape=key, **shape, states_used=used, k1_alphabet=alphabet,
+            plan=dataclasses.asdict(plan), score=float(plain[0]), equal_to_k1=True,
+            **measure(torch, k6_run, lambda: fitch_levels_plain(masks, n, batch),
+                      *k6_work(batch, n, length, used), ops_per_s=INT32_OPS_PER_S,
+                      plain_reps=2),
+            graph_ms=graph_ms(torch, k6_run),
+            k1_graph_ms=graph_ms(torch, k1_run(alphabet)),
+            k1_one_site_per_word_graph_ms=graph_ms(torch, k1_run(32)),
+        )
+        emit("k6", **k6_shapes[key])
+    del k6_in, k6_path
+
     # 7. Reference: on a small, divergent alignment (the climbs take rounds)
     # the card's run returns the same tree and score as the CPU run — the
     # plain versions, which the CPU tests hold against the JAX package.
@@ -1021,6 +1178,24 @@ def main() -> int:
         raise AssertionError(f"score --alignment: card {scored_on['cuda'][0]} != cpu")
     emit("reference", command="score --alignment --output-fasta", **scored_on["cuda"][0],
          same_output_and_fasta=True)
+    # Stepwise addition on masks with bits above the alphabet (bit 5 in 20%
+    # of them, bit 31 in 5%): the card hands K1 every bit the masks use, so
+    # its tree and score are the CPU's (which the CPU tests hold to the JAX
+    # package's).
+    wide = _load_alignment(ref_fasta, "dna")[1].astype(np.int64)
+    wide_rng = np.random.default_rng(SEED + 7)
+    wide[wide_rng.random(wide.shape) < 0.2] |= 1 << 5
+    wide[wide_rng.random(wide.shape) < 0.05] |= 1 << 31
+    wide = (wide - ((wide >> 31) << 32)).astype(np.int32)
+    grown = {}
+    for device in ("cuda", "cpu"):
+        topo, score = stepwise.stepwise_addition(wide, 4, sequences_are_masks=True, seed=0,
+                                                 device=device)
+        grown[device] = (topo.children.cpu().tolist(), score)
+    if grown["cuda"] != grown["cpu"]:
+        raise AssertionError(f"stepwise on wide masks: card {grown['cuda'][1]} != cpu {grown['cpu'][1]}")
+    emit("reference", route="stepwise_addition, masks with bits 5 and 31 set, n_states 4",
+         n_taxa=REF_SHAPE["n_taxa"], parsimony_score=grown["cuda"][1], same_tree_and_score=True)
     shutil.rmtree(workdir)
 
     kernels = [
@@ -1066,6 +1241,15 @@ def main() -> int:
             "score_launches": score_counts["k5"],
             "shape": K5_BENCH_SHAPE, **k5, "library_ms": None,
             "at_shapes": {key: k5_shapes[key] for key in "bcdef"},
+        },
+        {
+            "name": "fitch_levels", "route": "cuda",
+            "source": "trex_tpu_torch/csrc/fitch_levels.cu",
+            "replaces": "benchmarks/fitch_levels.py:63",
+            # Its path is the A/B's entry point at shapes (a)-(d); no route
+            # of the CLI runs it.
+            "launches": k6_counts["k6"], "main_path_launches": main_counts["k6"],
+            **k6_shapes["a"], "library_ms": None, "at_shapes": k6_shapes,
         },
     ]
     emit("done", seconds=time.perf_counter() - t_start)

@@ -20,8 +20,8 @@ from trex_tpu_torch.ops.dispatch import batched_scores_fastest, check_alphabet
 from trex_tpu_torch.ops.fitch_cuda import (
     LaunchPlan,
     batched_fitch_score_plain,
+    global_scratch_words,
     launch_plan,
-    max_taxa,
     n_words,
     pack_planes,
     planes_for,
@@ -72,12 +72,24 @@ def test_launch_plan_modes_and_taxa_limit():
     assert [planes_for(q) for q in (1, 4, 5, 8, 9, 32)] == [4, 4, 8, 8, 0, 0]
     assert launch_plan(1, 3000, 1024, 8, **H100).planes == 8
     assert launch_plan(1, 3300, 1024, 8, **H100).planes == 0
-    limit = max_taxa(H100["smem_optin"])
-    assert limit == 5811  # the old per-site kernel's limit was 3632
-    for q in (4, 8, 20, 32):
-        assert launch_plan(1, limit, 1024, q, **H100).shared_bytes <= H100["smem_optin"]
-        with pytest.raises(ValueError, match="at most 5811 taxa"):
-            launch_plan(1, limit + 1, 1024, q, **H100)
+    # Up to 5811 taxa one tree's rows of a 4-site block fit in shared
+    # memory (the old per-site kernel's limit was 3632); above, the global
+    # mode reads and writes them in global memory, 32 sites a block.
+    for q in (4, 20):
+        staged = launch_plan(1, 5811, 1024, q, **H100)
+        assert staged == LaunchPlan(0, 4, 1, 1, 256, 1, 232448)
+        assert staged.staged and staged.shared_bytes <= H100["smem_optin"]
+        for n in (5812, 6000, 10_000):
+            plan = launch_plan(1, n, 1024, q, **H100)
+            assert plan == LaunchPlan(0, 32, 1, 1, 32, 1, 0, staged=False)
+            assert plan.shared_bytes <= H100["smem_optin"]
+    # chip_smoke's shape (i): four 8192-taxon trees in flight at once.
+    wide = launch_plan(4, 8192, 1024, 4, **H100)
+    assert wide == LaunchPlan(0, 32, 1, 1, 32, 4, 0, staged=False)
+    assert global_scratch_words(wide, 8192, 1024) == 4 * 8191 * 1024
+    # A tree group per GLOBAL_SCRATCH_BYTES of ancestor rows; the rest in rounds.
+    many = launch_plan(100, 8192, 1024, 4, **H100)
+    assert (many.tree_groups, many.rounds, many.width) == (8, 13, 32)
     with pytest.raises(ValueError, match="at most 32 states"):
         planes_for(33)
 

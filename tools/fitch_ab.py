@@ -76,22 +76,6 @@ def build_earlier(source: Path) -> ctypes.CDLL:
     return lib
 
 
-def device_ms(torch, fn, reps: int = 10) -> float:
-    """Device milliseconds per call of ``fn`` (every kernel and memset it
-    launches) under ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in events) / 1e3 / reps
-
-
 def cli(checkout: Path, argv: list[str]) -> dict:
     """The JSON object the port's CLI prints, run from ``checkout``."""
     out = subprocess.run([sys.executable, "-m", "trex_tpu_torch.cli", *argv], cwd=checkout,
@@ -214,8 +198,8 @@ def main() -> int:
         row = {"shape": key, "batch": int(children.shape[0]), "n_taxa": int(masks.shape[0]),
                "n_sites": int(masks.shape[1]), "n_states": n_states,
                "plan": dataclasses.asdict(plan), **times,
-               "current_device_ms": device_ms(torch, cur),
-               "earlier_device_ms": device_ms(torch, old),
+               "current_device_ms": chip_smoke.device_ms(torch, cur),
+               "earlier_device_ms": chip_smoke.device_ms(torch, old),
                "current_host_ms": host_ms(torch, cur),
                "earlier_host_ms": host_ms(torch, old),
                "phase_cycles": phase_cycles(children, masks, weights, plan),

@@ -45,6 +45,12 @@
 //   alphabets above 8 states (measured faster there) and trees whose
 //   bit-sliced rows do not fit; the launch plan (ops/fitch_cuda.py::launch_plan) picks the mode, the
 //   chunk width and the slots from the shape.
+// - A global mode (fitch_global_kernel) for trees whose rows do not fit in
+//   shared memory even one tree and 4 sites at a time (above 5811 taxa on
+//   an H100): one thread per (tree, site) reads the leaves from the masks
+//   and each ancestor's row from a per-(tree group, ancestor) scratch in
+//   global memory, the children from global memory one step ahead. Its
+//   limit is the card's memory.
 // - Scores: each lane's weighted sum is reduced across the lanes of its
 //   tree and added with atomicAdd. Every partial sum is an integer-valued
 //   float, exact in any order for integer weights whose totals stay below
@@ -492,6 +498,54 @@ __global__ void __launch_bounds__(kThreads) fitch_kernel(Params p) {
   }
 }
 
+// The global mode: thread `site` of block (chunk, group) walks the trees
+// group, group + groups, ... in turn; each ancestor's row goes to the
+// group's (n_anc, L) scratch. The children are read one step ahead (two
+// measured slower) and the rows of the next step loaded before this step's
+// store, the one that can be stale (this step's own) forwarded from
+// registers.
+__global__ void __launch_bounds__(kThreads) fitch_global_kernel(Params p,
+                                                                uint32_t* __restrict__ rows) {
+  const int n = p.n_leaves;
+  const int n_anc = n - 1;
+  const size_t L = p.length;
+  const int site = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = site < p.length;
+  const float w = live ? __ldg(p.weights + site) : 0.0f;
+  const int* leaves = p.masks + site;
+  uint32_t* anc = rows + static_cast<size_t>(blockIdx.y) * n_anc * L + site;
+  auto load = [&](int c) -> uint32_t {
+    return c < n ? static_cast<uint32_t>(__ldg(leaves + c * L))
+                 : anc[static_cast<size_t>(c - n) * L];
+  };
+  for (int r = 0; r < p.rounds; ++r) {
+    const int tree = blockIdx.y + r * gridDim.y;
+    if (tree >= p.batch) break;  // the same for the whole block
+    const int2* kids = reinterpret_cast<const int2*>(p.children) + static_cast<size_t>(tree) * n_anc;
+    int events = 0;
+    if (live) {
+      const int2 k = __ldg(kids);
+      uint32_t a = load(k.x), b = load(k.y);
+      for (int i = 0; i < n_anc; ++i) {
+        const int2 next = i + 1 < n_anc ? __ldg(kids + i + 1) : make_int2(0, 0);
+        const uint32_t na = load(next.x), nb = load(next.y);
+        const uint32_t inter = a & b;
+        const bool empty = inter == 0;
+        const uint32_t set = empty ? (a | b) : inter;
+        events += empty;
+        anc[static_cast<size_t>(i) * L] = set;
+        a = next.x == n + i ? set : na;
+        b = next.y == n + i ? set : nb;
+      }
+    }
+    float acc = static_cast<float>(events) * w;
+    for (int offset = 16; offset > 0; offset >>= 1) {
+      acc += __shfl_down_sync(0xffffffffu, acc, offset);
+    }
+    if ((threadIdx.x & 31) == 0 && acc != 0.0f) atomicAdd(p.scores + tree, acc);
+  }
+}
+
 cudaError_t device_optin(int device, int* optin_bytes) {
   static int cached[kMaxDevices] = {};
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
@@ -541,14 +595,17 @@ cudaError_t launch(int device, int optin, dim3 grid, int shared_bytes, cudaStrea
 // else null; phase_cycles null, or (tree_groups * chunks, 4) int64 that
 // receives each block's clock64 cycles of staging, walks, expansion and
 // children restaging. planes (0, 4 or 8), width, slots,
-// rounds, chunks, tree_groups and shared_bytes come from the launch plan.
+// rounds, chunks, tree_groups, shared_bytes and staged come from the launch
+// plan; staged == 0 is the global mode, whose (tree_groups, n_leaves - 1,
+// L) int32 scratch of ancestor rows is planes_scratch, and which leaves
+// phase_cycles as it is.
 // Launches on `stream`, does not synchronise, allocates nothing. Returns
 // the CUDA error code (0 = launched).
 extern "C" int trex_fitch_batched(const void* children, const void* masks, const void* weights,
                                   void* planes_scratch, void* scores, void* phase_cycles,
                                   int batch, int n_leaves, int length, int planes, int width,
                                   int slots, int rounds, int chunks, int tree_groups,
-                                  int shared_bytes, void* stream) {
+                                  int shared_bytes, int staged, void* stream) {
   int device = 0;
   int optin = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -568,6 +625,14 @@ extern "C" int trex_fitch_batched(const void* children, const void* masks, const
                  4 * ((length + 127) / 128), width, slots, rounds};
   const dim3 grid(chunks, tree_groups);
   const auto s = static_cast<cudaStream_t>(stream);
+  if (!staged) {
+    if (planes != 0 || slots != 1 || width < 32 || scratch == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaMemsetAsync(p.scores, 0, sizeof(float) * batch, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fitch_global_kernel<<<grid, width, 0, s>>>(p, scratch);
+    return static_cast<int>(cudaGetLastError());
+  }
   switch (planes) {
     case 0: err = launch<0>(device, optin, grid, shared_bytes, s, p, scratch); break;
     case 4: err = launch<4>(device, optin, grid, shared_bytes, s, p, scratch); break;

@@ -18,7 +18,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "trex_tpu_torch"
-KERNELS = ("fitch_batched", "insertion_delta", "likelihood_batched", "sankoff_batched")
+KERNELS = (
+    "fitch_batched", "fitch_levels", "insertion_delta", "likelihood_batched", "sankoff_batched",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

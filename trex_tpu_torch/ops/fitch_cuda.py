@@ -7,7 +7,9 @@ tensors and runs ``batched_fitch_score_plain`` for CPU tensors; there is no
 other fall back. Its ``launches`` attribute counts the kernel grids it
 launches (two a call in the bit-sliced mode: the packing pre-pass and the
 walk).
-``launch_plan`` picks the kernel's mode and blocks from the shape;
+``launch_plan`` picks the kernel's mode and blocks from the shape: rows
+staged in shared memory, or, where one tree's rows do not fit there, read
+and written in global memory;
 ``pack_planes`` and ``unpack_planes`` state the bit-sliced layout the kernel
 stages its leaves in.
 """
@@ -27,6 +29,7 @@ THREADS = 256  # threads per block (``kThreads`` in the kernel)
 _SM_SHARED = 233472  # shared memory of one SM (bytes); 1 KB of it is reserved per block
 _BLOCK_RESERVED = 1024
 _MAX_THREADS_PER_SM = 2048
+GLOBAL_SCRATCH_BYTES = 1 << 28  # ancestor rows of the global mode's trees in flight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,7 +38,10 @@ class LaunchPlan:
     site per 32-bit word), ``width`` words (or sites) per block, ``slots``
     trees walked at once by each block for ``rounds`` rounds, a grid of
     ``chunks`` x ``tree_groups`` blocks with ``shared_bytes`` of dynamic
-    shared memory each."""
+    shared memory each. ``staged`` False is the global mode: one thread per
+    (tree, site), ``width`` sites a block, each of the ``tree_groups``
+    walking ``rounds`` trees in turn over its own ancestor rows in a global
+    scratch."""
 
     planes: int
     width: int
@@ -44,6 +50,7 @@ class LaunchPlan:
     chunks: int
     tree_groups: int
     shared_bytes: int
+    staged: bool = True
 
     @property
     def blocks(self) -> int:
@@ -134,6 +141,23 @@ def _plan_mode(batch, n_taxa, length, planes, n_sms, smem_optin) -> LaunchPlan |
                       shared_bytes(n_taxa, planes, width, slots, rounds))
 
 
+def _plan_global(batch: int, n_taxa: int, length: int, n_sms: int) -> LaunchPlan:
+    """The global mode: as many trees in flight as ``GLOBAL_SCRATCH_BYTES``
+    of ancestor rows hold (at least one), and the widest block of 32-256
+    sites that still gives every SM a block."""
+    per_tree = 4 * (n_taxa - 1) * length
+    groups = max(1, min(batch, GLOBAL_SCRATCH_BYTES // per_tree, 65535))
+    width = next((w for w in (256, 128, 64) if -(-length // w) * groups >= n_sms), 32)
+    return LaunchPlan(0, width, 1, -(-batch // groups), -(-length // width), groups, 0,
+                      staged=False)
+
+
+def global_scratch_words(plan: LaunchPlan, n_taxa: int, length: int) -> int:
+    """int32 words of the global mode's ancestor rows: one (n_anc, L) table
+    per tree group."""
+    return plan.tree_groups * (n_taxa - 1) * length
+
+
 @functools.lru_cache(maxsize=256)
 def launch_plan(
     batch: int, n_taxa: int, length: int, n_states: int, n_sms: int, smem_optin: int,
@@ -147,29 +171,16 @@ def launch_plan(
     narrowest chunk and every tree in one round; else the chunk width
     that keeps the most lanes resident per SM, the most trees a block
     holds, and the rounds that take the fewest waves x rounds (then the
-    fewest blocks). Raises
-    ``ValueError`` when not even one tree's rows of the narrowest chunk
-    fit (above ``max_taxa``).
+    fewest blocks). Where not even one tree's rows of the narrowest chunk
+    fit in shared memory (above 5811 taxa on an H100), the global mode
+    (``_plan_global``), whose limit is the card's memory.
     """
     planes = planes_for(n_states)
     for mode in (planes, 0) if planes else (0,):
         plan = _plan_mode(batch, n_taxa, length, mode, n_sms, smem_optin)
         if plan is not None:
             return plan
-    raise ValueError(
-        f"fitch kernel: {n_taxa} taxa need {shared_bytes(n_taxa, 0, 4, 1, 1)} bytes of "
-        f"shared memory for one tree's 4-site block, above this card's {smem_optin}-byte "
-        f"limit (at most {max_taxa(smem_optin)} taxa)"
-    )
-
-
-def max_taxa(smem_optin: int) -> int:
-    """The most taxa K1 takes on a card with ``smem_optin`` bytes of opt-in
-    shared memory per block (one tree, one 4-site block)."""
-    n = 2
-    while shared_bytes(n + 1, 0, 4, 1, 1) <= smem_optin:
-        n += 1
-    return n
+    return _plan_global(batch, n_taxa, length, n_sms)
 
 
 def pack_planes(masks: torch.Tensor, planes: int) -> torch.Tensor:
@@ -296,7 +307,8 @@ def run_plan(
     """Launches K1 with ``plan`` on contiguous CUDA inputs (children 8-byte
     aligned) and returns the (B,) scores; ``phase_cycles``, when given, is
     a (plan.blocks, 4) int64 tensor that receives each block's clock64
-    cycles of staging, walks, expansion and children restaging."""
+    cycles of staging, walks, expansion and children restaging (left as
+    it is by the global mode)."""
     device = children.device
     if device.index is not None and device.index != torch.cuda.current_device():
         with torch.cuda.device(device):
@@ -307,13 +319,15 @@ def run_plan(
     scores = torch.empty((batch,), dtype=torch.float32, device=device)
     scratch = None
     if plan.planes:
-        scratch = _plane_scratch(stream, masks.shape[0] * plan.planes * n_words(length))
+        scratch = _scratch(stream, masks.shape[0] * plan.planes * n_words(length))
+    elif not plan.staged:
+        scratch = _scratch(stream, global_scratch_words(plan, n_anc + 1, length))
     rc = _library().trex_fitch_batched(
         children.data_ptr(), masks.data_ptr(), weights.data_ptr(),
         None if scratch is None else scratch.data_ptr(), scores.data_ptr(),
         None if phase_cycles is None else phase_cycles.data_ptr(),
         batch, n_anc + 1, length, plan.planes, plan.width, plan.slots, plan.rounds,
-        plan.chunks, plan.tree_groups, plan.shared_bytes, stream,
+        plan.chunks, plan.tree_groups, plan.shared_bytes, int(plan.staged), stream,
     )
     if rc != 0:
         raise RuntimeError(f"fitch_batched kernel launch failed: CUDA error {rc}")
@@ -325,10 +339,11 @@ def run_plan(
 _SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _plane_scratch(stream: int, numel: int) -> torch.Tensor:
-    """The packed-plane scratch of the current device and ``stream``, grown
-    to ``numel`` int32: a call's pre-pass writes it and its kernel reads it,
-    and the next call on the same stream runs after both."""
+def _scratch(stream: int, numel: int) -> torch.Tensor:
+    """The scratch of the current device and ``stream`` (packed planes, or
+    the global mode's ancestor rows), grown to ``numel`` int32: a call's
+    kernels write and read it, and the next call on the same stream runs
+    after them."""
     key = (torch.cuda.current_device(), stream)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < numel:
@@ -344,6 +359,6 @@ batched_fitch_score_cuda.launches = 0
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("fitch_batched")
     fn = lib.trex_fitch_batched
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

@@ -221,9 +221,18 @@ def _stepwise_scan(
     topo = from_numpy(canon, parents_from_children(canon), device)
     final = float(
         fitch_score(topo, st.masks, st.weights, sequences_are_masks=True,
-                    n_states=full_mask.bit_length())
+                    n_states=mask_alphabet(masks, full_mask.bit_length()))
     )
     return topo, final
+
+
+def mask_alphabet(masks: np.ndarray, n_states: int) -> int:
+    """The alphabet K1 is handed for host ``masks``: ``n_states``, or one
+    past the masks' highest set bit where that is higher (bit 31, the int32
+    sign bit, gives 32), so the card reads every bit the CPU and the JAX
+    package read."""
+    used = int(np.bitwise_or.reduce(np.asarray(masks).astype(np.uint32), axis=None))
+    return max(n_states, used.bit_length())
 
 
 def _host(x) -> np.ndarray:
