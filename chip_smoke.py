@@ -72,6 +72,12 @@ SEED = 0
 # clock), for the float work of K3/K4 and K5.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# float32 instructions outside the tensor cores: 128 per SM per clock x 132
+# SMs x the 1980 MHz SM clock; for K5, whose adds and mins no instruction
+# fuses. The bound the kernels' global-scratch versions were held to (two
+# messages an ancestor, K5's at F32_OPS_PER_S) is kept beside each K5 and
+# K3/K4 bound as bound_ms_earlier.
+F32_INSTR_PER_S = 128 * 132 * 1.98e9
 # 32-bit integer add and logical results: 64 per SM per clock on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput table) x 132 SMs x the 1980 MHz SM clock; for K1 and K2.
@@ -101,6 +107,15 @@ REF_SHAPE = dict(n_taxa=24, n_sites=300)
 K5_BENCH_SHAPE = dict(n_taxa=64, n_sites=1024, batch=2048)
 K5_Q20_SHAPE = dict(n_taxa=64, n_sites=1024, batch=256, n_states=20)
 K5_Q61_SHAPE = dict(n_taxa=64, n_sites=1024, batch=64, n_states=61)
+# K5 and K3/K4 on deep trees: caterpillars (one slot, 2047 steps) and
+# random trees (7-8 slots, where index order keeps about 500 rows live).
+DEEP_SHAPE = dict(n_taxa=2048, n_sites=1024, batch=4)
+# K5's global-slot mode: Q = 128 on 2048 taxa needs 11 slots of 128 rows a
+# site beside a 64 KB cost matrix, more than a block's shared memory.
+K5_GLOBAL_SHAPE = dict(n_taxa=2048, n_sites=256, batch=4, n_states=128)
+# The tree plan kernel: beside the DP kernels' shapes, trees too large to
+# stage in shared memory (above about 17,800 taxa on an H100).
+PLAN_WIDE = dict(n_taxa=20_000, batch=2)
 # K2 at real stepwise insertions: (a) the main path's alignment halfway,
 # (b) the same early (long parked chain) and last, (c) 2048 taxa, whose
 # 16 KB-per-site table shrinks the sites per block, (d) 20-state masks.
@@ -190,6 +205,72 @@ def random_trees(rng, n_taxa: int, batch: int) -> np.ndarray:
             active[j] = n_taxa + a
             children[b, a] = (min(x, y), max(x, y))
     return children
+
+
+def caterpillar_trees(rng, n_taxa: int, batch: int) -> np.ndarray:
+    """(batch, n_taxa - 1, 2) int32 children of caterpillars (each ancestor
+    joins the previous one and one more leaf), leaves in random orders."""
+    children = np.empty((batch, n_taxa - 1, 2), np.int32)
+    for b in range(batch):
+        leaf = rng.permutation(n_taxa).astype(np.int32)
+        children[b, 0] = (leaf[0], leaf[1])
+        children[b, 1:, 0] = np.arange(n_taxa, 2 * n_taxa - 2)
+        children[b, 1:, 1] = leaf[2:]
+    return children
+
+
+def deep_inputs(torch, device) -> dict:
+    """{shape: (children, states, weights)} at DEEP_SHAPE: 4 caterpillars
+    and 4 random trees on random states 0..3 with weights 1..5, drawn in
+    that order from seed SEED + 30."""
+    rng = np.random.default_rng(SEED + 30)
+    n, length, batch = DEEP_SHAPE.values()
+    out = {}
+    for key, make in (("deep caterpillar", caterpillar_trees), ("deep random", random_trees)):
+        children = make(rng, n, batch)
+        states = rng.integers(0, 4, (n, length)).astype(np.int32)
+        weights = rng.integers(1, 6, length).astype(np.float32)
+        out[key] = tuple(torch.as_tensor(x, device=device) for x in (children, states, weights))
+    return out
+
+
+def asymmetric_cost(rng, q: int) -> np.ndarray:
+    """(q, q) f32 integer costs 0..3 drawn from ``rng``, 0 on the diagonal."""
+    cost = rng.integers(0, 4, (q, q)).astype(np.float32)
+    np.fill_diagonal(cost, 0.0)
+    return cost
+
+
+def transition_transversion_cost(torch, device):
+    from trex_tpu_torch.types import CostModel
+
+    return CostModel.transition_transversion(1.0, 2.0, device=device).matrix
+
+
+def route_batches(torch, device, workdir: str) -> dict:
+    """Inputs like K5 (b) and K3/K4 (b) (= K5 (c)): the NNI neighbourhood of
+    a random 512-taxon tree on the weighted route's alignment (states,
+    weights 1) and on the main path's (compressed masks, pattern counts)."""
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli._common import _load_alignment
+    from trex_tpu_torch.io import nni_neighbors_host
+    from trex_tpu_torch.topology import from_numpy, parents_from_children
+
+    tree = random_trees(np.random.default_rng(SEED), MAIN_SHAPE["n_taxa"], 1)[0]
+    batch = torch.as_tensor(
+        nni_neighbors_host(from_numpy(tree, parents_from_children(tree)))[0], device=device)
+    wt_fasta = os.path.join(workdir, "weighted.fasta")
+    simulate_fasta(wt_fasta, MAIN_SHAPE["n_taxa"], MAIN_SHAPE["n_sites"], SEED + 5,
+                   branch=(0.05, 0.3), missing=0.0)
+    wt = torch.as_tensor(dna_states(wt_fasta), device=device)
+    main_fasta = os.path.join(workdir, "main.fasta")
+    simulate_fasta(main_fasta, MAIN_SHAPE["n_taxa"], MAIN_SHAPE["n_sites"], SEED + 1)
+    patterns, counts = compress_alignment(_load_alignment(main_fasta, "dna")[1])
+    return {
+        "weighted": (batch, wt, torch.ones((wt.shape[1],), device=device)),
+        "ml": (batch, torch.as_tensor(patterns.astype(np.int32), device=device),
+               torch.as_tensor(counts.astype(np.float32), device=device)),
+    }
 
 
 def k1_masks(rng, n_taxa: int, n_sites: int, n_states: int) -> np.ndarray:
@@ -322,26 +403,44 @@ def k1_work(batch: int, n_taxa: int, n_sites: int, n_states: int) -> tuple[float
     return n_bytes, float(batch * (n_taxa - 1) * words * (2 * n_states + 4))
 
 
-def k34_work(batch: int, n_taxa: int, n_sites: int, q: int, per_branch: bool):
+def k34_work(batch: int, n_taxa: int, n_sites: int, q: int, per_branch: bool, *,
+             leaf_table: bool):
     """K3/K4's (bytes, float32 ops): children, leaves, weights, prior and P
-    in, scores out; per tree, ancestor and site 2 x 2Q^2 for the two
-    messages, Q for the combine, 2Q for the max and the scale."""
+    in, scores out; per tree and site 2Q^2 (Q^2 FMAs) for each message
+    computed, Q for the combine, 2Q for the max and the scale per ancestor.
+    With ``leaf_table`` (shared P) a leaf's message depends only on its
+    state, so only the n_taxa - 2 ancestor children's messages are computed
+    (the table: a few rows a block); without it, two an ancestor, as the
+    global-scratch version did throughout."""
     p_floats = batch * (2 * n_taxa - 1) * q * q if per_branch else q * q
     n_bytes = 4.0 * (
         batch * (n_taxa - 1) * 2 + n_taxa * n_sites + n_sites + q + p_floats + batch
     )
-    return n_bytes, float(batch * (n_taxa - 1) * n_sites * (4 * q * q + 3 * q))
+    messages = n_taxa - 2 if leaf_table else 2 * (n_taxa - 1)
+    return n_bytes, float(batch * n_sites * (messages * 2 * q * q + (n_taxa - 1) * 3 * q))
 
 
-def k5_work(batch: int, n_taxa: int, n_sites: int, q: int, hamming: bool):
+def k5_work(batch: int, n_taxa: int, n_sites: int, q: int, hamming: bool, *,
+            leaf_table: bool):
     """K5's (bytes, float32 ops): children, leaves, cost and weights in,
-    scores out; per tree, ancestor and site, 2 children x Q^2 x (add + min)
-    for the general messages (Hamming: 2 x (Q - 1 mins, 1 add, Q mins)),
-    plus Q adds to combine them; per tree and site a Q - 1 min and the
-    weight multiply."""
+    scores out; per tree and site, Q^2 x (add + min) for each general
+    message computed (Hamming: Q - 1 mins, 1 add, Q mins), Q adds per
+    ancestor to combine two messages, a Q - 1 min and the weight multiply.
+    With ``leaf_table`` a leaf's message depends only on its state, so only
+    the n_taxa - 2 ancestor children's messages are computed (the table: a
+    few rows a block); without it, two an ancestor, as the global-scratch
+    version did throughout."""
     n_bytes = 4.0 * (batch * (n_taxa - 1) * 2 + n_taxa * n_sites + q * q + n_sites + batch)
-    per_node = 2 * (2 * q - 1 + 1) + q if hamming else 2 * q * q * 2 + q
-    return n_bytes, float(batch * n_sites * ((n_taxa - 1) * per_node + q))
+    per_message = 2 * q if hamming else 2 * q * q
+    messages = n_taxa - 2 if leaf_table else 2 * (n_taxa - 1)
+    return n_bytes, float(batch * n_sites * (messages * per_message + (n_taxa - 1) * q + q))
+
+
+def plan_work(batch: int, n_taxa: int) -> tuple[float, float]:
+    """The tree plan's (bytes, int32 ops): children in, 16-byte steps out;
+    per tree and ancestor about 40 integer operations over the two passes
+    (child tests, need and count updates, offsets, depths, the step)."""
+    return 24.0 * batch * (n_taxa - 1), 40.0 * batch * (n_taxa - 1)
 
 
 def k6_inputs(torch, device, key: str):
@@ -572,11 +671,14 @@ def main() -> int:
         batched_log_likelihood_cuda,
         batched_log_likelihood_plain,
     )
+    from trex_tpu_torch.ops.likelihood_cuda import launch_plan as k34_plan
     from trex_tpu_torch.ops.dispatch import batched_scores_fastest
     from trex_tpu_torch.ops.sankoff_cuda import (
         batched_sankoff_score_cuda,
         batched_sankoff_score_plain,
     )
+    from trex_tpu_torch.ops.sankoff_cuda import launch_plan as k5_plan
+    from trex_tpu_torch.ops.tree_plan import plan_launch, slots_for, tree_plan, tree_plan_plain
     from trex_tpu_torch.search import stepwise
     from trex_tpu_torch.search.hillclimb import parsimony_hill_climb
     from trex_tpu_torch.search.ml import ml_hill_climb
@@ -593,15 +695,29 @@ def main() -> int:
     wrappers = {
         "k1": batched_fitch_score_cuda, "k2": insertion_delta_cuda,
         "k34": batched_log_likelihood_cuda, "k5": batched_sankoff_score_cuda,
-        "k6": fitch_levels_balanced,
+        "k6": fitch_levels_balanced, "plan": tree_plan,
     }
 
     def reset_counts() -> None:
         for fn in wrappers.values():
             fn.launches = 0
+            if hasattr(fn, "calls"):
+                fn.calls = 0
 
     def launch_counts() -> dict:
         return {name: fn.launches for name, fn in wrappers.items()}
+
+    def call_counts() -> dict:
+        """Calls that launched, of the wrappers that count them (K5, K3/K4)."""
+        return {name: fn.calls for name, fn in wrappers.items() if hasattr(fn, "calls")}
+
+    def device_times(fn, ms: float) -> dict:
+        """Device ms a call of ``fn``: a CUDA graph of calls (fewer where a
+        call is slow), with about 1 us of launch gap a kernel. Not the
+        profiler's: after the profile phases it reads low, or 0, in this
+        process (1.8 of K5 (b)'s 3.6 ms, 0 of the global-slot shape's 82)."""
+        calls = max(2, min(20, int(200 / max(ms, 1e-3))))
+        return {"device_ms": graph_ms(torch, fn, calls, 2 if calls < 20 else 5)}
 
     # 1. Card.
     smi = subprocess.run(
@@ -693,7 +809,8 @@ def main() -> int:
     main_wall = time.perf_counter() - t0
     main_counts = launch_counts()
     main_k1, main_k2, main_k34 = (main_counts[k] for k in ("k1", "k2", "k34"))
-    if main_k2 <= 0 or main_k1 <= 0 or main_k34 != 0 or main_counts["k5"] != 0:
+    if (main_k2 <= 0 or main_k1 <= 0 or main_k34 != 0 or main_counts["k5"] != 0
+            or main_counts["plan"] != 0):
         raise AssertionError(f"main path launches: {main_counts}")
     out = run.out
     # K1 at the main path's own shape (one tree, 512 x 2048): the returned
@@ -734,16 +851,20 @@ def main() -> int:
     p_shared = jc69_transition(torch.tensor(RANKING_LENGTH, device=dev), 4)
     uniform = torch.full((4,), 0.25, device=dev)
 
-    def k34_on(children, leaves, weights, transition, masks) -> dict:
+    def k34_on(children, leaves, weights, transition, masks, plain_reps=5) -> dict:
         def run(fn):
             return lambda: fn(children, leaves, weights, uniform, transition,
                               sequences_are_masks=masks)
-        return measure(
+        plan = k34_plan(leaves.shape[0], 4, transition.dim() == 2, masks,
+                        device_limits(dev).smem_optin)
+        shape = (children.shape[0], leaves.shape[0], leaves.shape[1], 4, transition.dim() == 4)
+        got = measure(
             torch, run(batched_log_likelihood_cuda), run(batched_log_likelihood_plain),
-            *k34_work(children.shape[0], leaves.shape[0], leaves.shape[1], 4,
-                      transition.dim() == 4),
-            rtol=K34_RTOL,
+            *k34_work(*shape, leaf_table=plan.leaf_table), rtol=K34_RTOL, plain_reps=plain_reps,
         )
+        return dict(plan=dataclasses.asdict(plan), **got,
+                    **device_times(run(batched_log_likelihood_cuda), got["ms"]),
+                    bound_ms_earlier=bound_ms(*k34_work(*shape, leaf_table=False))[0])
 
     # (a) bench.py's K3 configuration: states 0..3, shared P(0.1).
     n, length, batch = K34_SHAPE["n_taxa"], K34_SHAPE["n_sites"], K34_SHAPE["batch"]
@@ -764,16 +885,24 @@ def main() -> int:
     tt_cost = CostModel.transition_transversion(1.0, 2.0, device=dev).matrix
 
     def k5_on(children, leaves, cost, weights, hamming=False, masks=False,
-              plain_reps=5) -> dict:
+              plain_reps=5, reps=30, kernel=None) -> dict:
+        """K5 against its plain version, bit for bit, with its plan, device
+        times and its bound at the instruction rate (and the global-scratch
+        version's, two messages an ancestor at the FMA-flop rate).
+        ``kernel``: the call under test, when it is not the wrapper itself
+        (the dispatch)."""
         def call(fn):
             return lambda: fn(children, leaves, cost, weights, hamming=hamming,
                               sequences_are_masks=masks)
-        return measure(
-            torch, call(batched_sankoff_score_cuda), call(batched_sankoff_score_plain),
-            *k5_work(children.shape[0], leaves.shape[0], leaves.shape[1],
-                     cost.shape[0], hamming),
-            plain_reps=plain_reps,
-        )
+        plan = k5_plan(leaves.shape[0], cost.shape[0], hamming, masks,
+                       device_limits(dev).smem_optin)
+        shape = (children.shape[0], leaves.shape[0], leaves.shape[1], cost.shape[0], hamming)
+        kernel = kernel or call(batched_sankoff_score_cuda)
+        got = measure(torch, kernel, call(batched_sankoff_score_plain),
+                      *k5_work(*shape, leaf_table=plan.leaf_table),
+                      plain_reps=plain_reps, reps=reps, ops_per_s=F32_INSTR_PER_S)
+        return dict(plan=dataclasses.asdict(plan), **got, **device_times(kernel, got["ms"]),
+                    bound_ms_earlier=bound_ms(*k5_work(*shape, leaf_table=False))[0])
 
     k5_shapes = {}
     k5_shapes["c"] = dict(
@@ -782,7 +911,31 @@ def main() -> int:
         batch=int(ml_batch.shape[0]), **k5_on(ml_batch, pat_t, tt_cost, w_t, masks=True,
                                              plain_reps=2))
     emit("k5", **k5_shapes["c"])
-    del ml_batch
+
+    # 5d. The tree plan kernel against its plain version, integer for
+    # integer: the ML NNI batch (512 taxa, B = 1020), the deep trees, and
+    # trees too large to stage in shared memory (its global mode).
+    deep = deep_inputs(torch, dev)
+    wide = torch.as_tensor(random_trees(np.random.default_rng(SEED + 31), PLAN_WIDE["n_taxa"],
+                                        PLAN_WIDE["batch"]), device=dev)
+    plan_shapes = {}
+    for key, children in (("ml nni batch", ml_batch), *((k, v[0]) for k, v in deep.items()),
+                          ("wide", wide)):
+        batch, n_anc, _ = children.shape
+        launch = plan_launch(n_anc, device_limits(dev).smem_optin)
+        used = int(tree_plan_plain(children)[..., 3].max()) + 1
+        got = measure(torch, lambda children=children: tree_plan(children),
+                      lambda children=children: tree_plan_plain(children),
+                      *plan_work(batch, n_anc + 1), reps=10, plain_reps=1,
+                      ops_per_s=INT32_OPS_PER_S)
+        plan_shapes[key] = dict(
+            shape=key, n_taxa=n_anc + 1, batch=batch, launch=dataclasses.asdict(launch),
+            slots_used=used, slots_bound=slots_for(n_anc + 1), **got,
+            **device_times(lambda children=children: tree_plan(children), got["ms"]))
+        if (used > slots_for(n_anc + 1) or launch.staged != (key != "wide")):
+            raise AssertionError(f"tree plan ({key}): {plan_shapes[key]}")
+        emit("tree_plan", **plan_shapes[key])
+    del ml_batch, wide
     # (c) per-branch P, JC lengths U(0.05, 1.0); states with 5% missing
     # (negative), so state mode's missing data is held against the plain
     # version too.
@@ -798,6 +951,11 @@ def main() -> int:
     )
     emit("k34", shape="c: per-branch P, 5% missing states", **K4_BRANCH_SHAPE,
          **k34_branch)
+    k34_deep = {}
+    for key, (children, leaves, weights) in deep.items():
+        k34_deep[key] = dict(shape=f"{key}: shared P", **DEEP_SHAPE, **k34_on(
+            children, leaves, weights, p_shared, False, plain_reps=1))
+        emit("k34", **k34_deep[key])
 
     # 6. NNI route: candidate batches through K1.
     nni_fasta = os.path.join(workdir, "nni.fasta")
@@ -839,7 +997,8 @@ def main() -> int:
     torch.cuda.synchronize()
     ml_wall = time.perf_counter() - t0
     ml_launches = launch_counts()
-    if ml_launches["k34"] <= 0 or ml_launches["k2"] <= 0:
+    ml_calls = call_counts()
+    if ml_launches["k34"] <= 0 or ml_launches["k2"] <= 0 or ml_launches["plan"] <= 0:
         raise AssertionError(f"the ML NNI route skipped a kernel: {ml_launches}")
     # The returned tree rescored at P(0.1) by the kernel and by the plain
     # version must both give the reported ranking score.
@@ -865,7 +1024,8 @@ def main() -> int:
          stepwise_s=ml.seconds["start"], climb_s=ml.seconds["climb"],
          newton_s=ml.seconds["newton"], wall_s=ml_wall,
          k1_launches=ml_launches["k1"], k2_launches=ml_launches["k2"],
-         k34_launches=ml_launches["k34"], rescored=rescored)
+         k34_launches=ml_launches["k34"], k34_calls=ml_calls["k34"],
+         plan_launches=ml_launches["plan"], rescored=rescored)
 
     # 6c. Where the ML NNI route's time goes: its climb and its Newton fit.
     climbed = []
@@ -931,8 +1091,7 @@ def main() -> int:
     del trees
     # (d) protein-sized Q = 20 under a seeded asymmetric integer cost 0..3.
     n, length, batch, q = K5_Q20_SHAPE.values()
-    q20_cost = rng.integers(0, 4, (q, q)).astype(np.float32)
-    np.fill_diagonal(q20_cost, 0.0)
+    q20_cost = asymmetric_cost(rng, q)
     k5_shapes["d"] = dict(shape="d: Q = 20, asymmetric integer cost", **K5_Q20_SHAPE, **k5_on(
         torch.as_tensor(random_trees(rng, n, batch), device=dev),
         torch.as_tensor(rng.integers(0, q, (n, length)).astype(np.int32), device=dev),
@@ -947,11 +1106,29 @@ def main() -> int:
     hamming61 = CostModel.hamming(q, device=dev).matrix
     k5_shapes["e"] = dict(
         shape="e: Hamming, Q = 61, through the dispatch (general mode)", **K5_Q61_SHAPE,
-        **measure(torch, lambda: batched_scores_fastest(topos61, hamming61, states61),
-                  lambda: batched_sankoff_score_plain(trees61, states61, hamming61, ones),
-                  *k5_work(batch, n, length, q, False)))
+        **k5_on(trees61, states61, hamming61, ones,
+                kernel=lambda: batched_scores_fastest(topos61, hamming61, states61)))
     emit("k5", **k5_shapes["e"])
     del trees61, topos61
+    # The deep trees, and Q = 128 on 2048 taxa in the global-slot mode, a
+    # random float cost and weights (bit for bit whatever the cost).
+    for key, (children, leaves, weights) in deep.items():
+        k5_shapes[key] = dict(shape=f"{key}: transition/transversion(1, 2)", **DEEP_SHAPE,
+                              **k5_on(children, leaves, tt_cost, weights, plain_reps=1))
+        emit("k5", **k5_shapes[key])
+    n, length, batch, q = K5_GLOBAL_SHAPE.values()
+    rng = np.random.default_rng(SEED + 32)
+    k5_shapes["global"] = dict(
+        shape="global slots: Q = 128, random float cost", **K5_GLOBAL_SHAPE, **k5_on(
+            torch.as_tensor(random_trees(rng, n, batch), device=dev),
+            torch.as_tensor(rng.integers(0, q, (n, length)).astype(np.int32), device=dev),
+            torch.as_tensor(rng.random((q, q)).astype(np.float32) * 3, device=dev),
+            torch.as_tensor(rng.random(length).astype(np.float32) * 3, device=dev),
+            plain_reps=1, reps=5))
+    if k5_shapes["global"]["plan"]["mode"] != "global":
+        raise AssertionError(f"K5 global shape plan: {k5_shapes['global']['plan']}")
+    emit("k5", **k5_shapes["global"])
+    del deep
 
     # 6f. This slice's main path: the weighted-parsimony NNI climb at full
     # width — stepwise start (best of 4 orders; K2, K1), then
@@ -977,7 +1154,9 @@ def main() -> int:
         wt_start, tt_cost, wt_t, neighborhood="nni", max_rounds=WEIGHTED_ROUNDS)), None)
     wt_wall = time.perf_counter() - t0
     wt_counts = launch_counts()
-    if wt_counts["k5"] <= 0 or wt_counts["k2"] <= 0 or wt_counts["k34"] != 0:
+    wt_calls = call_counts()
+    if (wt_counts["k5"] <= 0 or wt_counts["k2"] <= 0 or wt_counts["plan"] <= 0
+            or wt_counts["k34"] != 0):
         raise AssertionError(f"weighted route launches: {wt_counts}")
     climb = climbs[0]
     # The returned tree rescored by K5 and by its plain version.
@@ -996,7 +1175,7 @@ def main() -> int:
          start_unit_cost_score=wt_start_score, weighted_score=climb.score,
          rounds=climb.rounds, evaluations=climb.evaluations, trace=climb.trace,
          stepwise_s=wt_stepwise_s, climb_s=wt_profile["profiled_wall_s"], wall_s=wt_wall,
-         launches=wt_counts, rescored=wt_rescored, profile=wt_profile)
+         launches=wt_counts, calls=wt_calls, rescored=wt_rescored, profile=wt_profile)
     # K5 (b): the route's own batch, the NNI neighbourhood of its start tree.
     wt_batch = torch.as_tensor(nni_neighbors_host(wt_start)[0], device=dev)
     k5_shapes["b"] = dict(
@@ -1226,21 +1405,36 @@ def main() -> int:
             "replaces": ["trex_tpu/ops/likelihood_pallas.py:255",
                          "trex_tpu/ops/likelihood_pallas.py:135"],
             # Its path is the ML NNI route; the parsimony main path runs none.
-            "launches": ml_launches["k34"], "main_path_launches": main_k34,
-            "weighted_route_launches": wt_counts["k34"],
+            "launches": ml_launches["k34"], "calls": ml_calls["k34"],
+            "main_path_launches": main_k34, "weighted_route_launches": wt_counts["k34"],
             "shape": K34_SHAPE, **k34, "library_ms": None,
-            "at_ml_nni_route": k34_route, "per_branch": k34_branch,
+            "at_ml_nni_route": k34_route, "per_branch": k34_branch, "at_shapes": k34_deep,
         },
         {
             "name": "sankoff_batched", "route": "cuda",
             "source": "trex_tpu_torch/csrc/sankoff_batched.cu",
             "replaces": "trex_tpu/ops/sankoff_pallas.py:62",
             # Its path is the weighted NNI route; bench runs it at Q = 61.
-            "launches": wt_counts["k5"], "main_path_launches": main_counts["k5"],
+            "launches": wt_counts["k5"], "calls": wt_calls["k5"],
+            "main_path_launches": main_counts["k5"],
             "bench_q61_launches": bench_runs[61]["launches"]["k5"],
             "score_launches": score_counts["k5"],
             "shape": K5_BENCH_SHAPE, **k5, "library_ms": None,
-            "at_shapes": {key: k5_shapes[key] for key in "bcdef"},
+            "at_shapes": {key: v for key, v in k5_shapes.items() if key != "a"},
+        },
+        {
+            "name": "tree_plan", "route": "cuda",
+            "source": "trex_tpu_torch/csrc/tree_plan.cu",
+            # A pre-pass of the K5 and K3/K4 ports: the Pallas kernels
+            # walked index order with every row in VMEM.
+            "replaces": ["trex_tpu/ops/sankoff_pallas.py:62",
+                         "trex_tpu/ops/likelihood_pallas.py:255",
+                         "trex_tpu/ops/likelihood_pallas.py:135"],
+            # Its path is every K5 and K3/K4 call: the weighted route's and
+            # the ML NNI route's.
+            "launches": wt_counts["plan"], "ml_nni_route_launches": ml_launches["plan"],
+            "main_path_launches": main_counts["plan"],
+            **plan_shapes["ml nni batch"], "library_ms": None, "at_shapes": plan_shapes,
         },
         {
             "name": "fitch_levels", "route": "cuda",

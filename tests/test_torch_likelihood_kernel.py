@@ -1,6 +1,8 @@
 """Parity of K3/K4's plain version (``batched_log_likelihood_plain``) with
 trex_tpu's ``batched_log_likelihood_pallas`` (interpret mode) and lax
-``tree_log_likelihood``, plus the wrapper's no-fall-back guards.
+``tree_log_likelihood``; a model of the kernel's walk (the tree plan over a
+slot stack) against both; the wrapper's launch plan and no-fall-back
+guards.
 
 Tolerance rtol 2e-5, the reference's own (``tests/test_likelihood_pallas.py``):
 the power-of-two rescaling is exact, so the versions differ only in float32
@@ -21,11 +23,13 @@ from trex_tpu.ops.likelihood import tree_log_likelihood as jax_tree_ll
 from trex_tpu.ops.likelihood_pallas import batched_log_likelihood_pallas
 from trex_tpu.topology import Topology as JaxTopology
 from trex_tpu_torch.ops import likelihood_cuda
-from trex_tpu_torch.ops.likelihood import jc69_transition
+from trex_tpu_torch.ops.likelihood import jc69_transition, tip_partials
 from trex_tpu_torch.ops.likelihood_cuda import (
     batched_log_likelihood_cuda,
     batched_log_likelihood_plain,
+    launch_plan,
 )
+from trex_tpu_torch.ops.tree_plan import SlotPlan, slots_for, tree_plan_plain
 
 N_LEAVES, LENGTH, BATCH = 8, 128, 4
 UNIFORM = torch.full((4,), 0.25)
@@ -51,6 +55,39 @@ def _plain(children, leaves, weights, transition, masks=True):
     ).numpy()
 
 
+def _planned(children, leaves, weights, transition, masks=True):
+    """(B,) log-likelihoods of a model of the kernel's walk: the plain tree
+    plan run over a (B, slots, Q, L) slot stack, P of each child's branch
+    taken by its node id, the root's partial never stored."""
+    children, leaves, weights = (torch.as_tensor(x) for x in (children, leaves, weights))
+    batch, n_anc, _ = children.shape
+    q, length = 4, leaves.shape[1]
+    tips = tip_partials(leaves, q, masks)
+    plan = tree_plan_plain(children).long()
+    slots = torch.full((batch, slots_for(n_anc + 1), q, length), float("nan"))
+    exp_sum = torch.zeros((batch, length), dtype=torch.int32)
+    rows = torch.arange(batch)
+
+    def message(src, node):
+        d = torch.where((src >= 0)[:, None, None], tips[src.clamp(min=0)],
+                        slots[rows, (~src).clamp(min=0)])
+        p = transition if transition.dim() == 2 else transition[rows, node]
+        return torch.matmul(p, d)
+
+    for k in range(n_anc):
+        v, src1, src2, dst = plan[:, k].T
+        nodes = children[rows, v].long()
+        combined = message(src1, nodes[:, 0]) * message(src2, nodes[:, 1])
+        e = combined.amax(dim=1).view(torch.int32) >> 23
+        part = combined * ((254 - e) << 23).view(torch.float32)[:, None, :]
+        exp_sum += e - 127
+        if k + 1 < n_anc:
+            slots[rows, dst] = part
+    site_lik = (UNIFORM[None, :, None] * part).sum(dim=1)
+    per_site = torch.log(torch.clamp(site_lik, min=1e-30)) + exp_sum.float() * 0.6931471805599453
+    return (per_site * weights).sum(dim=-1).numpy()
+
+
 def test_plain_matches_slots_per_branch():
     children, masks, weights, blens = _inputs(0)
     ref = batched_log_likelihood_pallas(
@@ -58,8 +95,12 @@ def test_plain_matches_slots_per_branch():
         site_weights=jnp.asarray(weights), sequences_are_masks=True,
         layout="slots", interpret=True,
     )
-    ours = _plain(children, masks, weights, jc69_transition(torch.as_tensor(blens), 4))
+    p = jc69_transition(torch.as_tensor(blens), 4)
+    ours = _plain(children, masks, weights, p)
     np.testing.assert_allclose(ours, np.asarray(ref), rtol=2e-5)
+    planned = _planned(children, masks, weights, p)
+    np.testing.assert_allclose(planned, ours, rtol=1e-6)
+    np.testing.assert_allclose(planned, np.asarray(ref), rtol=2e-5)
 
 
 @pytest.mark.parametrize(
@@ -76,6 +117,9 @@ def test_plain_matches_shared_p_layouts(layout, extra):
     )
     ours = _plain(children, masks, weights, jc69_transition(0.1, 4))
     np.testing.assert_allclose(ours, np.asarray(ref), rtol=2e-5)
+    planned = _planned(children, masks, weights, jc69_transition(0.1, 4))
+    np.testing.assert_allclose(planned, ours, rtol=1e-6)
+    np.testing.assert_allclose(planned, np.asarray(ref), rtol=2e-5)
 
 
 @pytest.mark.parametrize("mode", ["masks", "states"])
@@ -96,6 +140,38 @@ def test_plain_matches_tree_log_likelihood(mode):
             site_mask=jnp.asarray(weights), sequences_are_masks=mode == "masks",
         )
         np.testing.assert_allclose(ours[b], float(ref), rtol=2e-5)
+
+
+@pytest.mark.parametrize("per_branch", [False, True])
+def test_plan_walk_matches_plain_on_deep_trees(per_branch):
+    # 40 taxa, one tree a caterpillar; states with 5% missing.
+    rng = np.random.default_rng(5)
+    children = random_children(rng, 40, 3)
+    children[0] = [(0, 1)] + [(40 + a - 1, a + 1) for a in range(1, 39)]
+    states = rng.integers(-1, 4, (40, 100)).astype(np.int32)
+    weights = integer_weights(rng, 100)
+    if per_branch:
+        p = jc69_transition(torch.as_tensor(rng.uniform(0.05, 1.0, (3, 79)).astype(np.float32)), 4)
+    else:
+        p = jc69_transition(0.3, 4)
+    np.testing.assert_allclose(
+        _planned(children, states, weights, p, masks=False),
+        _plain(children, states, weights, p, masks=False), rtol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "n_leaves, q, shared_p, masks, plan",
+    [
+        # chip_smoke's shapes, on an H100 (232,448 bytes of opt-in shared
+        # memory): P, the leaf-message table (shared P), the slot columns.
+        (64, 4, True, False, SlotPlan("shared", 6, 128, 12448, 2048, 1, True)),
+        (512, 4, True, True, SlotPlan("shared", 9, 128, 18752, 1408, 1, True)),
+        (64, 4, False, False, SlotPlan("shared", 6, 128, 12288, 2048, 1, False)),
+        (2048, 20, False, False, SlotPlan("shared", 11, 128, 112640, 256, 1, False)),
+    ],
+)
+def test_launch_plan(n_leaves, q, shared_p, masks, plan):
+    assert launch_plan(n_leaves, q, shared_p, masks, 232448) == plan
 
 
 def test_plain_protein_states_are_finite():

@@ -20,6 +20,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "trex_tpu_torch"
 KERNELS = (
     "fitch_batched", "fitch_levels", "insertion_delta", "likelihood_batched", "sankoff_batched",
+    "tree_plan",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -6,26 +6,30 @@ layouts ``lanes`` and ``slots``).
 ``batched_log_likelihood_cuda`` launches ``csrc/likelihood_batched.cu`` for
 CUDA tensors and runs ``batched_log_likelihood_plain`` for CPU tensors;
 there is no other fall back. Its ``launches`` attribute counts the grids a
-call launches on the card: one pruning grid per chunk of trees that fits
-the scratch buffer, then one site-sum grid. Forward only, as the TPU
-kernel: branch-length derivatives come from ``ops.likelihood_asr``.
+call launches on the card (its ``calls`` attribute the calls that launch):
+the tree-plan pass (``ops.tree_plan``), one
+pruning grid (one per 65535 trees), then one site-sum grid.
+``launch_plan`` picks the kernel's block width: its slots always sit in
+shared memory. Forward only, as the TPU kernel: branch-length derivatives
+come from ``ops.likelihood_asr``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from trex_tpu_torch._device import device_limits
 from trex_tpu_torch.ops import _nvcc
 from trex_tpu_torch.ops.likelihood import highest_matmul_precision, tip_partials
+from trex_tpu_torch.ops.tree_plan import SlotPlan, slot_plan, slots_for, tree_plan
 from trex_tpu_torch.utils.chunking import scan_budget_bytes
 
 SUPPORTED_STATES = (4, 20)
-_THREADS = 128  # sites per block of the kernel
 _MAX_CHUNK = 65535  # grid.y limit: trees per kernel launch
-_SCRATCH_BYTES = 2 << 30  # ancestor scratch per call on the card: 128
-# trees at 512 taxa x 2048 sites, about one wave of blocks on 132 SMs
+_SITES = 128  # sites (threads) per block of the kernel
 _LN2 = 0.6931471805599453
 
 
@@ -96,6 +100,28 @@ def batched_log_likelihood_plain(
     return out
 
 
+def leaf_codes(q: int, shared_p: bool, masks: bool) -> int:
+    """Rows of the kernel's leaf-message table under a shared P: a row per
+    state, one for a missing state and one for a state >= Q, or a row per
+    mask of Q bits up to 8 states; none above, nor under a per-branch P."""
+    if not shared_p:
+        return 0
+    if masks:
+        return 1 << q if q <= 8 else 0
+    return q + 2
+
+
+def launch_plan(n_leaves: int, q: int, shared_p: bool, masks: bool, smem_optin: int) -> SlotPlan:
+    """K3/K4's blocks for ``n_leaves``-taxon trees at Q = ``q``: 128
+    sites, with a shared P (Q^2 floats), the leaf-message table and
+    ``slots`` rows of Q floats a site in shared memory."""
+    slots = slots_for(n_leaves)
+    codes = leaf_codes(q, shared_p, masks)
+    fixed = 4 * (q * q if shared_p else 0) + 4 * codes * q
+    return slot_plan(slots, 4 * slots * q, fixed, smem_optin, widths=(_SITES,),
+                     leaf_table=codes > 0)
+
+
 def _check(children, leaves, weights, root_prior, transition, sequences_are_masks) -> None:
     if children.dtype != torch.int32 or leaves.dtype != torch.int32:
         raise TypeError("children and leaves must be int32")
@@ -151,42 +177,54 @@ def batched_log_likelihood_cuda(
         )
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return batched_log_likelihood_cuda(
+                children, leaves, weights, root_prior, transition,
+                sequences_are_masks=sequences_are_masks)
     batch, n_anc, _ = children.shape
     length = leaves.shape[1]
     q = root_prior.shape[0]
-    if length == 0:
+    shared = transition.dim() == 2
+    plan = launch_plan(n_anc + 1, q, shared, sequences_are_masks,
+                       device_limits(device).smem_optin)
+    if batch == 0 or length == 0:
         return torch.zeros((batch,), dtype=torch.float32, device=device)
+    if (n_anc + 1) * length >= 2**31:
+        raise ValueError(f"likelihood kernel: {n_anc + 1} x {length} leaf states exceed 2^31")
+    children = children.contiguous()
+    if children.data_ptr() % 8:
+        children = children.clone()
+    transition = transition.contiguous()
+    if transition.data_ptr() % 16:
+        transition = transition.clone()
+    leaves, weights, root_prior = (x.contiguous() for x in (leaves, weights, root_prior))
+    steps = tree_plan(children)
+    chunk = min(batch, _MAX_CHUNK)
+    per_site = torch.empty((batch, length), dtype=torch.float32, device=device)
     out = torch.empty((batch,), dtype=torch.float32, device=device)
-    children, leaves, weights, root_prior, transition = (
-        x.contiguous() for x in (children, leaves, weights, root_prior, transition)
+    rc = _library().trex_likelihood_batched(
+        steps.data_ptr(), children.data_ptr(), leaves.data_ptr(), transition.data_ptr(),
+        root_prior.data_ptr(), weights.data_ptr(), per_site.data_ptr(), out.data_ptr(),
+        batch, n_anc + 1, length, q, int(shared), int(sequences_are_masks),
+        chunk, plan.smem_bytes, torch.cuda.current_stream().cuda_stream,
     )
-    per_tree = 4 * n_anc * q * length
-    chunk = _chunk_trees(batch, per_tree, _SCRATCH_BYTES)
-    scratch = torch.empty((chunk * per_tree // 4,), dtype=torch.float32, device=device)
-    block_sums = torch.empty(
-        (batch, (length + _THREADS - 1) // _THREADS), dtype=torch.float32, device=device
-    )
-    lib = _library()
-    with torch.cuda.device(device):
-        rc = lib.trex_likelihood_batched(
-            children.data_ptr(), leaves.data_ptr(), transition.data_ptr(),
-            root_prior.data_ptr(), weights.data_ptr(), scratch.data_ptr(),
-            block_sums.data_ptr(), out.data_ptr(), batch, n_anc + 1, length, q,
-            int(transition.dim() == 2), int(sequences_are_masks), chunk,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
     if rc != 0:
         raise RuntimeError(f"likelihood_batched kernel launch failed: CUDA error {rc}")
-    batched_log_likelihood_cuda.launches += -(-batch // chunk) + 1
+    # Grids: the plan pass, the pruning chunks, the site sum.
+    batched_log_likelihood_cuda.launches += 1 + -(-batch // chunk) + 1
+    batched_log_likelihood_cuda.calls += 1
     return out
 
 
 batched_log_likelihood_cuda.launches = 0
+batched_log_likelihood_cuda.calls = 0
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("likelihood_batched")
     fn = lib.trex_likelihood_batched
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

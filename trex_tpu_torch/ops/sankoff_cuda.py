@@ -1,12 +1,17 @@
 """K5: batched min-plus Sankoff scores under a general (Q, Q) cost — the CUDA
-kernel's wrapper and its plain PyTorch version (counterpart of
-``batched_sankoff_score_pallas`` in ``trex_tpu/ops/sankoff_pallas.py``).
+kernel's wrapper, its launch plan and its plain PyTorch version
+(counterpart of ``batched_sankoff_score_pallas`` in
+``trex_tpu/ops/sankoff_pallas.py``).
 
 ``batched_sankoff_score_cuda`` launches ``csrc/sankoff_batched.cu`` for
 CUDA tensors and runs ``batched_sankoff_score_plain`` for CPU tensors;
 there is no other fall back. Its ``launches`` attribute counts the grids a
-call launches on the card: one DP grid per chunk of trees that fits the
-scratch buffer, then one site-sum grid.
+call launches on the card (its ``calls`` attribute the calls that launch):
+the tree-plan pass (``ops.tree_plan``), one DP
+grid per chunk of trees (one unless B > 65535, or in the global-slot mode
+one per chunk of trees whose slots fit ``GLOBAL_SLOT_BYTES``), then one
+site-sum grid. ``launch_plan`` picks where the kernel keeps its slot rows
+(``tree_plan.slot_plan``).
 
 Both versions add a tree's weighted per-site root minima in the same
 order — a pairwise tree over each block of 128 sites, then the blocks in
@@ -20,6 +25,7 @@ package's scores, whatever its summation order.
 from __future__ import annotations
 
 import ctypes
+import functools
 import weakref
 
 import torch
@@ -27,14 +33,16 @@ import torch
 from trex_tpu_torch._device import device_limits
 from trex_tpu_torch.ops import _nvcc
 from trex_tpu_torch.ops.sankoff import batched_root_rows, leaf_dp
+from trex_tpu_torch.ops.tree_plan import SlotPlan, slot_plan, slots_for, tree_plan
 from trex_tpu_torch.utils.chunking import scan_budget_bytes
 
-_THREADS = 128  # sites per block of the kernel
+_THREADS = 128  # sites per pairwise block of the site sum; per block of the fixed-Q kernels
 _MAX_CHUNK = 65535  # grid.y limit: trees per kernel launch
-_SCRATCH_BYTES = 2 << 30  # ancestor scratch per call on the card
 _FIXED_STATES = (4, 20)  # template instantiations; other Q: runtime-Q kernel
-_STATIC_SMEM = 4 * _THREADS  # the block reduction's static shared array
+_TILE = 16  # parent states per thread of the runtime-Q kernel (its C pitch)
+_MAX_ANY_THREADS = 512  # threads per block of the runtime-Q kernel
 _MASK_STATES = 32  # int32 state-set bitmasks hold at most 32 states
+GLOBAL_SLOT_BYTES = 32 << 20  # global-slot mode: slots of the trees in flight, L2-sized
 
 
 def _chunk_trees(batch: int, per_tree_bytes: int, budget: int) -> int:
@@ -115,13 +123,47 @@ def batched_sankoff_score_plain(
     return ordered_site_sum(per_site)
 
 
+def leaf_codes(q: int, masks: bool) -> int:
+    """Rows of the fixed-Q kernels' leaf-message table: a row per state and
+    one for any other value, or a row per mask of Q bits up to 8 states (no
+    table above)."""
+    if masks:
+        return 1 << q if q <= 8 else 0
+    return q + 1
+
+
+def launch_plan(n_leaves: int, q: int, hamming: bool, masks: bool, smem_optin: int) -> SlotPlan:
+    """K5's slot mode and blocks for ``n_leaves``-taxon trees at Q = ``q``.
+    The fixed-Q kernels (Q = 4, 20) hold C, the leaf-message table and
+    ``slots`` rows of Q floats a site, a thread a site, 128 sites a block. The runtime-Q
+    kernel runs ceil(Q / 16) threads a site (at most 512 a block) and holds
+    C transposed at a pitch of Q rounded up to 16 (none in the Hamming
+    mode), the leaf-message table in state mode for general costs where C
+    and the table take at most half a block's shared memory, a float a
+    thread for the root's minima, and either ``slots`` rows of Q floats a
+    site or, where those do not fit, nothing more (the global-slot mode)."""
+    slots = slots_for(n_leaves)
+    if q in _FIXED_STATES:
+        codes = leaf_codes(q, masks)
+        return slot_plan(slots, 4 * slots * q, 4 * (q * q + codes * q), smem_optin,
+                         widths=(_THREADS,), leaf_table=codes > 0)
+    pitch = -(-q // _TILE) * _TILE
+    tiles = pitch // _TILE
+    cost_bytes = 0 if hamming else 4 * q * pitch
+    table_bytes = 4 * (q + 1) * pitch
+    table = not hamming and not masks and cost_bytes + table_bytes <= smem_optin // 2
+    fixed = cost_bytes + (table_bytes if table else 0)
+    return slot_plan(slots, 4 * (tiles + slots * q), fixed, smem_optin,
+                     threads_per_site=tiles, max_threads=_MAX_ANY_THREADS,
+                     global_column_bytes=4 * tiles, leaf_table=table)
+
+
 def max_states(device: torch.device) -> int:
-    """The largest Q the runtime-Q kernel holds in one block's shared
-    memory on ``device``: (Q^2 + 2 x 128 x Q) floats of cost matrix and
-    child rows."""
-    limit = device_limits(device).smem_optin - _STATIC_SMEM
+    """The largest Q of a general cost that the runtime-Q kernel holds on
+    ``device``: C transposed at its pitch in one block's shared memory."""
+    limit = device_limits(device).smem_optin
     q = 1
-    while 4 * ((q + 1) ** 2 + 2 * _THREADS * (q + 1)) <= limit:
+    while 4 * (q + 1) * (-(-(q + 1) // _TILE) * _TILE) <= limit:
         q += 1
     return q
 
@@ -164,9 +206,9 @@ def batched_sankoff_score_cuda(
 ) -> torch.Tensor:
     """(B,) f32 Sankoff scores: K5 on CUDA tensors, the plain version on CPU
     tensors. Arguments as ``batched_sankoff_score_plain``; ``hamming=None``
-    tests on the host whether ``cost`` is ones - eye. Any Q whose cost
-    matrix and child rows fit a block's shared memory (``max_states``: 144
-    on an H100); a larger Q raises ``ValueError``."""
+    tests on the host whether ``cost`` is ones - eye. Any Q in the
+    Hamming mode; a general cost up to ``max_states`` (240 on an H100),
+    above it ``ValueError``."""
     _check(children, leaves, cost, weights, sequences_are_masks)
     if hamming is None:
         hamming = is_hamming(cost)
@@ -178,45 +220,59 @@ def batched_sankoff_score_cuda(
         )
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return batched_sankoff_score_cuda(
+                children, leaves, cost, weights, hamming=hamming,
+                sequences_are_masks=sequences_are_masks)
     batch, n_anc, _ = children.shape
     length = leaves.shape[1]
     q = cost.shape[0]
-    if q not in _FIXED_STATES and q > max_states(device):
+    if q not in _FIXED_STATES and not hamming and q > max_states(device):
         raise ValueError(
-            f"sankoff kernel: Q = {q} needs {4 * (q * q + 2 * _THREADS * q)} bytes of "
-            f"shared memory per block, above this card's limit (at most "
-            f"{max_states(device)} states)"
+            f"sankoff kernel: Q = {q} needs a {q} x {-(-q // _TILE) * _TILE} cost matrix in "
+            f"shared memory, above this card's limit (at most {max_states(device)} states)"
         )
+    plan = launch_plan(n_anc + 1, q, hamming, sequences_are_masks,
+                       device_limits(device).smem_optin)
     if batch == 0 or length == 0:
         return torch.zeros((batch,), dtype=torch.float32, device=device)
+    if (n_anc + 1) * length >= 2**31:
+        raise ValueError(f"sankoff kernel: {n_anc + 1} x {length} leaf states exceed 2^31")
+    steps = tree_plan(children)
+    leaves, cost, weights = (x.contiguous() for x in (leaves, cost, weights))
+    chunk = min(batch, _MAX_CHUNK)
+    slots_g = None
+    if plan.mode == "global":
+        per_tree = 4 * plan.slots * q * length
+        chunk = max(1, min(chunk, GLOBAL_SLOT_BYTES // per_tree))
+        slots_g = torch.empty((chunk * per_tree // 4,), dtype=torch.float32, device=device)
+    per_site = torch.empty((batch, length), dtype=torch.float32, device=device)
     out = torch.empty((batch,), dtype=torch.float32, device=device)
-    children, leaves, cost, weights = (x.contiguous() for x in (children, leaves, cost, weights))
-    per_tree = 4 * n_anc * q * length
-    chunk = _chunk_trees(batch, per_tree, _SCRATCH_BYTES)
-    scratch = torch.empty((chunk * per_tree // 4,), dtype=torch.float32, device=device)
-    block_sums = torch.empty(
-        (batch, (length + _THREADS - 1) // _THREADS), dtype=torch.float32, device=device
+    rc = _library().trex_sankoff_batched(
+        steps.data_ptr(), leaves.data_ptr(), cost.data_ptr(), weights.data_ptr(),
+        None if slots_g is None else slots_g.data_ptr(), per_site.data_ptr(), out.data_ptr(),
+        batch, n_anc + 1, length, q, int(sequences_are_masks), int(hamming), plan.slots,
+        plan.sites_per_block, int(plan.mode == "global"),
+        int(plan.leaf_table and q not in _FIXED_STATES), chunk, plan.smem_bytes,
+        torch.cuda.current_stream().cuda_stream,
     )
-    lib = _library()
-    with torch.cuda.device(device):
-        rc = lib.trex_sankoff_batched(
-            children.data_ptr(), leaves.data_ptr(), cost.data_ptr(), weights.data_ptr(),
-            scratch.data_ptr(), block_sums.data_ptr(), out.data_ptr(),
-            batch, n_anc + 1, length, q, int(sequences_are_masks), int(hamming), chunk,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
     if rc != 0:
         raise RuntimeError(f"sankoff_batched kernel launch failed: CUDA error {rc}")
-    batched_sankoff_score_cuda.launches += -(-batch // chunk) + 1
+    # Grids: the plan pass, the DP chunks, the site sum.
+    batched_sankoff_score_cuda.launches += 1 + -(-batch // chunk) + 1
+    batched_sankoff_score_cuda.calls += 1
     return out
 
 
 batched_sankoff_score_cuda.launches = 0
+batched_sankoff_score_cuda.calls = 0
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("sankoff_batched")
     fn = lib.trex_sankoff_batched
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
