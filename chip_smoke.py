@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout
 
-Builds the five CUDA kernel libraries from ``trex_tpu_torch/csrc`` (one
+Builds the six CUDA kernel libraries from ``trex_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
 version on the card at its paths' shapes (the parsimony kernels K1, K2, K5
 and K6 bit for bit, since their scores are integer-valued; the likelihood
@@ -32,8 +32,10 @@ launch count set to 0 just before it and read just after:
   K5's rescoring), and ``bench`` on 64 x 1024 with 61 states (K5) and 4
   (K1);
 - the level-synchronous Fitch scorer (K6) on the balanced level-order tree
-  at ``tools/fitch_levels_ab.py``'s shapes (a)-(d), each held bit for bit
-  against its plain version and against K1 on the same topology.
+  at ``tools/fitch_levels_ab.py``'s shapes (a)-(f), each held bit for bit
+  against its plain version and against K1 on the same topology, with its
+  mode (bit-sliced planes or one site per word) and its split, and the
+  split over calls of changing batch.
 
 It also profiles the default ``infer``'s two calls (stepwise addition,
 SPR-scan climb), the NNI route, the ML NNI route's two (climb, Newton fit)
@@ -132,9 +134,11 @@ K2_WIDE = dict(shape="e", n_taxa=10_000, n_sites=64)
 # K6 (and K1 beside it) on the balanced level-order tree: (a) the JAX
 # A/B's own shape (benchmarks/fitch_levels.py), (b) the main path's
 # rescoring size (K1's 511-step chain at B = 1), (c) the NNI route's size,
-# (d) 20 states with bit 31 in 5% of the masks; (a1024) (a) at half the
-# batch (``tools/fitch_levels_ab.py`` only) and (e) 2048 leaves, whose
-# rows K6 reads from global memory (a check).
+# (d) 20 states with bit 31 in 5% of the masks (the one-site-per-word
+# mode), (e) 2048 leaves at B = 1 (the bit-sliced split; at 32 states
+# the one-site-per-word mode reads its rows from global memory), (f) (a)
+# at 6 states (8 planes); (a1024) (a) at half the batch
+# (``tools/fitch_levels_ab.py`` only).
 K6_SHAPES = {
     "a": dict(n_leaves=64, n_sites=1024, batch=2048, n_states=4),
     "a1024": dict(n_leaves=64, n_sites=1024, batch=1024, n_states=4),
@@ -142,6 +146,15 @@ K6_SHAPES = {
     "c": dict(n_leaves=128, n_sites=1024, batch=256, n_states=4),
     "d": dict(n_leaves=64, n_sites=1024, batch=512, n_states=20, bit31=True),
     "e": dict(n_leaves=2048, n_sites=2048, batch=1, n_states=4),
+    "f": dict(n_leaves=64, n_sites=1024, batch=2048, n_states=6),
+}
+# The mode and parts of K6's plan at each shape on an H100: (b) at B = 1
+# one site per word (faster there than the bit-sliced split), (e) split
+# over 32 blocks a chunk.
+K6_PLANS = {
+    "a": ("4 planes", 1), "a1024": ("4 planes", 1), "b": ("one site per word", 1),
+    "c": ("4 planes", 1), "d": ("one site per word", 1), "e": ("4 planes", 32),
+    "f": ("8 planes", 1),
 }
 WEIGHTED_ROUNDS = 10
 SCORE_ARGS = ["score", "--leaves", "512", "--sites", "2048", "--states", "4"]
@@ -660,6 +673,8 @@ def main() -> int:
         fitch_levels_plain,
     )
     from trex_tpu_torch.ops.fitch_levels import launch_plan as k6_plan
+    from trex_tpu_torch.ops.fitch_levels import run_plan as run_k6_plan
+    from trex_tpu_torch.ops.fitch_levels import sliced_plan as k6_sliced_plan
     from trex_tpu_torch.ops.insertion_cuda import (
         insertion_delta_cuda,
         insertion_delta_plain,
@@ -730,7 +745,7 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # 2. Build the five kernel libraries from the checkout's sources, in
+    # 2. Build the six kernel libraries from the checkout's sources, in
     # parallel.
     t0 = time.perf_counter()
     _nvcc.build()
@@ -1236,16 +1251,20 @@ def main() -> int:
         del topos, leaves, bench_scores, want
 
     # 6h. K6's path: the level-synchronous scorer on the balanced
-    # level-order tree at shapes (a)-(d), through its entry point, every
-    # count set to 0 just before and read just after. Then each shape, and
-    # (e) in the global-read mode, held bit for bit against its plain
-    # version and against K1 on the same topology (K1 also one site per
-    # word, K6's row layout), and timed.
-    k6_in = {key: k6_inputs(torch, dev, key) for key in "abcd"}
+    # level-order tree at shapes (a)-(f), through its entry point with the
+    # alphabet given, every count set to 0 just before and read just
+    # after. Then each shape held bit for bit against its plain version
+    # and against K1 on the same topology (K1 also one site per word),
+    # checked to reproduce itself, and timed; its CUDA graph (n_states
+    # given) also shows that the call makes no host sync. (e) at 32 states
+    # checks the one-site-per-word mode's global reads. Last, the split
+    # over calls whose tickets and part roots lie elsewhere in their
+    # buffer: (b) split at B = 1, 3, 1 and (e) at B = 1, 3, 1.
+    k6_in = {key: k6_inputs(torch, dev, key) for key in "abcdef"}
     reset_counts()
     k6_path = {
         key: fitch_levels_balanced(x[0], n_leaves=K6_SHAPES[key]["n_leaves"],
-                                   batch=K6_SHAPES[key]["batch"])
+                                   batch=K6_SHAPES[key]["batch"], n_states=x[3])
         for key, x in k6_in.items()
     }
     torch.cuda.synchronize()
@@ -1253,33 +1272,40 @@ def main() -> int:
     if k6_counts["k6"] != len(k6_in) or any(v for k, v in k6_counts.items() if k != "k6"):
         raise AssertionError(f"K6 path launches: {k6_counts}")
     k6_shapes = {}
-    for key in "abcde":
+    for key in "abcdef":
         shape = K6_SHAPES[key]
         n, length, batch = shape["n_leaves"], shape["n_sites"], shape["batch"]
-        masks, children, ones, alphabet, used = k6_in.get(key) or k6_inputs(torch, dev, key)
+        masks, children, ones, alphabet, used = k6_in[key]
         plain = fitch_levels_plain(masks, n, batch)
         checks = {
-            "path": k6_path.get(key, plain),
+            "path": k6_path[key],
             "k1_plain": batched_fitch_score_plain(children, masks, ones),
             **{f"k1_{q}_states": batched_fitch_score_cuda(children, masks, ones, n_states=q)
                for q in sorted({alphabet, 32})},
+            "alphabet_read": fitch_levels_balanced(masks, n_leaves=n, batch=batch),
         }
+        if key == "e":
+            checks["one_site_per_word"] = fitch_levels_balanced(
+                masks, n_leaves=n, batch=batch, n_states=32)
+            if k6_plan(batch, n, length, 32, *device_limits(dev)).staged:
+                raise AssertionError("K6 (e) at 32 states: expected global reads")
         for name, got in checks.items():
             if not torch.equal(got, plain):
                 raise AssertionError(f"K6 ({key}): {name} differs from the plain version")
-        plan = k6_plan(batch, n, length, *device_limits(dev))
-        if plan.staged != (key != "e"):
+        plan = k6_plan(batch, n, length, alphabet, *device_limits(dev))
+        if (plan.mode, plan.parts) != K6_PLANS[key]:
             raise AssertionError(f"K6 ({key}) plan {plan}")
 
-        def k6_run(masks=masks, n=n, batch=batch):
-            return fitch_levels_balanced(masks, n_leaves=n, batch=batch)
+        def k6_run(masks=masks, n=n, batch=batch, q=alphabet):
+            return fitch_levels_balanced(masks, n_leaves=n, batch=batch, n_states=q)
 
         def k1_run(q, children=children, masks=masks, ones=ones):
             return lambda: batched_fitch_score_cuda(children, masks, ones, n_states=q)
 
         k6_shapes[key] = dict(
             shape=key, **shape, states_used=used, k1_alphabet=alphabet,
-            plan=dataclasses.asdict(plan), score=float(plain[0]), equal_to_k1=True,
+            plan=dataclasses.asdict(plan), mode=plan.mode, split=plan.parts,
+            score=float(plain[0]), equal_to_k1=True,
             **measure(torch, k6_run, lambda: fitch_levels_plain(masks, n, batch),
                       *k6_work(batch, n, length, used), ops_per_s=INT32_OPS_PER_S,
                       plain_reps=2),
@@ -1288,6 +1314,17 @@ def main() -> int:
             k1_one_site_per_word_graph_ms=graph_ms(torch, k1_run(32)),
         )
         emit("k6", **k6_shapes[key])
+    for key in "be":
+        n, length = K6_SHAPES[key]["n_leaves"], K6_SHAPES[key]["n_sites"]
+        masks = k6_in[key][0]
+        for batch in (1, 3, 1):
+            split = k6_sliced_plan(batch, n, length, 4, *device_limits(dev))
+            got = {"split": run_k6_plan(masks, batch, split),
+                   "entry": fitch_levels_balanced(masks, n_leaves=n, batch=batch, n_states=4)}
+            for name, scores in got.items():
+                if split.parts == 1 or not torch.equal(scores, fitch_levels_plain(masks, n, batch)):
+                    raise AssertionError(f"K6 ({key}) B={batch}: {name} differs ({split})")
+        emit("k6_split_sequence", shape=key, batches=[1, 3, 1], equal=True)
     del k6_in, k6_path
 
     # 7. Reference: on a small, divergent alignment (the climbs take rounds)
@@ -1440,7 +1477,7 @@ def main() -> int:
             "name": "fitch_levels", "route": "cuda",
             "source": "trex_tpu_torch/csrc/fitch_levels.cu",
             "replaces": "benchmarks/fitch_levels.py:63",
-            # Its path is the A/B's entry point at shapes (a)-(d); no route
+            # Its path is the A/B's entry point at shapes (a)-(f); no route
             # of the CLI runs it.
             "launches": k6_counts["k6"], "main_path_launches": main_counts["k6"],
             **k6_shapes["a"], "library_ms": None, "at_shapes": k6_shapes,
