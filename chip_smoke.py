@@ -37,13 +37,31 @@ launch count set to 0 just before it and read just after:
   mode (bit-sliced planes or one site per word) and its split, and the
   split over calls of changing batch.
 
+- the differentiable core at full width: ``infer --start diff`` on the
+  NNI route's 128 x 1024 alignment (8 restarts x 600 steps, projection,
+  K1 ranking the projected trees, held against K1's plain version, then
+  the SPR-scan climb), ``search`` (128 x 1024, 3000 steps, 8 restarts),
+  ``asr`` (128 x 1024, 3000 steps), ``nk-bench`` (32 leaves, K 1, 2, 5, 10,
+  lambda 0, 0.3, 3.0, ``--iterations`` cut to 2000) and ``search-run``
+  (16 x 128, 2000 steps in segments of 500, stopped after 2 and resumed,
+  bit-equal to an uninterrupted run), each with its wall, its launches a
+  descent step and idle share (a profiled window of 100 steps) and K1's
+  launches.
+
+K1 is also captured in a CUDA graph, larger calls run, and the graph
+replayed (each call's scratch is its own: bit-equal to the plain version);
+shape (b) is timed with a kept buffer and with the per-call one.
+
 It also profiles the default ``infer``'s two calls (stepwise addition,
 SPR-scan climb), the NNI route, the ML NNI route's two (climb, Newton fit)
 and the weighted climb with ``torch.profiler`` for the device's busy and idle share
 and the top kernels, and checks on small divergent alignments that the
 card returns the same results as the CPU: ``infer`` for both criteria and
-both neighborhoods, the weighted climb, ``score --alignment``, and
-stepwise addition on masks with bits above the alphabet.
+both neighborhoods, the weighted climb, ``score --alignment``, stepwise
+addition on masks with bits above the alphabet, and the differentiable
+core (50 steps of ``joint_optimize``, ``project_topology``,
+``soft_sankoff_score`` and its gradients, ``evolve_tree`` on the same
+draws).
 
 Each phase prints one JSON line. The line before the last is
 ``{"kernels": [...]}``; the last is
@@ -598,16 +616,17 @@ def strip_lengths(newick: str) -> str:
 
 
 def run_cli(argv: list[str]):
-    """The ``infer``, ``score`` or ``bench`` command in this process; returns
-    what its ``run_*`` function returns (InferRun, the JSON object, or the
-    JSON object and the scores)."""
+    """A command in this process; returns what its ``run_*`` function
+    returns (``infer``: InferRun; ``bench``, ``search-run``: the JSON object
+    and the scores or params; else the JSON object)."""
     from trex_tpu_torch.cli import build_parser
     from trex_tpu_torch.cli.infer import run_infer
-    from trex_tpu_torch.cli.score import run_score
-    from trex_tpu_torch.cli.search_cmds import run_bench
+    from trex_tpu_torch.cli.score import run_asr, run_score
+    from trex_tpu_torch.cli.search_cmds import run_bench, run_nk_bench, run_search, run_search_run
 
-    run = {"infer": run_infer, "score": run_score, "bench": run_bench}[argv[0]]
-    with contextlib.redirect_stdout(io.StringIO()):
+    run = {"infer": run_infer, "score": run_score, "bench": run_bench, "search": run_search,
+           "asr": run_asr, "nk-bench": run_nk_bench, "search-run": run_search_run}[argv[0]]
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
         return run(build_parser().parse_args(argv))
 
 
@@ -652,6 +671,255 @@ def profile_phase(torch, fn, unprofiled_wall: float | None) -> dict:
     }
 
 
+# The differentiable core's routes at full width: ``infer --start diff`` on
+# the NNI route's 128 x 1024 alignment, then ``search``, ``asr``,
+# ``nk-bench`` (the reference's sweep, iterations cut) and ``search-run``
+# (stopped after 2 segments and resumed).
+SEARCH_ARGS = ["search", "--leaves", "128", "--sites", "1024", "--iterations", "3000"]
+ASR_ARGS = ["asr", "--leaves", "128", "--sites", "1024"]
+NK_ITERATIONS, NK_LEAVES, NK_SITES = 2000, 32, 128
+NK_ARGS = ["nk-bench", "--leaves", str(NK_LEAVES), "--sites", str(NK_SITES),
+           "--k-values", "1", "2", "5", "10", "--lambdas", "0", "0.3", "3.0",
+           "--iterations", str(NK_ITERATIONS)]
+SEARCH_RUN_ARGS = ["search-run", "--leaves", "16", "--sites", "128", "--iterations", "2000",
+                   "--checkpoint-every", "500"]
+# Descent steps profiled for each route's launches a step and idle share.
+WINDOW_STEPS = 100
+
+
+def descent_window(torch, fn, steps: int) -> dict:
+    """``profile_phase`` of ``fn()``, a run of ``steps`` descent steps, its
+    unprofiled wall taken just before; with the device launches a step."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    prof = profile_phase(torch, fn, time.perf_counter() - t0)
+    return dict(prof, steps=steps, launches_per_step=prof["device_launches"] / steps)
+
+
+def timed_cli(torch, argv: list[str]):
+    """(result, wall seconds) of a command run on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_cli(argv)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def differentiable_routes(torch, dev, workdir: str, diff_fasta: str, reset_counts,
+                          launch_counts) -> dict:
+    """The five routes of the differentiable core, each with every launch
+    count set to 0 just before it and read just after: wall, launches a
+    descent step and idle share (a window of ``WINDOW_STEPS`` steps at the
+    route's width under the profiler; the diff route's whole ``infer``
+    too), and K1's launches. Returns K1's diff-route launches and the
+    route records."""
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli._common import (
+        _load_alignment,
+        diff_start,
+        lowest_states,
+        one_hot_leaves,
+    )
+    from trex_tpu_torch.models.mutation_tree import generate_groundtruth
+    from trex_tpu_torch.models.nk import make_landscape
+    from trex_tpu_torch.ops.fitch_cuda import batched_fitch_score_plain
+    from trex_tpu_torch.search.asr import (
+        reconstruct_ancestors,
+        reconstruct_ancestors_landscape_aware,
+    )
+    from trex_tpu_torch.search.joint import JointConfig, init_params, joint_optimize, joint_search
+    from trex_tpu_torch.search.runner import RunnerConfig, run_search
+    from trex_tpu_torch.topology import balanced_topology, topology_to_adjacency
+    from trex_tpu_torch.types import CostModel
+
+    routes = {}
+    # infer --start diff: 8 restarts x 600 steps, projection, K1 ranking,
+    # then the default SPR-scan climb.
+    diff_argv = ["infer", "--alignment", diff_fasta, "--start", "diff"]
+    reset_counts()
+    run, wall = timed_cli(torch, diff_argv)
+    counts = launch_counts()
+    if counts["k1"] <= 0 or any(counts[k] for k in ("k2", "k34", "k5", "k6", "plan")):
+        raise AssertionError(f"diff route launches: {counts}")
+    # The ranking again: K1's scores of the eight projected trees against
+    # the plain version's.
+    _, masks, n_states = _load_alignment(diff_fasta, "dna")
+    patterns, pattern_counts = compress_alignment(masks)
+    patterns = np.asarray(patterns, dtype=np.int32)
+    weights = torch.as_tensor(pattern_counts, dtype=torch.float32, device=dev)
+    ranked = diff_start(patterns, n_states, 0, weights, dev)
+    plain = batched_fitch_score_plain(ranked.trees.children, torch.as_tensor(patterns, device=dev),
+                                      weights)
+    if not torch.equal(ranked.scores, plain):
+        raise AssertionError(f"K1 on the projected trees {ranked.scores} != plain {plain}")
+    n_leaves, length = patterns.shape
+    leaf_tensor = one_hot_leaves(
+        torch.as_tensor(lowest_states(patterns, n_states), device=dev), n_states)
+    init = init_params(n_leaves, length, n_states, batch=(8,),
+                       generator=torch.Generator(dev).manual_seed(0))
+    window = descent_window(torch, lambda: joint_optimize(
+        init, leaf_tensor, JointConfig(n_iterations=WINDOW_STEPS)), WINDOW_STEPS)
+    routes["diff"] = dict(
+        command=" ".join(diff_argv[:1] + diff_argv[3:]) + " (128 x 1024 alignment)",
+        parsimony_score=run.out["parsimony_score"], search_rounds=run.out["search_rounds"],
+        start_s=run.seconds["start"], climb_s=run.seconds["climb"], wall_s=wall,
+        launches=counts, k1_launches=counts["k1"], projected_scores=ranked.scores.tolist(),
+        k1_equal_to_plain=True, descent_window=window,
+        route_profile=profile_phase(torch, lambda: run_cli(diff_argv), wall))
+    emit("diff_route", **routes["diff"])
+
+    # search: 8 restarts x 3000 steps on a generated 128-leaf tree.
+    reset_counts()
+    out, wall = timed_cli(torch, SEARCH_ARGS)
+    counts = launch_counts()
+    n_leaves, length = int(SEARCH_ARGS[2]), int(SEARCH_ARGS[4])
+    gt = generate_groundtruth(n_leaves, 4, 3, length, seed=0, device=dev)
+    leaf = gt.all_sequences[:n_leaves].to(torch.int32)
+    leaf_tensor = one_hot_leaves(leaf, 4)
+    hamming = CostModel.hamming(4, device=dev).matrix
+    window = descent_window(torch, lambda: joint_search(
+        leaf_tensor, hamming, JointConfig(n_iterations=WINDOW_STEPS),
+        generator=torch.Generator(dev).manual_seed(0)), WINDOW_STEPS)
+    if not all(np.isfinite(v) for v in out.values()):
+        raise AssertionError(f"search: {out}")
+    routes["search"] = dict(command=" ".join(SEARCH_ARGS), **out, wall_s=wall,
+                            launches=counts, k1_launches=counts["k1"], descent_window=window)
+    emit("search_route", **routes["search"])
+
+    # asr: 3000 Adam steps of the 127 ancestors.
+    reset_counts()
+    out, wall = timed_cli(torch, ASR_ARGS)
+    counts = launch_counts()
+    window = descent_window(torch, lambda: reconstruct_ancestors(
+        leaf, 2 * n_leaves - 1, 4, gt.adjacency, torch.Generator(dev).manual_seed(0),
+        n_iterations=WINDOW_STEPS, learning_rate=1e-2), WINDOW_STEPS)
+    if not 0.0 <= out["gradient_asr_identity"] <= 1.0:
+        raise AssertionError(f"asr: {out}")
+    routes["asr"] = dict(command=" ".join(ASR_ARGS), **out, wall_s=wall, launches=counts,
+                         k1_launches=counts["k1"], descent_window=window)
+    emit("asr_route", **routes["asr"])
+    del gt, leaf_tensor, leaf
+
+    # nk-bench: the reference's sweep, K 1, 2, 5, 10 x lambda 0, 0.3, 3.0.
+    reset_counts()
+    out, wall = timed_cli(torch, NK_ARGS)
+    counts = launch_counts()
+    generator = torch.Generator(dev).manual_seed(0)
+    landscape = make_landscape(NK_SITES, 10, generator)
+    topo = balanced_topology(NK_LEAVES, dev)
+    leaf = torch.randint(0, 2, (NK_LEAVES, NK_SITES), generator=generator, device=dev)
+    window = descent_window(torch, lambda: reconstruct_ancestors_landscape_aware(
+        leaf, 2 * NK_LEAVES - 1, 2, landscape, 3.0, topology_to_adjacency(topo), generator,
+        n_iterations=WINDOW_STEPS), WINDOW_STEPS)
+    routes["nk_bench"] = dict(
+        command=" ".join(NK_ARGS), reduced=f"--iterations {NK_ITERATIONS}, not 10000",
+        results=out, wall_s=wall, launches=counts, k1_launches=counts["k1"],
+        descent_window=dict(window, shape=f"K = 10, lambda = 3.0, {NK_LEAVES} x {NK_SITES}"))
+    emit("nk_bench_route", **routes["nk_bench"])
+
+    # search-run: 2000 steps in segments of 500; one run stopped after 2
+    # segments and resumed by the command, one without a stop: bit-equal.
+    stopped = os.path.join(workdir, "search_run_stopped")
+    whole = os.path.join(workdir, "search_run_whole")
+    reset_counts()
+    t0 = time.perf_counter()
+    n_leaves, length, steps, every = (int(SEARCH_RUN_ARGS[i]) for i in (2, 4, 6, 8))
+    gt = generate_groundtruth(n_leaves, 4, 3, length, seed=0, device=dev)
+    cfg = RunnerConfig(stopped, steps, every, seed=0,
+                       joint=JointConfig(n_iterations=steps, learning_rate=0.01))
+    run_search(cfg, one_hot_leaves(gt.all_sequences[:n_leaves].to(torch.int32), 4),
+               max_segments=2)
+    (out, resumed), _ = timed_cli(torch, SEARCH_RUN_ARGS + ["--workdir", stopped])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    (_, uninterrupted), whole_wall = timed_cli(torch, SEARCH_RUN_ARGS + ["--workdir", whole])
+    for k in resumed:
+        if not torch.equal(resumed[k], uninterrupted[k]):
+            raise AssertionError(f"search-run: resumed {k} differs from the uninterrupted run")
+    window = descent_window(torch, lambda: run_cli(
+        SEARCH_RUN_ARGS[:6] + [str(WINDOW_STEPS), "--checkpoint-every", str(WINDOW_STEPS),
+                               "--no-resume", "--workdir", os.path.join(workdir, "window")]),
+        WINDOW_STEPS)
+    shutil.rmtree(os.path.join(workdir, "window"))
+    routes["search_run"] = dict(
+        command=" ".join(SEARCH_RUN_ARGS), **out, stopped_after_segments=2,
+        resumed_equal_to_uninterrupted=True, wall_s=wall, uninterrupted_wall_s=whole_wall,
+        launches=counts, k1_launches=counts["k1"], descent_window=window)
+    emit("search_run_route", **routes["search_run"])
+    return routes
+
+
+def differentiable_reference(torch, devices=("cuda", "cpu")) -> dict:
+    """Card against CPU at a small size, on the same inputs: 50 steps of
+    ``joint_optimize`` (2 restarts; params within atol 1e-4, losses rtol
+    1e-4), ``project_topology`` (the same trees), ``soft_sankoff_score``
+    (rtol 1e-5) and its gradients in the cost, leaf costs and T (within
+    1e-5 of each gradient's largest entry) and ``evolve_tree`` on the same
+    draws (equal)."""
+    from trex_tpu_torch.models.nk import EdgeDraws, draw_edges, evolve_tree, make_landscape
+    from trex_tpu_torch.ops.relax import project_topology, soft_topology
+    from trex_tpu_torch.ops.soft_dp import soft_sankoff_score
+    from trex_tpu_torch.search.joint import JointConfig, joint_optimize
+    from trex_tpu_torch.topology import from_numpy, parents_from_children
+
+    rng = np.random.default_rng(SEED + 40)
+    n_leaves, length, q, restarts, steps = 12, 48, 4, 2, 50
+    n_all = 2 * n_leaves - 1
+    leaf = np.zeros((n_all, length, q), np.float32)
+    leaf[np.arange(n_leaves)[:, None], np.arange(length), rng.integers(0, q, (n_leaves, length))] = 1
+    init = {"tree_params": rng.normal(size=(restarts, n_all - 1, n_leaves - 1)),
+            "ancestors": rng.normal(size=(restarts, n_leaves - 1, length, q))}
+    noise = rng.gumbel(size=(steps, restarts, n_all - 1, n_leaves - 1))
+    children = random_trees(rng, n_leaves, 1)[0]
+    parents = parents_from_children(children)
+    cost = rng.integers(0, 3, (q, q)).astype(np.float32)
+    np.fill_diagonal(cost, 0)
+    leaf_costs = rng.random((n_leaves, q, length)) * 3
+    adjacency = soft_topology(torch.as_tensor(init["tree_params"], dtype=torch.float32), 0.05,
+                              noise=torch.as_tensor(noise[0], dtype=torch.float32))
+    got = {}
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    landscape = make_landscape(length, 3, cpu_gen)
+    draws = draw_edges(n_all, 2, length, 2, cpu_gen)
+    root = torch.randint(0, 2, (length,), generator=cpu_gen)
+    for device in devices:
+        as_t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
+        params, losses = joint_optimize({k: as_t(v) for k, v in init.items()}, as_t(leaf),
+                                        JointConfig(n_iterations=steps), noise=as_t(noise))
+        topo = project_topology(adjacency.to(device))
+        c, lc, t = (as_t(x).requires_grad_(True) for x in (cost, leaf_costs, 0.3))
+        score = soft_sankoff_score(from_numpy(children, parents, device), c, lc, t)
+        score.backward()
+        moved = evolve_tree(
+            dataclasses.replace(landscape, interactions=landscape.interactions.to(device),
+                                tables=landscape.tables.to(device)),
+            from_numpy(children, parents, device), root.to(device), 0.2,
+            draws=EdgeDraws(*(d.to(device) for d in draws)), branch_length=2)
+        got[device] = dict(params={k: v.cpu() for k, v in params.items()}, losses=losses.cpu(),
+                           children=topo.children.cpu(), parents=topo.parents.cpu(),
+                           score=score.detach().cpu(), grads=[x.grad.cpu() for x in (c, lc, t)],
+                           evolved=moved.cpu())
+    card, cpu = (got[d] for d in devices)
+    err = {k: float((card["params"][k] - cpu["params"][k]).abs().max()) for k in card["params"]}
+    loss_rel = float(((card["losses"] - cpu["losses"]).abs() / cpu["losses"].abs()).max())
+    score_rel = float(abs(card["score"] - cpu["score"]) / abs(cpu["score"]))
+    # Gradients: the largest difference over the largest CPU value.
+    grad_rel = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(card["grads"], cpu["grads"])]
+    if (max(err.values()) > 1e-4 or loss_rel > 1e-4 or score_rel > 1e-5 or max(grad_rel) > 1e-5
+            or not torch.equal(card["children"], cpu["children"])
+            or not torch.equal(card["parents"], cpu["parents"])
+            or not torch.equal(card["evolved"], cpu["evolved"])):
+        raise AssertionError(f"differentiable core, card vs CPU: params {err}, losses {loss_rel}, "
+                             f"soft DP {score_rel} {grad_rel}")
+    return dict(joint_optimize_param_abs_err=err, joint_optimize_loss_rel_err=loss_rel,
+                soft_sankoff_rel_err=score_rel, soft_sankoff_grad_rel_err=grad_rel,
+                same_projected_trees=True, same_evolved_sequences=True)
+
+
 def main() -> int:
     import torch
 
@@ -668,6 +936,8 @@ def main() -> int:
         batched_fitch_score_plain,
     )
     from trex_tpu_torch.ops.fitch_cuda import launch_plan as k1_plan
+    from trex_tpu_torch.ops.fitch_cuda import run_plan as run_k1_plan
+    from trex_tpu_torch.ops.fitch_cuda import scratch_words as k1_scratch_words
     from trex_tpu_torch.ops.fitch_levels import (
         fitch_levels_balanced,
         fitch_levels_plain,
@@ -782,6 +1052,45 @@ def main() -> int:
         emit("k1", shape=key, **k1_shapes[key])
     if k1_shapes["i"]["plan"]["staged"]:
         raise AssertionError(f"K1 (i) did not take the global mode: {k1_shapes['i']['plan']}")
+
+    # 3b. Each K1 call has its own scratch: a call captured in a CUDA graph,
+    # then larger calls (2048 taxa; 8192 taxa in the global mode), then the
+    # graph replayed must still give the plain version's scores bit for bit.
+    # And shape (b) timed with a buffer the caller keeps (the cache the
+    # wrapper had before) and with the per-call buffer, in turns.
+    k1_b = k1_route_inputs(torch, dev, workdir, "b")
+    plain_b = batched_fitch_score_plain(*k1_b[:3])
+    graph = torch.cuda.CUDAGraph()
+    captured = lambda: batched_fitch_score_cuda(*k1_b[:3], n_states=4)  # noqa: E731
+    captured()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        graph_scores = captured()
+    for key in "fi":
+        children, masks, weights, q = k1_inputs(torch, dev, key, np.random.default_rng(SEED + 50))
+        batched_fitch_score_cuda(children, masks, weights, n_states=q)
+        del children, masks, weights
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(graph_scores, plain_b):
+        raise AssertionError("K1's graph replay after larger calls differs from the plain version")
+    del graph
+    plan_b = k1_plan(1, k1_b[1].shape[0], k1_b[1].shape[1], 4, *device_limits(dev))
+    kept = torch.empty((k1_scratch_words(plan_b, k1_b[1].shape[0], k1_b[1].shape[1]),),
+                       dtype=torch.int32, device=dev)
+    scratch_runs = {
+        "per_call": lambda: run_k1_plan(*k1_b[:3], plan_b),
+        "kept": lambda: run_k1_plan(*k1_b[:3], plan_b, scratch=kept),
+    }
+    scratch_ab = {name: {"ms": [], "graph_ms": []} for name in scratch_runs}
+    for name in ("per_call", "kept", "kept", "per_call"):
+        if not torch.equal(scratch_runs[name](), plain_b):
+            raise AssertionError(f"K1 (b) with the {name} scratch differs from the plain version")
+        scratch_ab[name]["ms"].append(time_ms(torch, scratch_runs[name], 30))
+        scratch_ab[name]["graph_ms"].append(graph_ms(torch, scratch_runs[name]))
+    emit("k1_scratch", shape="b", graph_replay_after_larger_calls_equal=True,
+         plan=dataclasses.asdict(plan_b), **scratch_ab)
+    del kept, k1_b, plain_b
 
     # 4. K2 at real stepwise insertions, shapes (a)-(d) of K2_SHAPES, and on
     # the wide tree (e), each bit for bit against its plain version, with
@@ -1327,6 +1636,12 @@ def main() -> int:
         emit("k6_split_sequence", shape=key, batches=[1, 3, 1], equal=True)
     del k6_in, k6_path
 
+    # 6i. The differentiable core's routes at full width (infer --start diff,
+    # search, asr, nk-bench, search-run), then the core on the card against
+    # the CPU at a small size.
+    routes = differentiable_routes(torch, dev, workdir, nni_fasta, reset_counts, launch_counts)
+    emit("reference", part="differentiable core", **differentiable_reference(torch))
+
     # 7. Reference: on a small, divergent alignment (the climbs take rounds)
     # the card's run returns the same tree and score as the CPU run — the
     # plain versions, which the CPU tests hold against the JAX package.
@@ -1420,11 +1735,12 @@ def main() -> int:
             "source": "trex_tpu_torch/csrc/fitch_batched.cu",
             "replaces": "trex_tpu/ops/sankoff_pallas.py:183",
             "launches": main_k1, "nni_route_launches": nni_k1,
+            "diff_route_launches": routes["diff"]["k1_launches"],
             "ml_nni_route_launches": ml_launches["k1"],
             "weighted_route_launches": wt_counts["k1"],
             "bench_q4_launches": bench_runs[4]["launches"]["k1"],
             "shape": K1_SHAPE, **k1, "library_ms": None,
-            "at_main_path": k1_main, "at_nni_route": k1_nni,
+            "at_main_path": k1_main, "at_nni_route": k1_nni, "scratch_at_b": scratch_ab,
             "at_shapes": dict(k1_shapes, b=k1_main, c=k1_nni),
         },
         {

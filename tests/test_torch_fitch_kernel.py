@@ -25,6 +25,7 @@ from trex_tpu_torch.ops.fitch_cuda import (
     n_words,
     pack_planes,
     planes_for,
+    scratch_words,
     unpack_planes,
 )
 from trex_tpu_torch.ops.sankoff_cuda import is_hamming
@@ -92,6 +93,20 @@ def test_launch_plan_modes_and_taxa_limit():
     assert (many.tree_groups, many.rounds, many.width) == (8, 13, 32)
     with pytest.raises(ValueError, match="at most 32 states"):
         planes_for(33)
+
+
+def test_scratch_words_per_call():
+    """Each call's own scratch: the leaves' packed planes in the bit-sliced
+    mode, the ancestor rows in the global mode, none in the staged one-
+    site-per-word mode."""
+    sliced = launch_plan(1, 512, 2048, 4, **H100)
+    assert sliced.planes == 4
+    assert scratch_words(sliced, 512, 2048) == 512 * 4 * n_words(2048)
+    wide = launch_plan(4, 8192, 1024, 4, **H100)
+    assert scratch_words(wide, 8192, 1024) == global_scratch_words(wide, 8192, 1024)
+    per_site = launch_plan(64, 64, 1024, 20, **H100)
+    assert per_site.planes == 0 and per_site.staged
+    assert scratch_words(per_site, 64, 1024) == 0
 
 
 @pytest.mark.parametrize("n_states", [4, 8, 20, 32])

@@ -4,13 +4,21 @@ score       Exact Sankoff scoring + ancestral reconstruction of a generated
             balanced mutation tree, or (``--alignment``) the Fitch score and
             one optimal labeling of a given or stepwise-addition tree.
 infer       File-based parsimony or ML tree inference: FASTA/PHYLIP/NEXUS
-            in, stepwise-addition start, SPR-scan (default) or NNI hill
-            climb, newick and score out as one JSON line.
+            in, stepwise-addition or differentiable (``--start diff``)
+            start, SPR-scan (default) or NNI hill climb, newick and score
+            out as one JSON line.
+search      Multi-restart joint topology + sequence search on a generated
+            mutation tree, against exact Sankoff on the true tree.
+asr         Gradient ancestral reconstruction against exact Sankoff.
+search-run  The joint search, checkpointed and resumable.
 bench       Batched candidate-scoring throughput on random trees (the Fitch
             kernel for Hamming with <= 32 states, the Sankoff kernel above).
+nk-bench    Sankoff vs plain and landscape-aware gradient ASR on trees
+            evolved over NK fitness landscapes.
 
 Each prints the same JSON keys as ``python -m trex_tpu.cli <command>``, and
-``score``/``infer`` the same trees and scores. Each runs on the card
+``score``/``infer`` the same trees and scores (``infer --start diff`` and
+the generated-data commands draw from the port's own generators). Each runs on the card
 (``--device cuda``, default) or the CPU.
 """
 

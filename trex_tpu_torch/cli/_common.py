@@ -3,8 +3,12 @@
 from __future__ import annotations
 
 import argparse
+from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from trex_tpu_torch.topology import Topology
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -62,8 +66,10 @@ def _start_tree(
     """Build the requested starting topology from (possibly ambiguous) leaves."""
     from trex_tpu_torch.search.stepwise import stepwise_addition_multi
 
+    if kind == "diff":
+        return diff_start(masks, n_states, seed, weights, device).topology
     if kind != "stepwise":
-        later = {"nj": "slice 2b", "upgma": "slice 2b", "diff": "slice 3"}
+        later = {"nj": "slice 2b", "upgma": "slice 2b"}
         raise SystemExit(
             f"--start {kind} is not ported yet: {later.get(kind, 'slice 1b')} "
             "of ROADMAP.md"
@@ -73,3 +79,79 @@ def _start_tree(
         sequences_are_masks=True, site_weights=weights, device=device,
     )
     return topo
+
+
+class DiffStart(NamedTuple):
+    """What ``diff_start`` returns: the best projected tree, every
+    restart's projected tree and their exact scores."""
+
+    topology: Topology
+    trees: Topology
+    """(R, ...) restart-stacked."""
+    scores: torch.Tensor
+
+
+DIFF_RESTARTS = 8
+DIFF_ITERATIONS = 600
+
+
+def diff_start(
+    masks, n_states: int, seed: int, weights, device, *,
+    init: dict | None = None, noise=None, projection_noise=None,
+) -> DiffStart:
+    """The differentiable start tree (``--start diff``): ``DIFF_RESTARTS``
+    joint-relaxation restarts of ``DIFF_ITERATIONS`` annealed steps as one
+    batch, each projected to a valid tree at temperature 0.01 with fresh
+    Gumbel noise, ranked by exact parsimony on the true masks through the
+    dispatch (K1 on the card); the first best wins.
+
+    The relaxation takes one-hot leaves, each mask resolved to its lowest
+    allowed state. Its draws come from a generator seeded with ``seed``
+    (initial parameters, then each step's noise) and, for the projection,
+    one seeded with ``seed + 1``; ``init`` (restart-stacked parameters),
+    ``noise`` ((DIFF_ITERATIONS, R, n_all - 1, n_anc)) and
+    ``projection_noise`` ((R, n_all - 1, n_anc)) replace them.
+    """
+    from trex_tpu_torch.ops.dispatch import batched_scores_fastest
+    from trex_tpu_torch.ops.relax import project_topology, soft_topology
+    from trex_tpu_torch.search.joint import JointConfig, init_params, joint_optimize
+    from trex_tpu_torch.types import CostModel
+
+    n_leaves, length = masks.shape
+    leaf_tensor = one_hot_leaves(
+        torch.as_tensor(lowest_states(masks, n_states), device=device), n_states)
+    generator = torch.Generator(device).manual_seed(seed)
+    if init is None:
+        init = init_params(n_leaves, length, n_states, generator=generator,
+                           batch=(DIFF_RESTARTS,))
+    params, _ = joint_optimize(init, leaf_tensor, JointConfig(n_iterations=DIFF_ITERATIONS),
+                               noise=noise, generator=generator)
+    generator.manual_seed(seed + 1)
+    trees = project_topology(soft_topology(
+        params["tree_params"], 0.01, noise=projection_noise, generator=generator))
+    cost = CostModel.hamming(n_states, device=device).matrix
+    scores = batched_scores_fastest(
+        trees, cost, torch.as_tensor(masks, device=device), site_weights=weights,
+        sequences_are_masks=True,
+    )
+    best = int(torch.argmin(scores))
+    return DiffStart(Topology(trees.children[best], trees.parents[best]), trees, scores)
+
+
+def one_hot_leaves(leaf: torch.Tensor, n_states: int) -> torch.Tensor:
+    """(2n - 1, L, Q) float32: one-hot rows of the (n, L) integer leaves,
+    zero ancestor rows (the joint search's leaf tensor)."""
+    n_leaves, length = leaf.shape
+    out = torch.zeros((2 * n_leaves - 1, length, n_states), device=leaf.device)
+    out[:n_leaves] = torch.nn.functional.one_hot(leaf.long(), n_states).float()
+    return out
+
+
+def lowest_states(masks: np.ndarray, n_states: int) -> np.ndarray:
+    """The lowest allowed state of each (possibly ambiguous) state-set mask
+    (0 for a mask with none of the alphabet's bits)."""
+    lsb = masks & -masks
+    ints = np.zeros_like(masks)
+    for b in range(n_states):
+        ints[lsb == (1 << b)] = b
+    return ints

@@ -1,5 +1,6 @@
 """Argument parser and entry point (counterpart of ``trex_tpu/cli/parser.py``;
-the ``score``, ``infer`` and ``bench`` commands)."""
+the ``score``, ``infer``, ``search``, ``asr``, ``search-run``, ``bench`` and
+``nk-bench`` commands)."""
 
 from __future__ import annotations
 
@@ -10,8 +11,8 @@ import torch
 import trex_tpu_torch.cli as _cli_pkg
 from trex_tpu_torch.cli._common import _add_common, _add_device
 from trex_tpu_torch.cli.infer import cmd_infer
-from trex_tpu_torch.cli.score import cmd_score
-from trex_tpu_torch.cli.search_cmds import cmd_bench
+from trex_tpu_torch.cli.score import cmd_asr, cmd_score
+from trex_tpu_torch.cli.search_cmds import cmd_bench, cmd_nk_bench, cmd_search, cmd_search_run
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,8 +67,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("stepwise", "nj", "upgma", "random", "balanced",
                             "diff"),
                    default="stepwise",
-                   help="starting tree: stepwise addition (the others: a "
-                        "later slice)")
+                   help="starting tree: stepwise addition (default) or "
+                        "'diff', the differentiable joint relaxation as a "
+                        "coarse initializer (8 restarts of 600 steps as one "
+                        "batch, projected to valid trees, best exact score "
+                        "by the Fitch kernel); nj/upgma/random/balanced: a "
+                        "later slice")
     p.add_argument("--orders", type=int, default=4,
                    help="random addition orders for --start stepwise")
     p.add_argument("--constraint", type=str, default=None,
@@ -103,12 +108,55 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(p, "the search")
     p.set_defaults(fn=cmd_infer)
 
+    p = sub.add_parser("search", help="joint topology+sequence search")
+    _add_common(p)
+    p.add_argument("--mutations", type=int, default=3)
+    p.add_argument("--iterations", type=int, default=5000)
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--restarts", type=int, default=8)
+    _add_device(p, "the search")
+    p.set_defaults(fn=cmd_search)
+
+    p = sub.add_parser("asr", help="gradient ASR vs Sankoff oracle")
+    _add_common(p)
+    p.add_argument("--mutations", type=int, default=3)
+    p.add_argument("--iterations", type=int, default=3000)
+    p.add_argument("--lr", type=float, default=1e-2)
+    _add_device(p, "the reconstruction")
+    p.set_defaults(fn=cmd_asr)
+
+    p = sub.add_parser("search-run", help="checkpointed resumable search")
+    _add_common(p)
+    p.add_argument("--workdir", type=str, required=True)
+    p.add_argument("--mutations", type=int, default=3)
+    p.add_argument("--iterations", type=int, default=10000)
+    p.add_argument("--checkpoint-every", type=int, default=1000)
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--no-resume", action="store_true")
+    _add_device(p, "the search")
+    p.set_defaults(fn=cmd_search_run)
+
     p = sub.add_parser("bench", help="batched scoring throughput")
     _add_common(p)
     p.add_argument("--batch", type=int, default=512)
     p.add_argument("--reps", type=int, default=20)
     _add_device(p, "the scoring")
     p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser("nk-bench", help="NK accuracy benchmark")
+    _add_common(p)
+    p.add_argument("--k-values", type=int, nargs="+", default=[1, 2, 5])
+    p.add_argument("--lambdas", type=float, nargs="+", default=[0.0, 0.3, 3.0])
+    p.add_argument("--mutation-rate", type=float, default=0.1)
+    p.add_argument("--branch-length", type=int, default=1)
+    p.add_argument("--iterations", type=int, default=10000)
+    p.add_argument("--replicates", type=int, default=1,
+                   help="independent landscapes per (K, lambda) cell")
+    p.add_argument("--plot", type=str, default=None, metavar="OUT.png",
+                   help="write the reference-parity errorbar figure "
+                        "(needs matplotlib)")
+    _add_device(p, "the benchmark")
+    p.set_defaults(fn=cmd_nk_bench)
     return parser
 
 

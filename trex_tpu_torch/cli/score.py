@@ -11,6 +11,11 @@ in ``trex_tpu/cli/score.py``).
 
 Both print the JAX command's JSON keys. ``--criterion ml`` waits for
 slice 2b.
+
+``asr`` (counterpart of ``cmd_asr``) reconstructs the ancestors of a
+generated balanced mutation tree by exact Sankoff and by gradient descent
+(``search.asr.reconstruct_ancestors``, initial logits from a generator
+seeded with ``--seed``) and prints each one's identity with the truth.
 """
 
 from __future__ import annotations
@@ -85,3 +90,34 @@ def run_score(args) -> dict:
 
 def cmd_score(args) -> None:
     print(json.dumps(run_score(args)))
+
+
+def run_asr(args) -> dict:
+    """The printed JSON object of ``asr``."""
+    from trex_tpu_torch.models.mutation_tree import generate_groundtruth
+    from trex_tpu_torch.ops.sankoff import sankoff_reconstruct
+    from trex_tpu_torch.search.asr import reconstruct_ancestors
+    from trex_tpu_torch.topology import balanced_topology
+    from trex_tpu_torch.types import CostModel
+
+    device = resolve_device(args.device)
+    gt = generate_groundtruth(
+        args.leaves, args.states, args.mutations, args.sites, seed=args.seed, device=device
+    )
+    cost = CostModel.hamming(args.states, device=device).matrix
+    leaf = gt.all_sequences[: args.leaves].to(torch.int32)
+    sankoff_recon, _, _ = sankoff_reconstruct(balanced_topology(args.leaves, device), cost, leaf)
+    learned = reconstruct_ancestors(
+        leaf, 2 * args.leaves - 1, args.states, gt.adjacency,
+        torch.Generator(device).manual_seed(args.seed),
+        n_iterations=args.iterations, learning_rate=args.lr,
+    )
+    truth = gt.all_sequences[args.leaves:].to(torch.int32)
+    return {
+        "sankoff_identity": float((sankoff_recon[args.leaves:] == truth).float().mean()),
+        "gradient_asr_identity": float((learned == truth).float().mean()),
+    }
+
+
+def cmd_asr(args) -> None:
+    print(json.dumps(run_asr(args)))

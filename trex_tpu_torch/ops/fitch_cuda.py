@@ -302,32 +302,39 @@ def batched_fitch_score_cuda(
 
 def run_plan(
     children: torch.Tensor, masks: torch.Tensor, weights: torch.Tensor, plan: LaunchPlan,
-    phase_cycles: torch.Tensor | None = None,
+    phase_cycles: torch.Tensor | None = None, scratch: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launches K1 with ``plan`` on contiguous CUDA inputs (children 8-byte
     aligned) and returns the (B,) scores; ``phase_cycles``, when given, is
     a (plan.blocks, 4) int64 tensor that receives each block's clock64
     cycles of staging, walks, expansion and children restaging (left as
-    it is by the global mode)."""
+    it is by the global mode).
+
+    The call's scratch (the packed planes, or the global mode's ancestor
+    rows; ``scratch_words``) is a buffer of its own, allocated here, so no
+    call and no CUDA graph that captured one reads a buffer another call
+    writes or frees. ``scratch``, when given, is an int32 buffer of at
+    least that many words that the caller owns instead."""
     device = children.device
     if device.index is not None and device.index != torch.cuda.current_device():
         with torch.cuda.device(device):
-            return run_plan(children, masks, weights, plan, phase_cycles)
-    stream = torch.cuda.current_stream().cuda_stream
+            return run_plan(children, masks, weights, plan, phase_cycles, scratch)
     batch, n_anc, _ = children.shape
     length = masks.shape[1]
     scores = torch.empty((batch,), dtype=torch.float32, device=device)
-    scratch = None
-    if plan.planes:
-        scratch = _scratch(stream, masks.shape[0] * plan.planes * n_words(length))
-    elif not plan.staged:
-        scratch = _scratch(stream, global_scratch_words(plan, n_anc + 1, length))
+    words = scratch_words(plan, n_anc + 1, length)
+    if scratch is None and words:
+        scratch = torch.empty((words,), dtype=torch.int32, device=device)
+    elif words and (scratch.dtype != torch.int32 or scratch.numel() < words
+                    or scratch.device != scores.device):
+        raise ValueError(f"scratch must hold {words} int32 words on {scores.device}")
     rc = _library().trex_fitch_batched(
         children.data_ptr(), masks.data_ptr(), weights.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), scores.data_ptr(),
+        scratch.data_ptr() if words else None, scores.data_ptr(),
         None if phase_cycles is None else phase_cycles.data_ptr(),
         batch, n_anc + 1, length, plan.planes, plan.width, plan.slots, plan.rounds,
-        plan.chunks, plan.tree_groups, plan.shared_bytes, int(plan.staged), stream,
+        plan.chunks, plan.tree_groups, plan.shared_bytes, int(plan.staged),
+        torch.cuda.current_stream().cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"fitch_batched kernel launch failed: CUDA error {rc}")
@@ -336,20 +343,12 @@ def run_plan(
     return scores
 
 
-_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
-
-
-def _scratch(stream: int, numel: int) -> torch.Tensor:
-    """The scratch of the current device and ``stream`` (packed planes, or
-    the global mode's ancestor rows), grown to ``numel`` int32: a call's
-    kernels write and read it, and the next call on the same stream runs
-    after them."""
-    key = (torch.cuda.current_device(), stream)
-    buf = _SCRATCH.get(key)
-    if buf is None or buf.numel() < numel:
-        buf = torch.empty((numel,), dtype=torch.int32, device=f"cuda:{key[0]}")
-        _SCRATCH[key] = buf
-    return buf
+def scratch_words(plan: LaunchPlan, n_taxa: int, length: int) -> int:
+    """int32 words of a call's scratch: the leaves' packed planes in the
+    bit-sliced mode, the ancestor rows in the global mode, else none."""
+    if plan.planes:
+        return n_taxa * plan.planes * n_words(length)
+    return 0 if plan.staged else global_scratch_words(plan, n_taxa, length)
 
 
 batched_fitch_score_cuda.launches = 0
