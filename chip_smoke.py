@@ -42,11 +42,25 @@ launch count set to 0 just before it and read just after:
   K1 ranking the projected trees, held against K1's plain version, then
   the SPR-scan climb), ``search`` (128 x 1024, 3000 steps, 8 restarts),
   ``asr`` (128 x 1024, 3000 steps), ``nk-bench`` (32 leaves, K 1, 2, 5, 10,
-  lambda 0, 0.3, 3.0, ``--iterations`` cut to 2000) and ``search-run``
+  lambda 0, 0.3, 3.0, ``--iterations`` cut to 1000) and ``search-run``
   (16 x 128, 2000 steps in segments of 500, stopped after 2 and resumed,
   bit-equal to an uninterrupted run), each with its wall, its launches a
   descent step and idle share (a profiled window of 100 steps) and K1's
   launches.
+
+- slice 1b: the port's native move library (``io/native.py``,
+  built with g++ from ``csrc/trex_native.cpp``; the run fails when it does
+  not load), each generator timed against the Python fallback and their
+  untruncated outputs compared; the NNI, weighted and ML NNI routes above
+  re-timed with it, their scores held at 10726, 363001 and 491356.25 (the
+  ML route's ranking score); the
+  support route (``infer --ratchet 2 --decay --bootstrap 8 --outgroup``,
+  512 x 2048); the enumerating routes (``--start balanced --neighborhood
+  spr --rounds 10`` on 128 x 1024, ``--neighborhood tbr --rounds 5`` on
+  512 x 2048, ``--neighborhood nni --constraint`` a 16-taxon clade on 128 x
+  1024), each printed tree rescored by K1 and its plain version; the
+  batched stepwise path at 32 states (128 x 1024), card against CPU; and
+  every new flag, card against CPU, at 24 x 300.
 
 K1 is also captured in a CUDA graph, larger calls run, and the graph
 replayed (each call's scratch is its own: bit-equal to the plain version);
@@ -422,6 +436,19 @@ def measure(
     }
 
 
+def k1_plain_in_slices(torch, children, masks, weights, budget_bytes: int = 1 << 32):
+    """K1's plain version in slices of trees whose (trees x nodes x sites)
+    int32 state table fits in ``budget_bytes`` (one slice for every fixed
+    shape; the enumerating routes' batches need several), scores
+    concatenated: each tree's score is its own."""
+    from trex_tpu_torch.ops.fitch_cuda import batched_fitch_score_plain
+
+    per_tree = (2 * children.shape[1] + 1) * masks.shape[1] * 4
+    step = max(1, budget_bytes // per_tree)
+    return torch.cat([batched_fitch_score_plain(children[i:i + step], masks, weights)
+                      for i in range(0, children.shape[0], step)])
+
+
 def k1_work(batch: int, n_taxa: int, n_sites: int, n_states: int) -> tuple[float, float]:
     """K1's (bytes, int32 ops): children, leaves, weights in, scores out;
     the bit-sliced update per (tree, ancestor, 32-site word) — the least
@@ -677,7 +704,7 @@ def profile_phase(torch, fn, unprofiled_wall: float | None) -> dict:
 # (stopped after 2 segments and resumed).
 SEARCH_ARGS = ["search", "--leaves", "128", "--sites", "1024", "--iterations", "3000"]
 ASR_ARGS = ["asr", "--leaves", "128", "--sites", "1024"]
-NK_ITERATIONS, NK_LEAVES, NK_SITES = 2000, 32, 128
+NK_ITERATIONS, NK_LEAVES, NK_SITES = 1000, 32, 128
 NK_ARGS = ["nk-bench", "--leaves", str(NK_LEAVES), "--sites", str(NK_SITES),
            "--k-values", "1", "2", "5", "10", "--lambdas", "0", "0.3", "3.0",
            "--iterations", str(NK_ITERATIONS)]
@@ -920,6 +947,347 @@ def differentiable_reference(torch, devices=("cuda", "cpu")) -> dict:
                 same_projected_trees=True, same_evolved_sequences=True)
 
 
+# Slice 1b: the three NNI routes' scores, which the native generator
+# must not move, and the new routes' shapes.
+# (The ML NNI route's ranking score; its fitted NLL was 447808.125.)
+NNI_ROUTE_SCORE, WEIGHTED_ROUTE_SCORE, ML_NNI_ROUTE_RANKING = 10726.0, 363001.0, 491356.25
+SUPPORT_ARGS = ["--ratchet", "2", "--decay", "--bootstrap", "8"]
+SPR_ROUNDS, TBR_ROUNDS, TBR_BUDGET = 10, 5, 16384
+CONSTRAINT_TAXA = 16
+BALANCED_REF = dict(n_taxa=32, n_sites=300)
+
+
+def random_canonical_tree(n_taxa: int, seed: int) -> np.ndarray:
+    """Canonical children of a random coalescent tree (the numbering the
+    move generators take and emit)."""
+    from trex_tpu_torch.io import canonicalize_topology
+
+    return canonicalize_topology(random_trees(np.random.default_rng(seed), n_taxa, 1)[0])
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def native_phase() -> dict:
+    """The port's native move library: built from the checkout's copy and
+    loaded (the phase fails otherwise), then each generator timed against
+    the Python fallback, Python only where it takes a few seconds; the
+    untruncated NNI, SPR and TBR outputs compared."""
+    from trex_tpu_torch.io import fallback, native
+
+    (loaded, build_s) = timed(native.available)
+    if not loaded:
+        raise AssertionError(f"the native library did not load: {native.BUILD_ERROR}")
+    rows = []
+    cases = [
+        ("nni", 128, native.nni_neighbors, fallback.py_nni_neighbors),
+        ("nni", 512, native.nni_neighbors, fallback.py_nni_neighbors),
+        ("spr", 48, native.spr_neighborhood, fallback.py_spr_neighborhood),
+        ("spr", 128, native.spr_neighborhood, None),
+        ("tbr untruncated", 32, lambda c: native.tbr_neighborhood(c, 200_000, 1),
+         lambda c: fallback.py_tbr_neighborhood(c, 200_000, 1)),
+        (f"tbr budget {TBR_BUDGET}", 128, lambda c: native.tbr_neighborhood(c, TBR_BUDGET, 1),
+         None),
+        (f"tbr budget {TBR_BUDGET}", 512, lambda c: native.tbr_neighborhood(c, TBR_BUDGET, 1),
+         None),
+    ]
+    for move, n_taxa, fast, slow in cases:
+        children = random_canonical_tree(n_taxa, SEED + n_taxa)
+        (got, native_s) = timed(lambda: [x.copy() for x in fast(children)])
+        row = dict(moves=move, n_taxa=n_taxa, trees=int(got[0].shape[0]), native_s=native_s)
+        if slow is not None:
+            (want, python_s) = timed(lambda: slow(children))
+            if move.startswith("tbr"):
+                same = sorted(c.tobytes() for c in got[0]) == sorted(c.tobytes() for c in want[0])
+            else:
+                same = all(np.array_equal(a, b) for a, b in zip(got, want))
+            if not same:
+                raise AssertionError(f"native {move} at {n_taxa} taxa differs from Python")
+            row.update(python_s=python_s, speedup=python_s / native_s,
+                       equal_to_python="as sets" if move.startswith("tbr") else "tree for tree")
+        rows.append(row)
+    return dict(library=str(native.library_path().relative_to(os.getcwd())),
+                build_and_load_s=build_s, generators=rows)
+
+
+def cherry_outgroup(topology, patterns: np.ndarray, counts: np.ndarray, names) -> str:
+    """The cherry of ``topology`` whose two taxa differ at the fewest
+    (weighted) sites: an outgroup that any climb from it keeps."""
+    children = topology.children.cpu().numpy()
+    n = children.shape[0] + 1
+    pairs = [(int(a), int(b)) for a, b in children if a < n and b < n]
+    a, b = min(pairs, key=lambda p: float(((patterns[p[0]] != patterns[p[1]]) * counts).sum()))
+    return f"{names[a]},{names[b]}"
+
+
+def rescore_newick(torch, newick: str, names, patterns, counts, dev) -> tuple[float, float]:
+    """(K1, plain) scores of a printed tree on the alignment's patterns."""
+    from trex_tpu_torch.io import align_leaf_order, load_newick
+    from trex_tpu_torch.ops.fitch_cuda import batched_fitch_score_cuda, batched_fitch_score_plain
+
+    topo, _, tree_names = load_newick(newick, dev)
+    topo = align_leaf_order(topo, tree_names, names)
+    children = topo.children[None].contiguous()
+    pat = torch.as_tensor(patterns.astype(np.int32), device=dev)
+    w = torch.as_tensor(counts.astype(np.float32), device=dev)
+    return (float(batched_fitch_score_cuda(children, pat, w)[0]),
+            float(batched_fitch_score_plain(children, pat, w)[0]))
+
+
+def clade_newick(topology, names, size: int) -> tuple[str, list[int]]:
+    """The induced tree on ``size`` taxa of the smallest clade of
+    ``topology`` with at least ``size`` leaves, as newick, and its taxa."""
+    from trex_tpu_torch.io import prune_to_taxa, save_newick
+    from trex_tpu_torch.search.bootstrap import subtree_leaf_sets
+
+    clade = min((c for c in subtree_leaf_sets(topology) if len(c) >= size), key=len)
+    keep = sorted(clade)[:size]
+    pruned, _, _ = prune_to_taxa(topology, keep)
+    return save_newick(pruned, [names[i] for i in keep]), keep
+
+
+def relabelled_masks(masks: np.ndarray, n_states: int, seed: int) -> np.ndarray:
+    """DNA masks with each site's four states sent to four of ``n_states``
+    states by a random injection (bit 31 used where n_states is 32): Fitch
+    scores every tree alike on both, so stepwise addition grows the same
+    tree from either."""
+    rng = np.random.default_rng(seed)
+    length = masks.shape[1]
+    targets = np.stack([rng.permutation(n_states)[:4] for _ in range(length)])  # (L, 4)
+    out = np.zeros(masks.shape, np.int64)
+    for b in range(4):
+        out |= np.where((masks >> b) & 1, np.int64(1) << targets[:, b][None, :], 0)
+    return (out - ((out >> 31) << 32)).astype(np.int32)
+
+
+def slice_1b_routes(torch, dev, workdir: str, main_fasta: str, nni_fasta: str, main_run,
+                    nni_run, reset_counts, launch_counts, k1_on) -> dict:
+    """The support route, the enumerating routes and the batched stepwise
+    path at full width, each with every launch count set to 0 just before
+    it and read just after. K1 is then held bit for bit to its plain
+    version (in slices of trees where the batch is large) on a candidate
+    batch of each route's own shape: a bootstrap replicate's first NNI
+    round under its weights, and the neighborhood of each enumerating
+    route's final tree (``k1_at_this_shape``)."""
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli._common import _load_alignment
+    from trex_tpu_torch.io import nni_neighbors_host, spr_neighborhood_host, tbr_neighborhood_host
+    from trex_tpu_torch.search.bootstrap import _replicate_weights, subtree_leaf_sets
+    from trex_tpu_torch.search.hillclimb import constraint_mask
+    from trex_tpu_torch.search.stepwise import stepwise_addition
+
+    def k1_at(batch_children, pats, weights) -> dict:
+        return dict(trees=int(batch_children.shape[0]), n_taxa=int(pats.shape[0]),
+                    unique_patterns=int(pats.shape[1]), **k1_on(
+                        torch.as_tensor(np.ascontiguousarray(batch_children), device=dev),
+                        torch.as_tensor(pats.astype(np.int32), device=dev),
+                        torch.as_tensor(np.asarray(weights, np.float32), device=dev),
+                        plain_reps=1))
+
+    routes = {}
+    names, masks, _ = _load_alignment(main_fasta, "dna")
+    patterns, counts = compress_alignment(masks)
+    outgroup = cherry_outgroup(main_run.result.topology, patterns, counts, names)
+
+    # infer --ratchet 2 --decay --bootstrap 8 --outgroup <cherry>, the
+    # default spr-scan climb from a stepwise start, 512 x 2048.
+    argv = ["infer", "--alignment", main_fasta, *SUPPORT_ARGS, "--outgroup", outgroup]
+    reset_counts()
+    run, wall = timed_cli(torch, argv)
+    counts_k = launch_counts()
+    if counts_k["k1"] <= 0 or counts_k["k2"] <= 0 or any(
+            counts_k[k] for k in ("k34", "k5", "k6", "plan")):
+        raise AssertionError(f"support route launches: {counts_k}")
+    out = run.out
+    rescored = rescore_newick(torch, out["tree"], names, patterns, counts, dev)
+    if set(rescored) != {out["parsimony_score"]}:
+        raise AssertionError(f"support route: rescored {rescored} != {out['parsimony_score']}")
+    root = run.result.topology.children[-1].tolist()
+    out_ids = frozenset(names.index(x) for x in outgroup.split(","))
+    root_clades = [frozenset([c]) if c < len(names) else subtree_leaf_sets(
+        run.result.topology)[c - len(names)] for c in root]
+    if out_ids not in root_clades:
+        raise AssertionError("support route: the outgroup is not a child of the root")
+    decay = [d for d in out["decay"] if d is not None]
+    if not decay or len(out["split_support"]) != len(names) - 1:
+        raise AssertionError(f"support route: decay {len(decay)}, supports")
+    routes["support"] = dict(
+        command=" ".join(["infer", *SUPPORT_ARGS, "--outgroup", outgroup]) + " (512 x 2048)",
+        parsimony_score=out["parsimony_score"], main_path_score=main_run.out["parsimony_score"],
+        rescored=rescored, decay_non_nan=len(decay), decay_range=[min(decay), max(decay)],
+        mean_split_support=out["mean_split_support"], outgroup_at_root=True,
+        start_s=run.seconds["start"], ratchet_s=run.seconds["climb"],
+        decay_s=run.seconds["decay"], bootstrap_s=run.seconds["bootstrap"], wall_s=wall,
+        launches=counts_k)
+    # The first replicate's first round: the NNI neighborhood of the
+    # reference tree under the replicate's weights, drawn as infer draws
+    # them (a CPU generator seeded with --seed + 1, default seed 0).
+    replicate = _replicate_weights(patterns.shape[1], 8, counts,
+                                   torch.Generator().manual_seed(1))[0].numpy()
+    routes["support"]["k1_at_this_shape"] = dict(
+        batch="bootstrap replicate 0, first NNI round", zero_weight_patterns=int(
+            (replicate == 0).sum()),
+        **k1_at(nni_neighbors_host(run.result.topology)[0], patterns, replicate))
+    emit("support_route", **routes["support"])
+
+    # The enumerating climbs: SPR from the balanced tree (128 x 1024), TBR
+    # sampled to 16384 a round from a stepwise start (512 x 2048), NNI
+    # under a 16-taxon constraint from the NNI route's tree (128 x 1024).
+    nni_names, nni_masks, _ = _load_alignment(nni_fasta, "dna")
+    nni_patterns, nni_counts = compress_alignment(nni_masks)
+    newick, keep = clade_newick(nni_run.result.topology, nni_names, CONSTRAINT_TAXA)
+    clade_path = os.path.join(workdir, "clade.nwk")
+    with open(clade_path, "w") as fh:
+        fh.write(newick + "\n")
+    enumerating = {}
+    for key, fasta, flags, aln in (
+        ("spr", nni_fasta, ["--start", "balanced", "--neighborhood", "spr", "--rounds",
+                            str(SPR_ROUNDS)], (nni_names, nni_patterns, nni_counts)),
+        ("tbr", main_fasta, ["--neighborhood", "tbr", "--rounds", str(TBR_ROUNDS)],
+         (names, patterns, counts)),
+        ("nni_constraint", nni_fasta, ["--neighborhood", "nni", "--constraint", clade_path],
+         (nni_names, nni_patterns, nni_counts)),
+    ):
+        reset_counts()
+        run, wall = timed_cli(torch, ["infer", "--alignment", fasta, *flags])
+        counts_k = launch_counts()
+        if counts_k["k1"] <= 0 or any(counts_k[k] for k in ("k34", "k5", "k6", "plan")):
+            raise AssertionError(f"{key} route launches: {counts_k}")
+        out = run.out
+        rescored = rescore_newick(torch, out["tree"], *aln, dev)
+        if set(rescored) != {out["parsimony_score"]}:
+            raise AssertionError(f"{key} route: rescored {rescored} != {out['parsimony_score']}")
+        cap = int(flags[flags.index("--rounds") + 1]) if "--rounds" in flags else 100
+        scored_rounds = out["search_rounds"] + (out["search_rounds"] < cap)
+        enumerating[key] = dict(
+            command=" ".join(["infer", *flags]), n_taxa=out["n_taxa"],
+            parsimony_score=out["parsimony_score"], rescored=rescored,
+            search_rounds=out["search_rounds"], evaluations=out["evaluations"],
+            candidates_a_round=(out["evaluations"] - 1) / scored_rounds,
+            generate_s_a_round=run.seconds["generate"] / scored_rounds,
+            k1_s_a_round=run.seconds["score"] / scored_rounds,
+            start_s=run.seconds["start"], climb_s=run.seconds["climb"], wall_s=wall,
+            launches=counts_k)
+        if key == "spr":
+            batch = spr_neighborhood_host(run.result.topology)[0]
+        elif key == "tbr":
+            batch = tbr_neighborhood_host(run.result.topology, max_trees=TBR_BUDGET, seed=SEED)[0]
+        else:
+            batch = nni_neighbors_host(run.result.topology)[0]
+        if key == "nni_constraint":
+            ctopo, cnames = load_tree(clade_path)
+            ids = [nni_names.index(x) for x in cnames]
+            splits = [frozenset(ids[i] for i in c) for c in subtree_leaf_sets(ctopo)
+                      if 2 <= len(c) <= len(ids) - 2]
+            check = constraint_mask(splits, len(nni_names), frozenset(keep))
+            held = bool(check(run.result.topology.children.cpu().numpy()[None])[0])
+            if not held or out["constraint_splits"] != len(splits):
+                raise AssertionError(f"constraint route: held {held}, {out['constraint_splits']}")
+            enumerating[key].update(constraint_splits=out["constraint_splits"],
+                                    constraint_taxa=out["constraint_taxa"], constraint_held=True)
+            batch = batch[check(batch)]
+        enumerating[key]["k1_at_this_shape"] = dict(
+            batch="neighborhood of the final tree", **k1_at(batch, aln[1], aln[2]))
+        emit("enumerating_route", route=key, **enumerating[key])
+    routes["enumerating"] = enumerating
+
+    # The batched stepwise path (K1 a step) at 32 states, 128 x 1024: the
+    # NNI route's masks with each site's states sent to 4 of 32 (bit 31
+    # used). The card's tree and score equal the CPU's and the same path's
+    # on the DNA masks (Fitch is blind to the states' names).
+    wide = relabelled_masks(nni_patterns, 32, SEED + 50)
+    w = nni_counts.astype(np.float32)
+    reset_counts()
+    (card, card_s) = timed(lambda: stepwise_addition(
+        wide, 32, sequences_are_masks=True, site_weights=w, seed=0, use_scan=False,
+        device=dev))
+    torch.cuda.synchronize()
+    counts_k = launch_counts()
+    if counts_k["k1"] <= 0 or any(counts_k[k] for k in ("k2", "k34", "k5", "k6", "plan")):
+        raise AssertionError(f"batched stepwise launches: {counts_k}")
+    (cpu, cpu_s) = timed(lambda: stepwise_addition(
+        wide, 32, sequences_are_masks=True, site_weights=w, seed=0, use_scan=False,
+        device="cpu"))
+    dna = stepwise_addition(nni_patterns, 4, sequences_are_masks=True, site_weights=w, seed=0,
+                            use_scan=False, device=dev)
+    same = [(t.children.cpu().tolist(), sc) for t, sc in (card, cpu, dna)]
+    if not same[0] == same[1] == same[2]:
+        raise AssertionError(f"batched stepwise: card {card[1]}, cpu {cpu[1]}, dna {dna[1]}")
+    routes["stepwise_batched"] = dict(
+        call="stepwise_addition(use_scan=False), n_states 32", n_taxa=wide.shape[0],
+        unique_patterns=wide.shape[1], parsimony_score=card[1], card_s=card_s, cpu_s=cpu_s,
+        k1_launches=counts_k["k1"], k1_calls=wide.shape[0] - 2, same_as_cpu=True,
+        same_as_dna_masks=True, launches=counts_k)
+    emit("stepwise_batched", **routes["stepwise_batched"])
+    return routes
+
+
+def load_tree(path: str):
+    """(topology, leaf names) of a newick file."""
+    from trex_tpu_torch.io import load_newick
+
+    with open(path) as fh:
+        topo, _, names = load_newick(fh.read())
+    return topo, names
+
+
+def slice_1b_reference(torch, workdir: str, ref_fasta: str) -> list[dict]:
+    """Each slice 1b flag on the card and on the CPU at 24 x 300 (32 x 300
+    for ``--start balanced``): the same JSON (ML: the same keys, tree and
+    rounds, likelihoods within rtol 1e-5)."""
+    from trex_tpu_torch.cli._common import _load_alignment
+
+    names = _load_alignment(ref_fasta, "dna")[0]
+    base = run_cli(["infer", "--alignment", ref_fasta, "--orders", "1", "--device", "cpu"])
+    outgroup = ",".join(names[i] for i in next(
+        (int(a), int(b)) for a, b in base.result.topology.children.tolist()
+        if a < len(names) and b < len(names)))
+    clade = os.path.join(workdir, "ref_clade.nwk")
+    with open(clade, "w") as fh:
+        fh.write(f"(({names[0]},{names[1]}),({names[2]},({names[3]},({names[4]},{names[5]}))));\n")
+    balanced = os.path.join(workdir, "balanced.fasta")
+    simulate_fasta(balanced, BALANCED_REF["n_taxa"], BALANCED_REF["n_sites"], SEED + 8,
+                   branch=(0.2, 0.6))
+    cases = [
+        (ref_fasta, ["--decay"]),
+        (ref_fasta, ["--outgroup", outgroup]),
+        (ref_fasta, ["--neighborhood", "nni", "--constraint", clade]),
+        (ref_fasta, ["--neighborhood", "spr"]),
+        (ref_fasta, ["--neighborhood", "tbr"]),
+        (ref_fasta, ["--start", "random", "--restarts", "2"]),
+        (ref_fasta, ["--ratchet", "2"]),
+        (ref_fasta, ["--bootstrap", "4", "--outgroup", outgroup]),
+        (balanced, ["--start", "balanced", "--neighborhood", "nni"]),
+    ]
+    rows = []
+    for fasta, flags in cases:
+        argv = ["infer", "--alignment", fasta, "--orders", "1", *flags]
+        on_card = run_cli(argv).out
+        on_cpu = run_cli(argv + ["--device", "cpu"]).out
+        if on_card != on_cpu:
+            raise AssertionError(f"{flags}: card {on_card} != cpu {on_cpu}")
+        rows.append(dict(flags=" ".join(flags), n_taxa=on_card["n_taxa"],
+                         parsimony_score=on_card["parsimony_score"],
+                         **{k: on_card[k] for k in ("decay", "split_support",
+                                                    "constraint_splits") if k in on_card},
+                         same_json=True))
+    argv = ["infer", "--alignment", ref_fasta, "--orders", "1", "--criterion", "ml",
+            "--neighborhood", "nni", "--outgroup", names[5]]
+    on_card = run_cli(argv).out
+    on_cpu = run_cli(argv + ["--device", "cpu"]).out
+    rel = abs(on_card["neg_log_likelihood"] - on_cpu["neg_log_likelihood"]) / abs(
+        on_cpu["neg_log_likelihood"])
+    if (list(on_card) != list(on_cpu) or rel > 1e-5
+            or strip_lengths(on_card["tree"]) != strip_lengths(on_cpu["tree"])):
+        raise AssertionError(f"ml --outgroup: card {on_card} != cpu {on_cpu}")
+    rows.append(dict(flags=" ".join(argv[5:]), neg_log_likelihood=on_card["neg_log_likelihood"],
+                     same_tree=True, rel_err=rel))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1024,6 +1392,9 @@ def main() -> int:
         for name, log in _nvcc.BUILD_LOG.items()
     }
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    # 2b. The native move library (host code, built with g++ from the
+    # port's copy): loaded, or the run fails; each generator against Python.
+    emit("native", **native_phase())
 
     workdir = tempfile.mkdtemp(prefix="trex_chip_smoke_")
 
@@ -1033,7 +1404,7 @@ def main() -> int:
         return dict(plan=dataclasses.asdict(plan), **measure(
             torch,
             lambda: batched_fitch_score_cuda(children, masks, weights, n_states=n_states),
-            lambda: batched_fitch_score_plain(children, masks, weights),
+            lambda: k1_plain_in_slices(torch, children, masks, weights),
             *k1_work(children.shape[0], masks.shape[0], masks.shape[1], n_states),
             ops_per_s=INT32_OPS_PER_S, plain_reps=plain_reps,
         ))
@@ -1302,6 +1673,8 @@ def main() -> int:
         torch.as_tensor(nni_pat.astype(np.int32), device=dev),
         torch.as_tensor(nni_counts.astype(np.float32), device=dev),
     )
+    if nni.out["parsimony_score"] != NNI_ROUTE_SCORE:
+        raise AssertionError(f"NNI route score {nni.out['parsimony_score']} != {NNI_ROUTE_SCORE}")
     emit("nni_route", command="infer --neighborhood nni --rounds 20",
          n_taxa=nni.out["n_taxa"], unique_patterns=nni.out["unique_patterns"],
          parsimony_score=nni.out["parsimony_score"],
@@ -1338,6 +1711,9 @@ def main() -> int:
                 f"{name} rescoring {value} != reported {ml.out['ranking_score']}")
     if not np.isfinite(ml.out["neg_log_likelihood"]) or ml.out["neg_log_likelihood"] <= 0:
         raise AssertionError(f"bad ML result {ml.out}")
+    if abs(ml.out["ranking_score"] - ML_NNI_ROUTE_RANKING) > 1e-6 * ML_NNI_ROUTE_RANKING:
+        raise AssertionError(
+            f"ML NNI route ranking score {ml.out['ranking_score']} != {ML_NNI_ROUTE_RANKING}")
     emit("ml_nni_route", command="infer --criterion ml --neighborhood nni --rounds 10",
          n_taxa=ml.out["n_taxa"], n_sites=ml.out["n_sites"],
          unique_patterns=ml.out["unique_patterns"],
@@ -1490,8 +1866,9 @@ def main() -> int:
         for name, fn in (("kernel", batched_sankoff_score_cuda),
                          ("plain", batched_sankoff_score_plain))
     }
-    if set(wt_rescored.values()) != {climb.score}:
-        raise AssertionError(f"weighted climb score {climb.score} != {wt_rescored}")
+    if set(wt_rescored.values()) != {climb.score} or climb.score != WEIGHTED_ROUTE_SCORE:
+        raise AssertionError(f"weighted climb score {climb.score} != {wt_rescored}, "
+                             f"{WEIGHTED_ROUTE_SCORE}")
     emit("weighted_route",
          command="stepwise_addition_multi(4 orders) + parsimony_hill_climb(nni, "
                  f"transition_transversion(1, 2), max_rounds={WEIGHTED_ROUNDS})",
@@ -1642,6 +2019,13 @@ def main() -> int:
     routes = differentiable_routes(torch, dev, workdir, nni_fasta, reset_counts, launch_counts)
     emit("reference", part="differentiable core", **differentiable_reference(torch))
 
+    # 6j. Slice 1b: the support route (ratchet, decay, bootstrap, outgroup)
+    # and the enumerating routes at full width, the batched stepwise path
+    # at 32 states; each holds its printed tree's score to K1 and K1's
+    # plain version.
+    slice_1b = slice_1b_routes(torch, dev, workdir, main_fasta, nni_fasta, run, nni,
+                               reset_counts, launch_counts, k1_on)
+
     # 7. Reference: on a small, divergent alignment (the climbs take rounds)
     # the card's run returns the same tree and score as the CPU run — the
     # plain versions, which the CPU tests hold against the JAX package.
@@ -1727,6 +2111,9 @@ def main() -> int:
         raise AssertionError(f"stepwise on wide masks: card {grown['cuda'][1]} != cpu {grown['cpu'][1]}")
     emit("reference", route="stepwise_addition, masks with bits 5 and 31 set, n_states 4",
          n_taxa=REF_SHAPE["n_taxa"], parsimony_score=grown["cuda"][1], same_tree_and_score=True)
+    # Slice 1b's flags, card against CPU.
+    for row in slice_1b_reference(torch, workdir, ref_fasta):
+        emit("reference", part="slice 1b", **row)
     shutil.rmtree(workdir)
 
     kernels = [
@@ -1736,11 +2123,18 @@ def main() -> int:
             "replaces": "trex_tpu/ops/sankoff_pallas.py:183",
             "launches": main_k1, "nni_route_launches": nni_k1,
             "diff_route_launches": routes["diff"]["k1_launches"],
+            "support_route_launches": slice_1b["support"]["launches"]["k1"],
+            "enumerating_route_launches": {
+                key: v["launches"]["k1"] for key, v in slice_1b["enumerating"].items()},
+            "stepwise_batched_launches": slice_1b["stepwise_batched"]["k1_launches"],
             "ml_nni_route_launches": ml_launches["k1"],
             "weighted_route_launches": wt_counts["k1"],
             "bench_q4_launches": bench_runs[4]["launches"]["k1"],
             "shape": K1_SHAPE, **k1, "library_ms": None,
             "at_main_path": k1_main, "at_nni_route": k1_nni, "scratch_at_b": scratch_ab,
+            "at_support_route": slice_1b["support"]["k1_at_this_shape"],
+            "at_enumerating_routes": {
+                key: v["k1_at_this_shape"] for key, v in slice_1b["enumerating"].items()},
             "at_shapes": dict(k1_shapes, b=k1_main, c=k1_nni),
         },
         {
@@ -1748,6 +2142,9 @@ def main() -> int:
             "source": "trex_tpu_torch/csrc/insertion_delta.cu",
             "replaces": "trex_tpu/ops/insertion_pallas.py:84",
             "launches": main_k2, "nni_route_launches": nni_k2,
+            "support_route_launches": slice_1b["support"]["launches"]["k2"],
+            "enumerating_route_launches": {
+                key: v["launches"]["k2"] for key, v in slice_1b["enumerating"].items()},
             "ml_nni_route_launches": ml_launches["k2"],
             "weighted_route_launches": wt_counts["k2"],
             **k2, "library_ms": None, "at_shapes": k2_shapes,

@@ -103,3 +103,34 @@ def tree_fasta(rng: np.random.Generator, n_taxa: int, n_sites: int, rate: float)
         row[odd] = rng.choice(list("RYKMSWN-?acgt"), int(odd.sum()))
         lines.append(f">taxon_{t}\n{''.join(row)}")
     return "\n".join(lines) + "\n"
+
+
+def jitted_jax_scores(monkeypatch) -> None:
+    """Route the JAX package's candidate scoring through its own CPU path
+    for Hamming costs (``jax.vmap`` of ``ops.fitch.fitch_score``, as
+    ``ops.dispatch.batched_scores_fastest`` runs it), jitted once per batch
+    shape: the same scores, without op-by-op dispatch on every call, so the
+    JAX climbs these tests replay fit the suite's time."""
+    import functools
+
+    import jax
+
+    import trex_tpu.search.stepwise as jax_stepwise
+    from trex_tpu.ops import dispatch
+    from trex_tpu.ops.fitch import fitch_score
+
+    @functools.partial(jax.jit, static_argnames=("sequences_are_masks",))
+    def fitch(topos, leaves, weights, sequences_are_masks):
+        return jax.vmap(lambda t: fitch_score(
+            t, leaves, site_mask=weights, sequences_are_masks=sequences_are_masks))(topos)
+
+    original = dispatch.batched_scores_fastest
+
+    def scores(topos, cost, leaves, site_weights=None, *, sequences_are_masks=False):
+        if dispatch._is_hamming(cost) and cost.shape[-1] <= 32:
+            return fitch(topos, leaves, site_weights, sequences_are_masks=sequences_are_masks)
+        return original(topos, cost, leaves, site_weights,
+                        sequences_are_masks=sequences_are_masks)
+
+    monkeypatch.setattr(dispatch, "batched_scores_fastest", scores)
+    monkeypatch.setattr(jax_stepwise, "batched_scores_fastest", scores)

@@ -94,14 +94,14 @@ def test_cli_defaults_to_the_card(fasta):
         (["--criterion", "distance"], "slice 2b"),
         (["--criterion", "ml", "--alrt", "10"], "queue A item 13"),
         (["--criterion", "ml", "--ufboot", "10"], "queue A item 13"),
-        (["--ratchet", "2"], "slice 1b"),
-        (["--bootstrap", "5"], "slice 1b"),
-        (["--decay"], "slice 1b"),
-        (["--outgroup", "taxon_0"], "slice 1b"),
-        (["--neighborhood", "tbr"], "slice 1b"),
+        (["--criterion", "ml", "--ratchet", "2"], "slice 1b"),
+        (["--criterion", "ml", "--bootstrap", "5"], "slice 1b"),
+        (["--criterion", "ml", "--constraint", "c.nwk"], "slice 1b"),
+        (["--criterion", "ml", "--neighborhood", "spr"], "slice 1b"),
+        (["--criterion", "ml", "--neighborhood", "tbr"], "slice 1b"),
         (["--mesh", "2,1"], "queue A"),
         (["--start", "nj"], "slice 2b"),
-        (["--start", "random"], "slice 1b"),
+        (["--criterion", "ml", "--start", "random", "--ratchet", "1"], "slice 1b"),
     ],
 )
 def test_unported_flags_name_their_slice(fasta, flags, slice_name):

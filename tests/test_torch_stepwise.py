@@ -117,5 +117,5 @@ def test_validation():
         stepwise_addition(states[:2], 4, device="cpu")
     with pytest.raises(ValueError, match="permutation"):
         stepwise_addition(states, 4, order=np.zeros(N_LEAVES, int), device="cpu")
-    with pytest.raises(NotImplementedError):
-        stepwise_addition(states, 31, device="cpu")
+    with pytest.raises(ValueError, match="scan path"):
+        stepwise_addition(states, 31, use_scan=True, device="cpu")

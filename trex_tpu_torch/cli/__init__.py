@@ -4,8 +4,10 @@ score       Exact Sankoff scoring + ancestral reconstruction of a generated
             balanced mutation tree, or (``--alignment``) the Fitch score and
             one optimal labeling of a given or stepwise-addition tree.
 infer       File-based parsimony or ML tree inference: FASTA/PHYLIP/NEXUS
-            in, stepwise-addition or differentiable (``--start diff``)
-            start, SPR-scan (default) or NNI hill climb, newick and score
+            in, stepwise-addition, random, balanced or differentiable
+            (``--start diff``) start, SPR-scan (default), NNI, SPR or TBR
+            hill climb (parsimony: also the ratchet, constraints, outgroup
+            rooting, SPR-decay and bootstrap supports), newick and score
             out as one JSON line.
 search      Multi-restart joint topology + sequence search on a generated
             mutation tree, against exact Sankoff on the true tree.
@@ -17,8 +19,9 @@ nk-bench    Sankoff vs plain and landscape-aware gradient ASR on trees
             evolved over NK fitness landscapes.
 
 Each prints the same JSON keys as ``python -m trex_tpu.cli <command>``, and
-``score``/``infer`` the same trees and scores (``infer --start diff`` and
-the generated-data commands draw from the port's own generators). Each runs on the card
+``score``/``infer`` the same trees and scores (``infer --start diff``,
+``--ratchet``, ``--bootstrap`` and the generated-data commands draw from
+the port's own generators). Each runs on the card
 (``--device cuda``, default) or the CPU.
 """
 

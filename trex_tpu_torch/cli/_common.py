@@ -60,25 +60,50 @@ def _load_alignment(path: str, alphabet_name: str):
     return names, np.asarray(masks, dtype=np.int32), len(alphabet)
 
 
+def _outgroup_indices(names: list[str], outgroup: str) -> list[int]:
+    """Resolve a comma-separated outgroup name list to leaf indices."""
+    wanted = [s.strip() for s in outgroup.split(",") if s.strip()]
+    missing = [w for w in wanted if w not in names]
+    if missing:
+        raise SystemExit(f"outgroup taxa not in the alignment: {missing}")
+    return [names.index(w) for w in wanted]
+
+
 def _start_tree(
     kind: str, masks, n_states: int, seed: int, weights, orders: int, device
 ):
-    """Build the requested starting topology from (possibly ambiguous) leaves."""
-    from trex_tpu_torch.search.stepwise import stepwise_addition_multi
+    """Build the requested starting topology from (possibly ambiguous) leaves.
 
+    ``random`` is ``topology.random_topologies(seed, n, 1)``, numpy's
+    ``default_rng(seed)`` coalescent; ``balanced`` needs a power-of-two
+    taxon count.
+    """
+    from trex_tpu_torch.search.stepwise import stepwise_addition_multi
+    from trex_tpu_torch.topology import balanced_topology, random_topologies
+
+    n_leaves = masks.shape[0]
+    if kind == "stepwise":
+        topo, _ = stepwise_addition_multi(
+            masks, n_states, n_orders=orders, seed=seed,
+            sequences_are_masks=True, site_weights=weights, device=device,
+        )
+        return topo
     if kind == "diff":
         return diff_start(masks, n_states, seed, weights, device).topology
-    if kind != "stepwise":
-        later = {"nj": "slice 2b", "upgma": "slice 2b"}
+    if kind == "random":
+        topo = random_topologies(seed, n_leaves, 1, device)
+        return Topology(topo.children[0], topo.parents[0])
+    if kind == "balanced":
+        if n_leaves & (n_leaves - 1):
+            raise SystemExit(
+                f"--start balanced needs a power-of-two taxon count, got {n_leaves}"
+            )
+        return balanced_topology(n_leaves, device)
+    if kind in ("nj", "upgma"):
         raise SystemExit(
-            f"--start {kind} is not ported yet: {later.get(kind, 'slice 1b')} "
-            "of ROADMAP.md"
+            f"--start {kind} is not ported yet: slice 2b of ROADMAP.md (NJ/UPGMA)"
         )
-    topo, _ = stepwise_addition_multi(
-        masks, n_states, n_orders=orders, seed=seed,
-        sequences_are_masks=True, site_weights=weights, device=device,
-    )
-    return topo
+    raise SystemExit(f"unknown --start {kind!r}")
 
 
 class DiffStart(NamedTuple):

@@ -10,22 +10,28 @@ import time
 import torch
 
 from trex_tpu_torch._device import resolve_device
-from trex_tpu_torch.cli._common import _load_alignment, _start_tree
-from trex_tpu_torch.search.hillclimb import SearchResult
+from trex_tpu_torch.cli._common import _load_alignment, _outgroup_indices, _start_tree
+from trex_tpu_torch.search.hillclimb import (
+    SearchResult,
+    constrained_start,
+    parsimony_hill_climb,
+)
+from trex_tpu_torch.search.ratchet import parsimony_ratchet
 
 # Flags of the JAX ``infer`` that this port does not cover yet, with the
-# value that means "not requested" and the slice that adds them.
+# value that means "not requested" and where ROADMAP.md queues them.
 _NOT_PORTED = (
-    ("ratchet", 0, "slice 1b (parsimony ratchet)"),
-    ("bootstrap", 0, "slice 1b (supports)"),
-    ("decay", False, "slice 1b (SPR-decay support)"),
-    ("outgroup", None, "slice 1b (rerooting)"),
-    ("constraint", None, "slice 1b (constrained search)"),
     ("model", "jc", "slice 2 item 7 (model fitting: optimize_model)"),
     ("model_file", None, "slice 2 item 7 (model fitting: optimize_model)"),
     ("model_rounds", 0, "slice 2 item 7 (model fitting: optimize_model)"),
     ("alrt", 0, "queue A item 13 (supports)"),
     ("ufboot", 0, "queue A item 13 (supports)"),
+)
+# Parsimony flags (slice 1b) whose ML counterparts are still queued.
+_ML_NOT_PORTED = (
+    ("ratchet", 0, "queue A item 3 (ml_iterated_search)"),
+    ("bootstrap", 0, "queue A item 4 (ml_bootstrap_analysis)"),
+    ("constraint", None, "queue A items 3 and 4 (the constrained ML climb)"),
 )
 
 
@@ -35,8 +41,11 @@ class InferRun:
     """The printed JSON object."""
     result: SearchResult
     seconds: dict[str, float]
-    """Wall seconds of the starting trees ("start"), the climbs ("climb")
-    and, for ``--criterion ml``, the branch-length fits ("newton")."""
+    """Wall seconds of the starting trees ("start"), the climbs or the
+    ratchet ("climb"), under parsimony the decay ("decay") and bootstrap
+    ("bootstrap") when asked for, an enumerating climb's host generation
+    ("generate") and batch scoring ("score"), and for ``--criterion ml``
+    the branch-length fits ("newton")."""
     lengths: torch.Tensor | None = None
     """The fitted branch lengths (``--criterion ml``)."""
 
@@ -52,11 +61,19 @@ def _check_ported(args) -> None:
             raise SystemExit(
                 f"--{name} is not ported yet: {where} of ROADMAP.md"
             )
-    if args.neighborhood not in ("spr-scan", "nni"):
-        raise SystemExit(
-            f"--neighborhood {args.neighborhood} is not ported yet: slice 1b "
-            "of ROADMAP.md (enumerating SPR/TBR generators)"
-        )
+    if args.criterion == "ml":
+        for name, unset, where in _ML_NOT_PORTED:
+            if getattr(args, name) != unset:
+                raise SystemExit(
+                    f"--{name} under --criterion ml is not ported yet: {where} of "
+                    "ROADMAP.md (slice 1b ported it for parsimony)"
+                )
+        if args.neighborhood in ("spr", "tbr"):
+            raise SystemExit(
+                f"--neighborhood {args.neighborhood} under --criterion ml is not "
+                "ported yet: queue A item 3 of ROADMAP.md (slice 1b ported its "
+                "generator for parsimony)"
+            )
     if args.mesh not in (None, "1,1"):
         raise SystemExit(
             "--mesh is not ported yet: multi-device search is queue A item 15 "
@@ -70,14 +87,12 @@ def _sync(device: torch.device) -> None:
 
 
 def run_infer(args) -> InferRun:
-    """FASTA in, inferred tree out: stepwise start trees, then a parsimony
-    or (``--criterion ml``) likelihood climb."""
+    """FASTA in, inferred tree out: start trees, then a parsimony (with the
+    ratchet, constraints, rooting and supports) or (``--criterion ml``)
+    likelihood climb."""
     import numpy as np
 
     from trex_tpu_torch.alignment import compress_alignment
-    from trex_tpu_torch.io import save_newick
-    from trex_tpu_torch.search.hillclimb import parsimony_hill_climb
-    from trex_tpu_torch.types import CostModel
 
     _check_ported(args)
     device = resolve_device(args.device)
@@ -94,14 +109,25 @@ def run_infer(args) -> InferRun:
         "unique_patterns": int((counts > 0).sum()),
     }
     t0 = time.perf_counter()
-    # The --start tree plus (--restarts - 1) more random-addition-order starts.
-    starts = [
-        _start_tree(
-            args.start, patterns, n_states, args.seed + 1000 * r, weights,
-            args.orders, device,
-        )
-        for r in range(max(args.restarts, 1))
-    ]
+    constraint = None
+    if args.constraint:
+        splits, taxa, ctopo, cids = _constraint(args, names, out)
+        constraint = (splits, taxa)
+        starts = [
+            constrained_start(ctopo, cids, len(names), seed=args.seed + 1000 * r, device=device)
+            for r in range(max(args.restarts, 1))
+        ]
+    else:
+        # The --start tree, plus (--restarts - 1) more: random-addition-order
+        # stepwise starts, or random trees when --start is not stepwise.
+        extra = "stepwise" if args.start == "stepwise" else "random"
+        starts = [
+            _start_tree(
+                args.start if r == 0 else extra, patterns, n_states,
+                args.seed + 1000 * r, weights, args.orders, device,
+            )
+            for r in range(max(args.restarts, 1))
+        ]
     _sync(device)
     t1 = time.perf_counter()
     if args.restarts > 1:
@@ -110,23 +136,130 @@ def run_infer(args) -> InferRun:
     leaves = torch.as_tensor(patterns, device=device)
     if args.criterion == "ml":
         return _run_ml(args, out, names, leaves, n_states, weights, starts, t1 - t0)
-    cost = CostModel.hamming(n_states, device=device).matrix
-    result = None
-    for st in starts:
-        attempt = parsimony_hill_climb(
-            st, cost, leaves,
-            max_rounds=args.rounds,
-            neighborhood=args.neighborhood,
-            site_weights=weights,
-            sequences_are_masks=True,
+    return _run_parsimony(args, out, names, leaves, n_states, weights, starts, constraint,
+                          t1 - t0)
+
+
+def _constraint(args, names: list[str], out: dict):
+    """(required splits, constraint taxa, constraint tree, its taxa's
+    indices) of ``--constraint``, with the JAX CLI's refusals; records the
+    counts in ``out``."""
+    from trex_tpu_torch.io import load_newick
+    from trex_tpu_torch.search.bootstrap import subtree_leaf_sets
+
+    if args.neighborhood == "spr-scan":
+        raise SystemExit(
+            "--constraint needs an enumerating --neighborhood "
+            "(nni/spr/tbr); the analytic spr-scan cannot filter moves"
         )
+    if args.ratchet > 0:
+        raise SystemExit("--constraint does not combine with --ratchet")
+    with open(args.constraint) as fh:
+        ctopo, _, cnames = load_newick(fh.read())
+    unknown = [n for n in cnames if n not in names]
+    if unknown:
+        raise SystemExit(f"constraint taxa not in alignment: {unknown[:5]}")
+    cids = [names.index(n) for n in cnames]
+    splits = []
+    for clade in subtree_leaf_sets(ctopo):
+        mapped = frozenset(cids[i] for i in clade)
+        if 2 <= len(mapped) <= len(cids) - 2:
+            splits.append(mapped)
+    out["constraint_splits"] = len(splits)
+    out["constraint_taxa"] = len(cids)
+    return splits, frozenset(cids), ctopo, cids
+
+
+def _run_parsimony(args, out, names, leaves, n_states, weights, starts, constraint,
+                   start_seconds) -> InferRun:
+    """The parsimony branch: a climb (or the ratchet) from each start, under
+    ``constraint`` (required splits, constraint taxa) when given, the best
+    score wins; then outgroup rooting, SPR-decay and bootstrap
+    supports. The ratchet's and the bootstrap's draws come from CPU
+    generators seeded as the JAX CLI seeds its keys (``--seed`` + start
+    index, ``--seed`` + 1), so the card and the CPU draw alike."""
+    import numpy as np
+
+    from trex_tpu_torch.io import save_newick
+    from trex_tpu_torch.types import CostModel
+
+    device = leaves.device
+    cost = CostModel.hamming(n_states, device=device).matrix
+    seconds = {"start": start_seconds}
+    clock = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal clock
+        _sync(device)
+        now = time.perf_counter()
+        seconds[name] = now - clock
+        clock = now
+
+    splits, taxa = constraint or (None, None)
+    result = None
+    generation: dict[str, float] = {}  # the enumerating climbs' host split
+    for s_idx, st in enumerate(starts):
+        if args.ratchet > 0:
+            attempt = parsimony_ratchet(
+                st, cost, leaves,
+                generator=torch.Generator().manual_seed(args.seed + s_idx),
+                n_iterations=args.ratchet, climb_rounds=args.rounds,
+                neighborhood=args.neighborhood, site_weights=weights,
+                sequences_are_masks=True,
+            )
+            out["ratchet_iterations"] = args.ratchet
+        else:
+            timings: dict[str, float] = {}
+            attempt = parsimony_hill_climb(
+                st, cost, leaves,
+                max_rounds=args.rounds,
+                neighborhood=args.neighborhood,
+                site_weights=weights,
+                sequences_are_masks=True,
+                constraint_splits=splits,
+                constraint_taxa=taxa,
+                timings=timings,
+            )
+            for key, value in timings.items():
+                generation[key] = generation.get(key, 0.0) + value
         if result is None or attempt.score < result.score:
             result = attempt
-    _sync(device)
-    t2 = time.perf_counter()
+    lap("climb")
+    seconds.update(generation)
     out["parsimony_score"] = result.score
-    _finish(args, out, result, save_newick(result.topology, names))
-    return InferRun(out, result, {"start": t1 - t0, "climb": t2 - t1})
+    if args.outgroup:
+        from trex_tpu_torch.io import reroot_on_outgroup
+
+        # Unit-cost parsimony does not depend on the root: the score holds.
+        topo, _ = reroot_on_outgroup(result.topology, _outgroup_indices(names, args.outgroup))
+        result = dataclasses.replace(result, topology=topo)
+        out["outgroup"] = args.outgroup
+    if args.decay:
+        from trex_tpu_torch.search.bremer import spr_decay_support
+
+        decay, _ = spr_decay_support(result.topology, leaves, weights, sequences_are_masks=True)
+        out["decay"] = [None if np.isnan(d) else round(float(d), 1) for d in decay]
+        lap("decay")
+    support = None
+    if args.bootstrap > 0:
+        from trex_tpu_torch.search.bootstrap import bootstrap_analysis
+
+        support, _ = bootstrap_analysis(
+            result.topology, cost, leaves,
+            n_replicates=args.bootstrap,
+            search_rounds=max(args.rounds // 4, 3),
+            neighborhood="nni",
+            site_weights=weights,
+            sequences_are_masks=True,
+            generator=torch.Generator().manual_seed(args.seed + 1),
+        )
+        out["bootstrap_replicates"] = args.bootstrap
+        out["mean_split_support"] = float(np.mean(support))
+        out["split_support"] = [round(float(s), 3) for s in support]
+        lap("bootstrap")
+    # Supports ride the newick as internal node labels.
+    _finish(args, out, result, save_newick(result.topology, names, support=support))
+    return InferRun(out, result, seconds)
 
 
 def _finish(args, out: dict, result: SearchResult, newick: str) -> None:
@@ -165,6 +298,14 @@ def _run_ml(args, out, names, leaves, n_states, weights, starts, start_seconds) 
         if best is None or float(losses[-1]) < float(best[2][-1]):
             best = (result, lengths, losses)
     result, lengths, losses = best
+    if args.outgroup:
+        from trex_tpu_torch.io import reroot_on_outgroup
+
+        topo, rerooted = reroot_on_outgroup(
+            result.topology, _outgroup_indices(names, args.outgroup), lengths.cpu().numpy())
+        result = dataclasses.replace(result, topology=topo)
+        lengths = torch.as_tensor(rerooted, dtype=torch.float32, device=lengths.device)
+        out["outgroup"] = args.outgroup
     out.update(
         neg_log_likelihood=float(losses[-1]),
         ranking_score=result.score,

@@ -67,40 +67,47 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("stepwise", "nj", "upgma", "random", "balanced",
                             "diff"),
                    default="stepwise",
-                   help="starting tree: stepwise addition (default) or "
-                        "'diff', the differentiable joint relaxation as a "
-                        "coarse initializer (8 restarts of 600 steps as one "
-                        "batch, projected to valid trees, best exact score "
-                        "by the Fitch kernel); nj/upgma/random/balanced: a "
-                        "later slice")
+                   help="starting tree: stepwise addition (default); "
+                        "random (a coalescent tree from --seed); balanced "
+                        "(power-of-two taxon counts); or 'diff', the "
+                        "differentiable joint relaxation as a coarse "
+                        "initializer (8 restarts of 600 steps as one batch, "
+                        "projected to valid trees, best exact score by the "
+                        "Fitch kernel); nj/upgma: a later slice")
     p.add_argument("--orders", type=int, default=4,
                    help="random addition orders for --start stepwise")
     p.add_argument("--constraint", type=str, default=None,
-                   help="constraint newick (a later slice)")
+                   help="constraint newick: every visited tree keeps its "
+                        "splits (needs --neighborhood nni/spr/tbr; parsimony)")
     p.add_argument("--neighborhood",
                    choices=("spr-scan", "spr", "nni", "tbr"),
                    default="spr-scan",
-                   help="spr-scan = analytic all-SPR evaluation; nni = "
-                        "enumerated NNI batch scored by the Fitch kernel "
-                        "(parsimony) or the likelihood kernel (ml) "
-                        "(spr/tbr: a later slice)")
+                   help="spr-scan = analytic all-SPR evaluation; nni, spr, "
+                        "tbr = enumerated neighborhoods (the native move "
+                        "library), each round's batch scored by the Fitch "
+                        "kernel (parsimony; tbr sampled to 16384 a round) or, "
+                        "for nni, the likelihood kernel (ml)")
     p.add_argument("--rounds", type=int, default=100,
                    help="max hill-climb rounds")
     p.add_argument("--ratchet", type=int, default=0,
-                   help="parsimony-ratchet iterations (a later slice)")
+                   help="parsimony-ratchet iterations (parsimony)")
     p.add_argument("--decay", action="store_true",
-                   help="SPR-decay support (a later slice)")
+                   help="SPR-decay (approximate Bremer) support per split "
+                        "(parsimony)")
     p.add_argument("--bootstrap", type=int, default=0,
-                   help="bootstrap replicates (a later slice)")
+                   help="bootstrap replicates: split supports on the newick "
+                        "(parsimony)")
     p.add_argument("--outgroup", type=str, default=None,
-                   help="outgroup rooting (a later slice)")
+                   help="comma-separated outgroup taxa to root the tree on")
     p.add_argument("--alrt", type=int, default=0,
                    help="SH-aLRT supports (a later slice)")
     p.add_argument("--ufboot", type=int, default=0,
                    help="ultrafast bootstrap supports (a later slice)")
     p.add_argument("--restarts", type=int, default=1,
                    help="independent searches: the --start tree plus N-1 "
-                        "more random-addition starts; best final score wins")
+                        "more (random-addition stepwise starts, or random "
+                        "trees when --start is not stepwise); best final "
+                        "score wins")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--output-tree", type=str, default=None)
     p.add_argument("--mesh", type=str, default=None, metavar="T,S",

@@ -1,9 +1,10 @@
-"""Host-side tree moves, newick parser and writer in pure Python (counterpart
-of the subset of ``trex_tpu/io/fallback.py`` the parsimony path needs).
+"""Host-side tree moves, topology sampling, newick parser and writer in pure
+Python (counterpart of ``trex_tpu/io/fallback.py``).
 
-The JAX package calls a native library for these when it is built; these
-Python versions share its contracts (canonical numbering, move validity,
-enumeration order), which the JAX package's own tests pin.
+``trex_tpu_torch.io`` calls the port's native library (``io.native``) for
+these when it is built; these Python versions share its contracts
+(canonical numbering, move validity, enumeration order) and are the parity
+oracle of ``tests/test_torch_native.py``.
 """
 
 from __future__ import annotations
@@ -145,6 +146,30 @@ def py_write_newick(children: np.ndarray, leaf_names: list[str] | None = None) -
     return repr_[2 * n_leaves - 2] + ";"
 
 
+def py_sample_topologies(seed: int, n_leaves: int, batch: int):
+    """``batch`` coalescent topologies from ``default_rng(seed)``,
+    canonicalized like the native sampler's (the raw coalescent numbering
+    is valid but not structure-determined). The native sampler draws from
+    another stream, so the two give different trees for one seed."""
+    rng = np.random.default_rng(seed)
+    n_anc, n_all = n_leaves - 1, 2 * n_leaves - 1
+    children = np.empty((batch, n_anc, 2), dtype=np.int32)
+    parents = np.empty((batch, n_all), dtype=np.int32)
+    for b in range(batch):
+        active = list(range(n_leaves))
+        kids: dict[int, list[int]] = {}
+        for a in range(n_anc):
+            i, j = rng.choice(len(active), size=2, replace=False)
+            c1, c2 = active[i], active[j]
+            node = n_leaves + a
+            kids[node] = [min(c1, c2), max(c1, c2)]
+            active = [x for x in active if x not in (c1, c2)] + [node]
+        ch, par, _ = _canonicalize(n_leaves, kids, n_all - 1)
+        children[b] = ch
+        parents[b] = par
+    return children, parents
+
+
 def _tree_maps(children: np.ndarray):
     """(kids dict, parent dict, n_leaves, n_all) from a children array."""
     children = np.asarray(children, dtype=np.int32)
@@ -159,6 +184,16 @@ def _tree_maps(children: np.ndarray):
         for c in cs:
             parent[c] = p
     return kids, parent, n_leaves, n_all
+
+
+def _subtree_nodes(kids: dict[int, list[int]], node: int) -> list[int]:
+    """``node`` and every node below it (pre-order, last child first)."""
+    out, stack = [], [node]
+    while stack:
+        n = stack.pop()
+        out.append(n)
+        stack.extend(kids.get(n, []))
+    return out
 
 
 def _tbr_apply(
@@ -261,6 +296,112 @@ def py_spr_move(children: np.ndarray, prune: int, regraft: int):
     if regraft in (sibling, p):
         return None
     return _tbr_apply(kids, parent, n_leaves, prune, prune, regraft)
+
+
+def py_tbr_move(children: np.ndarray, prune: int, reroot: int, regraft: int):
+    """One TBR move; canonical (children, parents) or None if invalid.
+
+    ``reroot`` must lie inside the pruned subtree (== ``prune`` is plain
+    SPR), ``regraft`` outside it and never at the junction parent; plain
+    SPR also rejects the sibling no-op.
+    """
+    kids, parent, n_leaves, n_all = _tree_maps(children)
+    if not (
+        0 <= prune < n_all - 1 and 0 <= regraft < n_all - 1 and 0 <= reroot < n_all
+    ):
+        return None
+    in_sub = set(_subtree_nodes(kids, prune))
+    if reroot not in in_sub or regraft in in_sub:
+        return None
+    p = parent[prune]
+    sibling = kids[p][1] if kids[p][0] == prune else kids[p][0]
+    if regraft == p:
+        return None
+    if reroot == prune and regraft == sibling:
+        return None
+    return _tbr_apply(kids, parent, n_leaves, prune, reroot, regraft)
+
+
+def _empty(n_leaves: int):
+    return (
+        np.zeros((0, n_leaves - 1, 2), np.int32),
+        np.zeros((0, 2 * n_leaves - 1), np.int32),
+    )
+
+
+def py_spr_neighborhood(children: np.ndarray, max_trees: int | None = None):
+    """The deduplicated SPR neighborhood, in the native enumeration order
+    (prune-major, regraft-minor, ascending), deduplicated by canonical
+    bytes with the identity excluded, capped at ``max_trees`` (default
+    200,000): native and Python agree tree for tree."""
+    children = np.asarray(children, dtype=np.int32)
+    kids, parent, n_leaves, n_all = _tree_maps(children)
+    cap = min((n_all - 1) * (n_all - 1), max_trees if max_trees is not None else 200_000)
+    seen = {children.tobytes()}
+    out_c: list[np.ndarray] = []
+    out_p: list[np.ndarray] = []
+    for prune in range(n_all - 1):
+        in_sub = set(_subtree_nodes(kids, prune))
+        p = parent[prune]
+        sibling = kids[p][1] if kids[p][0] == prune else kids[p][0]
+        for regraft in range(n_all - 1):
+            if regraft in in_sub or regraft in (sibling, p):
+                continue
+            res = _tbr_apply(
+                {k: list(v) for k, v in kids.items()}, dict(parent),
+                n_leaves, prune, prune, regraft,
+            )
+            if res is None or res[0].tobytes() in seen:
+                continue
+            if len(out_c) >= cap:
+                return np.stack(out_c), np.stack(out_p)
+            seen.add(res[0].tobytes())
+            out_c.append(res[0])
+            out_p.append(res[1])
+    return (np.stack(out_c), np.stack(out_p)) if out_c else _empty(n_leaves)
+
+
+def py_tbr_neighborhood(children: np.ndarray, max_trees: int = 16384, seed: int = 0):
+    """The deduplicated TBR neighborhood (SPR included), truncated at
+    ``max_trees``.
+
+    The native move set and validity rules; the prune and regraft orders
+    are shuffled by ``seed`` so a truncated set is an unbiased sample. The
+    shuffle is numpy's PCG64, not the native ``mt19937_64``, so a truncated
+    Python sample is another subset; untruncated, the two sets are equal.
+    """
+    children = np.asarray(children, dtype=np.int32)
+    kids, parent, n_leaves, n_all = _tree_maps(children)
+    cap = min(max_trees, 200_000)
+    rng = np.random.default_rng(seed)
+    prune_order = rng.permutation(n_all - 1)
+    node_order = rng.permutation(n_all - 1)
+    seen = {children.tobytes()}
+    out_c: list[np.ndarray] = []
+    out_p: list[np.ndarray] = []
+    for prune in prune_order.tolist():
+        sub_nodes = _subtree_nodes(kids, prune)
+        in_sub = set(sub_nodes)
+        p = parent[prune]
+        sibling = kids[p][1] if kids[p][0] == prune else kids[p][0]
+        for reroot in sub_nodes:
+            for regraft in node_order.tolist():
+                if regraft in in_sub or regraft == p:
+                    continue
+                if reroot == prune and regraft == sibling:
+                    continue
+                res = _tbr_apply(
+                    {k: list(v) for k, v in kids.items()}, dict(parent),
+                    n_leaves, prune, reroot, regraft,
+                )
+                if res is None or res[0].tobytes() in seen:
+                    continue
+                if len(out_c) >= cap:
+                    return np.stack(out_c), np.stack(out_p)
+                seen.add(res[0].tobytes())
+                out_c.append(res[0])
+                out_p.append(res[1])
+    return (np.stack(out_c), np.stack(out_p)) if out_c else _empty(n_leaves)
 
 
 def py_nni_neighbors(children: np.ndarray):

@@ -306,3 +306,56 @@ def best_over_segments(scan_segment, n_all: int, device, max_cells: int | None =
             row, best_v = divmod(int(idx), n_all)
             best_p = s0 + row
     return best, best_p, best_v, float(base), n_finite
+
+
+def spr_scan_segmented(
+    topology: Topology,
+    leaf_sequences: torch.Tensor,
+    site_weights: torch.Tensor | None = None,
+    *,
+    sequences_are_masks: bool = False,
+    prune_chunk: int | None = None,
+    max_cells: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``spr_scan`` over every prune node, run in segments: the full
+    (n_all, n_all) table with the all-inf root row, and the base score.
+
+    A segment holds at most ``max_cells / n_all`` prune nodes (default: as
+    many as a fraction of the device's available memory holds, so one
+    segment at support-tool sizes); rows are computed whole in each
+    segment, so the table is the one-call scan's. The decay analysis
+    (``search.bremer``) reads the whole table.
+    """
+    n_all = topology.n_all
+    n_prune = n_all - 1
+    device = torch.as_tensor(leaf_sequences).device
+    if max_cells is None:
+        max_cells = scan_budget_bytes(device) // _BYTES_PER_CELL
+    scan = lambda pn: spr_scan(  # noqa: E731
+        topology, leaf_sequences, site_weights,
+        sequences_are_masks=sequences_are_masks, prune_nodes=pn, prune_chunk=prune_chunk,
+    )
+    if n_prune * n_all <= max_cells:
+        return scan(None)
+    seg = max(1, max_cells // n_all)
+    rows = []
+    for s0 in range(0, n_prune, seg):
+        scores, base = scan(torch.arange(s0, min(s0 + seg, n_prune), dtype=torch.int64))
+        rows.append(scores)
+    rows.append(torch.full((1, n_all), torch.inf, device=rows[0].device))
+    return torch.cat(rows), base
+
+
+def spr_scan_best(
+    topology: Topology,
+    leaf_sequences: torch.Tensor,
+    site_weights: torch.Tensor | None = None,
+    *,
+    sequences_are_masks: bool = False,
+) -> tuple[float, int, int, float]:
+    """(best score, prune node, regraft node, base score) of the SPR scan:
+    the first minimum of the whole table."""
+    best, p, v, base, _ = spr_scan_best_segmented(
+        topology, leaf_sequences, site_weights, sequences_are_masks=sequences_are_masks,
+    )
+    return best, p, v, base

@@ -1,0 +1,139 @@
+"""Bootstrap analysis under parsimony: site-resampled scoring and split
+support (counterpart of the parsimony half of ``trex_tpu/search/bootstrap.py``).
+
+A replicate resamples alignment sites with replacement. Every parsimony
+score here is a weighted site sum, so a replicate is an integer
+site-weight vector: the replicates' trees are scored under their weights
+(K1 on the card), with no copy of the data. Split support is the share
+of replicate optima that hold each bipartition of a reference tree.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from trex_tpu_torch.topology import Topology
+
+
+def bootstrap_site_weights(
+    length: int, n_replicates: int, generator: torch.Generator
+) -> torch.Tensor:
+    """(R, L) int32 site counts, each row a multinomial draw of L sites
+    with probability 1/L each (so it sums to L), from ``generator`` (on
+    its device)."""
+    picks = torch.randint(0, length, (n_replicates, length), generator=generator,
+                          device=generator.device)
+    counts = torch.zeros((n_replicates, length), dtype=torch.int32, device=picks.device)
+    return counts.scatter_add_(1, picks, torch.ones_like(picks, dtype=torch.int32))
+
+
+def bootstrap_scores(
+    topology: Topology,
+    cost_matrix: torch.Tensor,
+    leaf_sequences: torch.Tensor,
+    weights: torch.Tensor,
+    use_fitch: bool = True,
+) -> torch.Tensor:
+    """(R,) parsimony scores of one topology under R site-weight vectors:
+    unit-cost Fitch (K1 on the card), or with ``use_fitch=False`` the
+    Sankoff DP under ``cost_matrix``."""
+    from trex_tpu_torch.ops.fitch import fitch_score
+    from trex_tpu_torch.ops.sankoff import sankoff_score
+
+    weights = torch.as_tensor(weights, device=leaf_sequences.device).to(torch.float32)
+    if use_fitch:
+        return torch.stack([fitch_score(topology, leaf_sequences, w) for w in weights])
+    return torch.stack([
+        sankoff_score(topology, cost_matrix, leaf_sequences, site_mask=w) for w in weights
+    ])
+
+
+def subtree_leaf_sets(topology: Topology) -> list[frozenset[int]]:
+    """Leaf set (clade) below each ancestor, host-side."""
+    children, _ = topology.to_numpy()
+    n_leaves = topology.n_leaves
+    sets: dict[int, frozenset[int]] = {i: frozenset([i]) for i in range(n_leaves)}
+    for a in range(n_leaves - 1):
+        sets[n_leaves + a] = sets[int(children[a, 0])] | sets[int(children[a, 1])]
+    return [sets[n_leaves + a] for a in range(n_leaves - 1)]
+
+
+def split_support(reference: Topology, replicate_best: list[Topology]) -> np.ndarray:
+    """(n_ancestors,) share of the replicate trees holding each ancestor's
+    clade of ``reference``, indexed like ``reference.children`` (the root's
+    is 1)."""
+    ref_splits = subtree_leaf_sets(reference)
+    counts = np.zeros(len(ref_splits))
+    for topo in replicate_best:
+        rep = set(subtree_leaf_sets(topo))
+        for i, split in enumerate(ref_splits):
+            if split in rep:
+                counts[i] += 1
+    return counts / max(len(replicate_best), 1)
+
+
+def _replicate_weights(
+    length: int, n_replicates: int, site_weights, generator: torch.Generator
+) -> torch.Tensor:
+    """(R, L) bootstrap site counts. With base weights (compressed
+    patterns), pattern occurrences are resampled: each row draws the total
+    count from a multinomial proportional to the base weights."""
+    if site_weights is None:
+        return bootstrap_site_weights(length, n_replicates, generator)
+    base = torch.as_tensor(site_weights, device=generator.device).to(torch.float64)
+    total = int(base.sum())
+    picks = torch.multinomial(base.expand(n_replicates, length), total, replacement=True,
+                              generator=generator)
+    counts = torch.zeros((n_replicates, length), dtype=torch.int32, device=picks.device)
+    return counts.scatter_add_(1, picks, torch.ones_like(picks, dtype=torch.int32))
+
+
+def bootstrap_analysis(
+    reference: Topology,
+    cost_matrix: torch.Tensor,
+    leaf_sequences,
+    n_replicates: int = 100,
+    search_rounds: int = 20,
+    neighborhood: str = "nni",
+    site_weights=None,
+    sequences_are_masks: bool = False,
+    *,
+    replicate_weights=None,
+    generator: torch.Generator | None = None,
+    device=None,
+) -> tuple[np.ndarray, list[Topology]]:
+    """Bootstrap split support for ``reference``.
+
+    Each replicate climbs from ``reference`` (``parsimony_hill_climb``,
+    ``search_rounds`` rounds of ``neighborhood``) under its site weights;
+    a split's support is the share of replicate optima that keep it. The
+    weights come from ``replicate_weights``, (R, L) counts (the JAX
+    package's draws replayed), or else ``_replicate_weights`` from
+    ``generator`` (pattern occurrences resampled when ``site_weights``,
+    the base pattern counts, is given).
+
+    Returns (support (n_ancestors,), the replicates' best topologies).
+    """
+    from trex_tpu_torch._device import resolve_device
+    from trex_tpu_torch.search.hillclimb import parsimony_hill_climb
+
+    if device is None and torch.is_tensor(leaf_sequences):
+        device = leaf_sequences.device
+    device = resolve_device("cuda" if device is None else device)
+    leaves = torch.as_tensor(leaf_sequences, device=device)
+    if replicate_weights is None:
+        if generator is None:
+            raise ValueError("bootstrap_analysis needs replicate_weights or a generator")
+        replicate_weights = _replicate_weights(leaves.shape[-1], n_replicates,
+                                               site_weights, generator)
+    replicate_weights = torch.as_tensor(replicate_weights, device=device).to(torch.float32)
+    best = [
+        parsimony_hill_climb(
+            reference, cost_matrix, leaves,
+            max_rounds=search_rounds, neighborhood=neighborhood,
+            site_weights=w, sequences_are_masks=sequences_are_masks,
+        ).topology
+        for w in replicate_weights[:n_replicates]
+    ]
+    return split_support(reference, best), best

@@ -68,8 +68,9 @@ def ml_hill_climb(
         )
     if neighborhood in ("spr", "tbr"):
         raise NotImplementedError(
-            f"neighborhood {neighborhood!r} is not ported yet: slice 1b of "
-            "ROADMAP.md (enumerating SPR/TBR generators)"
+            f"ML ranking of the {neighborhood!r} neighborhood is not ported yet: "
+            "slice 1b ported its generator for parsimony; its ML ranking is "
+            "slice 2b of ROADMAP.md (queue A item 3)"
         )
     if neighborhood not in ("nni", "spr-scan"):
         raise ValueError(f"unknown neighborhood {neighborhood!r}")

@@ -1,5 +1,11 @@
-"""Greedy stepwise-addition starting trees (counterpart of the scan path of
+"""Greedy stepwise-addition starting trees (counterpart of
 ``trex_tpu/search/stepwise.py``).
+
+Two paths. The batched path (``use_scan=False``, and the default above 30
+states) grows the induced tree on the host and scores every insertion edge
+of a step as one batch of full-size trees through K1
+(``ops.fitch.batched_fitch_score``). The scan path (the default up to 30
+states) is described below.
 
 Every intermediate tree is full-size over all n taxa: not-yet-added taxa
 hang on a "parked chain" above the induced tree and are fully ambiguous
@@ -31,7 +37,7 @@ import torch
 
 from trex_tpu_torch._device import resolve_device
 from trex_tpu_torch.io import canonicalize_topology
-from trex_tpu_torch.ops.fitch import fitch_score
+from trex_tpu_torch.ops.fitch import batched_fitch_score, fitch_score
 from trex_tpu_torch.ops.insertion_cuda import insertion_delta_cuda
 from trex_tpu_torch.topology import Topology, from_numpy, parents_from_children
 
@@ -205,6 +211,159 @@ def _insert(st: _StepwiseState, k: int) -> None:
     st.added[t] = True
 
 
+@dataclasses.dataclass
+class _GrowingTree:
+    """Host-side induced tree over the added taxa: leaves are taxon ids,
+    internal nodes negative labels; ``parent`` maps every node but the
+    root, ``kids`` each internal label to its two children."""
+
+    root: int
+    parent: dict[int, int]
+    kids: dict[int, list[int]]
+    next_label: int = -1
+
+    def edges(self) -> list[int]:
+        """Child endpoints of every edge (the edge above each non-root node)."""
+        return list(self.parent)
+
+    def attach(self, taxon: int, edge_child: int | None) -> None:
+        """Insert ``taxon`` on the edge above ``edge_child`` (None = above the root)."""
+        w = self.next_label
+        self.next_label -= 1
+        if edge_child is None:
+            self.kids[w] = [self.root, taxon]
+            self.parent[self.root] = w
+            self.parent[taxon] = w
+            self.root = w
+            return
+        up = self.parent[edge_child]
+        self.kids[up][self.kids[up].index(edge_child)] = w
+        self.parent[w] = up
+        self.kids[w] = [edge_child, taxon]
+        self.parent[edge_child] = w
+        self.parent[taxon] = w
+
+    def copy(self) -> "_GrowingTree":
+        return _GrowingTree(
+            root=self.root,
+            parent=dict(self.parent),
+            kids={k: list(v) for k, v in self.kids.items()},
+            next_label=self.next_label,
+        )
+
+
+def _insertion_candidates(
+    tree: _GrowingTree, taxon: int, parked: list[int], n_leaves: int
+) -> np.ndarray:
+    """(P, n_anc, 2) children of ``tree`` with ``taxon`` on each edge
+    (``tree.edges()`` order) and then above the induced root, the parked
+    taxa chained above. Ancestors are numbered in post-order, children
+    visited by minimum leaf descendant, so every child index is below its
+    parent's. All insertions share one copy with each insertion laid over
+    it (only the new node's ancestors change their minimum leaf)."""
+    work = tree.copy()
+    for t in parked:
+        work.attach(t, None)
+    kids, parent = work.kids, work.parent
+    order, stack = [], [work.root]
+    while stack:
+        x = stack.pop()
+        order.append(x)
+        if x < 0:
+            stack.extend(kids[x])
+    min_leaf: dict[int, int] = {}
+    for x in reversed(order):
+        min_leaf[x] = x if x >= 0 else min(min_leaf[c] for c in kids[x])
+    w = work.next_label
+    points = tree.edges() + [tree.root]
+    out = np.empty((len(points), n_leaves - 1, 2), dtype=np.int32)
+    for i, point in enumerate(points):
+        up = parent.get(point)
+        on_path = set()
+        y = up
+        while y is not None:
+            on_path.add(y)
+            y = parent.get(y)
+        w_min = min(min_leaf[point], taxon)
+
+        def rank(c: int) -> int:
+            if c >= 0:
+                return c
+            if c == w:
+                return w_min
+            return min(min_leaf[c], taxon) if c in on_path else min_leaf[c]
+
+        def kids_of(node: int) -> list[int]:
+            if node == w:
+                return [point, taxon]
+            if node == up:
+                return [w if c == point else c for c in kids[node]]
+            return kids[node]
+
+        number: dict[int, int] = {}
+        counter = n_leaves
+        rows = out[i]
+        pending: list[tuple[int, bool]] = [(w if up is None else work.root, False)]
+        while pending:
+            node, expanded = pending.pop()
+            if node >= 0:
+                continue
+            if expanded:
+                a, b = (c if c >= 0 else number[c] for c in kids_of(node))
+                rows[counter - n_leaves] = (a, b) if a < b else (b, a)
+                number[node] = counter
+                counter += 1
+            else:
+                pending.append((node, True))
+                pending.extend((k, False) for k in sorted(kids_of(node), key=rank, reverse=True))
+    return out
+
+
+def _stepwise_batched(
+    masks: np.ndarray,
+    n_states: int,
+    order: list[int],
+    site_weights,
+    device: torch.device,
+) -> tuple[Topology, float]:
+    """The batched path: each step materializes the tree with the next
+    taxon on every edge of the induced tree (and above its root) and
+    scores the batch in one K1 call; the first minimum wins. Not-yet-added
+    taxa are fully ambiguous leaves."""
+    n_leaves = masks.shape[0]
+    full_mask = np.int64((1 << n_states) - 1).astype(np.int32)
+    alphabet = mask_alphabet(masks, n_states)
+    weights = None if site_weights is None else torch.as_tensor(
+        site_weights, dtype=torch.float32, device=device)
+    all_masks = torch.as_tensor(masks, device=device)
+    scored = torch.full_like(all_masks, int(full_mask))
+    t0, t1, t2 = order[:3]
+    tree = _GrowingTree(root=-1, parent={t0: -1, t1: -1}, kids={-1: [t0, t1]}, next_label=-2)
+    tree.attach(t2, None)
+    scored[order[:3]] = all_masks[order[:3]]
+    # Three taxa: the cherry (t0, t1), numbered n, below the root n + 1.
+    final = np.array([sorted((t0, t1)), [t2, n_leaves]], dtype=np.int32)
+    for step in range(3, n_leaves):
+        taxon = order[step]
+        parked = order[step + 1:]
+        scored[taxon] = all_masks[taxon]
+        points: list[int | None] = tree.edges() + [None]
+        candidates = _insertion_candidates(tree, taxon, parked, n_leaves)
+        children = torch.as_tensor(candidates, device=device)
+        scores = batched_fitch_score(
+            Topology(children, children.new_zeros((len(points), 2 * n_leaves - 1))),
+            scored, weights, sequences_are_masks=True, n_states=alphabet,
+        )
+        best = int(torch.argmin(scores))
+        tree.attach(taxon, points[best])
+        # The last step's winner is the grown tree (no taxon is parked).
+        final = candidates[best].copy()
+    topo = from_numpy(final, parents_from_children(final), device)
+    score = float(fitch_score(topo, all_masks, weights, sequences_are_masks=True,
+                              n_states=alphabet))
+    return topo, score
+
+
 def _stepwise_scan(
     masks: np.ndarray,
     order: list[int],
@@ -247,6 +406,7 @@ def stepwise_addition(
     order: np.ndarray | None = None,
     seed: int | None = None,
     site_weights=None,
+    use_scan: bool | None = None,
     device="cuda",
 ) -> tuple[Topology, float]:
     """Build a tree by greedy stepwise addition.
@@ -254,12 +414,17 @@ def stepwise_addition(
     Args:
         leaf_sequences: (n_leaves, L) integer states, or state-set bitmasks
             with ``sequences_are_masks=True``.
-        n_states: alphabet size Q (<= 30: the event flag rides bit 30).
+        n_states: alphabet size Q (<= 32; the scan path needs Q <= 30,
+            since its event flag rides bit 30).
         order: explicit addition order (permutation of taxa); default is a
             random order from ``seed`` (or 0), numpy's
             ``default_rng(seed).permutation``.
         site_weights: optional (L,) weights (compressed patterns).
-        device: where the up sets live and K2 runs (``cuda`` by default).
+        use_scan: the scan path (K2 a step) or the batched path (K1 a
+            step); default the scan path up to 30 states. Both are exact
+            and their trees score alike, but equal-score insertions may
+            break ties differently.
+        device: where the kernels run (``cuda`` by default).
 
     Returns:
         (topology, score): the grown tree over all taxa, on ``device``,
@@ -269,11 +434,12 @@ def stepwise_addition(
     n_leaves = seqs.shape[0]
     if n_leaves < 3:
         raise ValueError("stepwise addition needs at least 3 taxa")
-    if n_states > _FLAG_SHIFT:
-        raise NotImplementedError(
-            "stepwise addition with more than 30 states needs the batched "
-            "(non-scan) path, which a later slice ports"
-        )
+    if n_states > 32:
+        raise ValueError("stepwise addition scores unit-cost Fitch sets: at most 32 states")
+    if use_scan is None:
+        use_scan = n_states <= _FLAG_SHIFT
+    if use_scan and n_states > _FLAG_SHIFT:
+        raise ValueError("the scan path needs n_states <= 30 (its event flag rides bit 30)")
     masks = (
         seqs.astype(np.int32)
         if sequences_are_masks
@@ -285,13 +451,10 @@ def stepwise_addition(
     order = [int(t) for t in np.asarray(order)]
     if sorted(order) != list(range(n_leaves)):
         raise ValueError("order must be a permutation of all taxa")
-    return _stepwise_scan(
-        masks,
-        order,
-        (1 << n_states) - 1,
-        None if site_weights is None else _host(site_weights),
-        resolve_device(device),
-    )
+    weights = None if site_weights is None else _host(site_weights)
+    if not use_scan:
+        return _stepwise_batched(masks, n_states, order, weights, resolve_device(device))
+    return _stepwise_scan(masks, order, (1 << n_states) - 1, weights, resolve_device(device))
 
 
 def stepwise_addition_multi(
