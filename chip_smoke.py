@@ -1,7 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``trex_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the root of a checkout
+    python3 chip_smoke.py                          # every phase
+    python3 chip_smoke.py --phases ml_models,ml    # a subset (plus card, build)
+
+``--phases`` takes a comma-separated subset of PHASES (default: all); a
+phase brings the phases it needs (REQUIRES), ``card`` and ``build`` always
+run, an unknown name exits with status 2. With a subset the kernels line
+lists only the kernels those phases measured; with every phase it lists
+every kernel, and the last line is the same.
 
 Builds the six CUDA kernel libraries from ``trex_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
@@ -62,6 +69,24 @@ launch count set to 0 just before it and read just after:
   batched stepwise path at 32 states (128 x 1024), card against CPU; and
   every new flag, card against CPU, at 24 x 300.
 
+- slice 2b (fitted models and rate heterogeneity): on an alignment
+  simulated under GTR+G at 512 x 2048 (the truth in the phase line), the
+  model routes ``infer --criterion ml --model gtr+g --model-rounds 1``
+  with the analytic scan under the fitted +G mixture (``--rounds 3``) and
+  with NNI (``--rounds 10``, K3 ranking under the fitted GTR matrix and
+  prior), each with its walls (start, climb, Newton, fit, rounds), fitted
+  parameters, launches, peak memory and a profiled 50-step fit (launches
+  a step, idle share), and that fit profiled on a 512-taxon caterpillar
+  (511 levels); K3 held at the NNI route's own batch under that
+  model; the protein route (``--model empirical+g --model-file`` a
+  synthetic PAML matrix, NNI, 128 x 1024, K3 at 20 states on its batch);
+  ``score --criterion ml --model gtr+g --asr joint --site-rates`` on the
+  scan route's tree; ``trait`` on it with a 3-state trait evolved from
+  the seed; ``ml`` with its defaults (K3 ranking SPR neighbourhoods); and
+  card against CPU at 24 x 300: ``infer`` under gtr+g, hky+i, jc+r3 and
+  empirical on both neighbourhoods, ``score --criterion ml``, the ML ASR
+  functions under one fit, and ``trait``.
+
 K1 is also captured in a CUDA graph, larger calls run, and the graph
 replayed (each call's scratch is its own: bit-equal to the plain version);
 shape (b) is timed with a kept buffer and with the per-call one.
@@ -108,9 +133,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # float32 instructions outside the tensor cores: 128 per SM per clock x 132
 # SMs x the 1980 MHz SM clock; for K5, whose adds and mins no instruction
-# fuses. The bound the kernels' global-scratch versions were held to (two
-# messages an ancestor, K5's at F32_OPS_PER_S) is kept beside each K5 and
-# K3/K4 bound as bound_ms_earlier.
+# fuses.
 F32_INSTR_PER_S = 128 * 132 * 1.98e9
 # 32-bit integer add and logical results: 64 per SM per clock on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
@@ -461,37 +484,34 @@ def k1_work(batch: int, n_taxa: int, n_sites: int, n_states: int) -> tuple[float
     return n_bytes, float(batch * (n_taxa - 1) * words * (2 * n_states + 4))
 
 
-def k34_work(batch: int, n_taxa: int, n_sites: int, q: int, per_branch: bool, *,
-             leaf_table: bool):
+def k34_work(batch: int, n_taxa: int, n_sites: int, q: int, per_branch: bool):
     """K3/K4's (bytes, float32 ops): children, leaves, weights, prior and P
-    in, scores out; per tree and site 2Q^2 (Q^2 FMAs) for each message
-    computed, Q for the combine, 2Q for the max and the scale per ancestor.
-    With ``leaf_table`` (shared P) a leaf's message depends only on its
-    state, so only the n_taxa - 2 ancestor children's messages are computed
-    (the table: a few rows a block); without it, two an ancestor, as the
-    global-scratch version did throughout."""
+    in, scores out; per site 2Q^2 (Q^2 FMAs) for each child message the
+    function needs, Q for the combine, 2Q for the max and the scale per
+    ancestor. Under one shared P a leaf's message is the same in every
+    tree, so the function needs each tree's n_taxa - 2 ancestor children's
+    messages and the n_taxa leaves' once for the batch; with a P per branch
+    and tree, all 2(n_taxa - 1) of every tree."""
     p_floats = batch * (2 * n_taxa - 1) * q * q if per_branch else q * q
     n_bytes = 4.0 * (
         batch * (n_taxa - 1) * 2 + n_taxa * n_sites + n_sites + q + p_floats + batch
     )
-    messages = n_taxa - 2 if leaf_table else 2 * (n_taxa - 1)
-    return n_bytes, float(batch * n_sites * (messages * 2 * q * q + (n_taxa - 1) * 3 * q))
+    messages = batch * 2 * (n_taxa - 1) if per_branch else batch * (n_taxa - 2) + n_taxa
+    return n_bytes, float(n_sites * (messages * 2 * q * q + batch * (n_taxa - 1) * 3 * q))
 
 
-def k5_work(batch: int, n_taxa: int, n_sites: int, q: int, hamming: bool, *,
-            leaf_table: bool):
+def k5_work(batch: int, n_taxa: int, n_sites: int, q: int, hamming: bool):
     """K5's (bytes, float32 ops): children, leaves, cost and weights in,
-    scores out; per tree and site, Q^2 x (add + min) for each general
-    message computed (Hamming: Q - 1 mins, 1 add, Q mins), Q adds per
-    ancestor to combine two messages, a Q - 1 min and the weight multiply.
-    With ``leaf_table`` a leaf's message depends only on its state, so only
-    the n_taxa - 2 ancestor children's messages are computed (the table: a
-    few rows a block); without it, two an ancestor, as the global-scratch
-    version did throughout."""
+    scores out; per site Q^2 x (add + min) for each general child message
+    the function needs (Hamming: Q - 1 mins, 1 add, Q mins), Q adds per
+    ancestor to combine two messages, a Q - 1 min and the weight multiply
+    per tree. The cost is shared, so a leaf's message is the same in every
+    tree: each tree's n_taxa - 2 ancestor children's messages and the
+    n_taxa leaves' once for the batch."""
     n_bytes = 4.0 * (batch * (n_taxa - 1) * 2 + n_taxa * n_sites + q * q + n_sites + batch)
     per_message = 2 * q if hamming else 2 * q * q
-    messages = n_taxa - 2 if leaf_table else 2 * (n_taxa - 1)
-    return n_bytes, float(batch * n_sites * (messages * per_message + (n_taxa - 1) * q + q))
+    messages = batch * (n_taxa - 2) + n_taxa
+    return n_bytes, float(n_sites * (messages * per_message + batch * ((n_taxa - 1) * q + q)))
 
 
 def plan_work(batch: int, n_taxa: int) -> tuple[float, float]:
@@ -644,15 +664,22 @@ def strip_lengths(newick: str) -> str:
 
 def run_cli(argv: list[str]):
     """A command in this process; returns what its ``run_*`` function
-    returns (``infer``: InferRun; ``bench``, ``search-run``: the JSON object
-    and the scores or params; else the JSON object)."""
+    returns (``infer``: InferRun; ``bench``, ``search-run``, ``ml``: the
+    JSON object and the scores, params or inputs; else the JSON object)."""
     from trex_tpu_torch.cli import build_parser
     from trex_tpu_torch.cli.infer import run_infer
-    from trex_tpu_torch.cli.score import run_asr, run_score
-    from trex_tpu_torch.cli.search_cmds import run_bench, run_nk_bench, run_search, run_search_run
+    from trex_tpu_torch.cli.score import run_asr, run_score, run_trait
+    from trex_tpu_torch.cli.search_cmds import (
+        run_bench,
+        run_ml,
+        run_nk_bench,
+        run_search,
+        run_search_run,
+    )
 
     run = {"infer": run_infer, "score": run_score, "bench": run_bench, "search": run_search,
-           "asr": run_asr, "nk-bench": run_nk_bench, "search-run": run_search_run}[argv[0]]
+           "asr": run_asr, "nk-bench": run_nk_bench, "search-run": run_search_run,
+           "ml": run_ml, "trait": run_trait}[argv[0]]
     with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
         return run(build_parser().parse_args(argv))
 
@@ -1288,8 +1315,531 @@ def slice_1b_reference(torch, workdir: str, ref_fasta: str) -> list[dict]:
     return rows
 
 
-def main() -> int:
+# The phases ``--phases`` selects from; ``card`` and ``build`` always run.
+# A phase named here runs the phases it needs first (REQUIRES).
+PHASES = ("card", "build", "native", "kernels", "routes", "differentiable", "slice_1b",
+          "reference", "ml_models", "score_ml", "trait", "ml", "protein", "reference_2b")
+REQUIRES = {"routes": ("kernels",), "slice_1b": ("kernels", "routes"),
+            "score_ml": ("ml_models",), "trait": ("ml_models",)}
+SLICE_2B_PHASES = ("ml_models", "score_ml", "trait", "ml", "protein")
+# The phases whose measurements make up the kernels line's full entries.
+EARLIER_PHASES = {"kernels", "routes", "differentiable", "slice_1b"}
+
+
+def parse_phases(argv: list[str]) -> set[str]:
+    """The phases of ``--phases a,b,...`` (default: all) with what they
+    need; an unknown name exits with status 2."""
+    import argparse
+
+    parser = argparse.ArgumentParser(prog="chip_smoke.py")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated phases to run: " + ", ".join(PHASES))
+    names = [n.strip() for n in parser.parse_args(argv).phases.split(",") if n.strip()]
+    unknown = sorted(set(names) - set(PHASES))
+    if unknown:
+        parser.error(f"unknown phase(s) {', '.join(unknown)}; choose from {', '.join(PHASES)}")
+    chosen, todo = set(), list(names)
+    while todo:
+        name = todo.pop()
+        if name not in chosen:
+            chosen.add(name)
+            todo.extend(REQUIRES.get(name, ()))
+    return chosen
+
+
+def k3_model_entry(slice_2b: dict) -> dict | None:
+    """K3's kernels-line entry from slice 2b's measurements alone (a run of
+    a subset of the phases), or None when none was taken."""
+    batches = slice_2b.get("at_model_routes") or {}
+    if not batches:
+        return None
+    first = batches.get("gtr_nni") or next(iter(batches.values()))
+    return {
+        "name": "likelihood_batched", "route": "cuda",
+        "source": "trex_tpu_torch/csrc/likelihood_batched.cu",
+        "replaces": "trex_tpu/ops/likelihood_pallas.py:255",
+        "launches": sum(slice_2b["launches"].values()),
+        "model_route_launches": slice_2b["launches"],
+        **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "at_model_routes": batches,
+    }
+
+
+# Slice 2b: fitted ML models and rate heterogeneity. The model routes run
+# on an alignment simulated under GTR+G (TRUE_GTR) at the main path's width,
+# the protein route under a synthetic PAML matrix with +G; both write their
+# truth into the phase line.
+TRUE_GTR = dict(
+    # Exchangeabilities in upper-triangle order AC, AG, AT, CG, CT, GT (GT
+    # pinned to 1, as the fit pins its last pair), frequencies ACGT, shape.
+    pair_rates=(1.2, 4.0, 0.6, 0.9, 3.3, 1.0), freqs=(0.3, 0.2, 0.22, 0.28), gamma_shape=0.5,
+)
+MODEL_SHAPE = dict(n_taxa=512, n_sites=2048)
+PROTEIN_SHAPE = dict(n_taxa=128, n_sites=1024)
+MODEL_BRANCH = (0.02, 0.15)
+MODEL_ROUTES = {
+    "scan": ["--model", "gtr+g", "--model-rounds", "1", "--rounds", "3"],
+    "nni": ["--neighborhood", "nni", "--model", "gtr+g", "--model-rounds", "1",
+            "--rounds", "10"],
+}
+# Adam steps of the profiled fit (the route's fits run the CLI's 800).
+PROFILED_STEPS = 50
+# Adam steps of the caterpillar fit's profile (511 levels a pass, each launch traced).
+DEEP_FIT_STEPS = 10
+# Adam steps of every fit in the card-against-CPU reference (both devices
+# alike; the full-width routes run the CLI's 800): a fit is launch-bound,
+# about 15 ms a step on either device at 24 taxa.
+REF_FIT_STEPS = 100
+MODEL_REF_CASES = (
+    ("gtr+g", "spr-scan"), ("gtr+g", "nni"), ("hky+i", "spr-scan"), ("hky+i", "nni"),
+    ("jc+r3", "spr-scan"), ("jc+r3", "nni"), ("empirical", "spr-scan"), ("empirical", "nni"),
+)
+
+
+def pair_matrix(pair_rates, q: int) -> np.ndarray:
+    """(Q, Q) symmetric exchangeabilities from upper-triangle pairs."""
+    rates = np.zeros((q, q))
+    rates[np.triu_indices(q, 1)] = pair_rates
+    return rates + rates.T
+
+
+def write_paml(path: str, q: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """A synthetic PAML rate file (lower-triangle exchangeabilities, then
+    frequencies) drawn from ``seed``; returns what the port parses of it."""
+    from trex_tpu_torch.io import parse_paml_rates
+
+    rng = np.random.default_rng(seed)
+    values = rng.uniform(0.1, 4.0, q * (q - 1) // 2)
+    rows, k = [], 0
+    for i in range(1, q):
+        rows.append(" ".join(f"{v:.5f}" for v in values[k:k + i]))
+        k += i
+    freqs = rng.dirichlet(np.full(q, 4.0))
+    text = "\n".join(rows) + "\n" + " ".join(f"{f:.5f}" for f in freqs) + "\n"
+    with open(path, "w") as fh:
+        fh.write(text)
+    return parse_paml_rates(text, q)
+
+
+def simulate_model_fasta(path: str, n_taxa: int, n_sites: int, seed: int, rates, freqs,
+                         gamma_shape: float, letters: bytes = b"ACGT",
+                         branch=MODEL_BRANCH, missing: float = 0.01) -> None:
+    """An alignment down a random coalescent tree (branch lengths uniform in
+    ``branch``) under the reversible model (``rates``, ``freqs``) with
+    four equal-weight discrete-Gamma rate categories, a ``missing`` share of
+    characters replaced by '-'."""
     import torch
+
+    from trex_tpu_torch.ops.likelihood import discrete_gamma_rates, gtr_generator
+
+    rng = np.random.default_rng(seed)
+    q = len(letters)
+    freqs = np.asarray(freqs, np.float64)
+    gen = gtr_generator(torch.as_tensor(rates, dtype=torch.float32),
+                        torch.as_tensor(freqs, dtype=torch.float32)).double()
+    cat_rates = discrete_gamma_rates(gamma_shape, 4).double()
+    site_cat = rng.integers(0, 4, n_sites)
+    kids: dict[int, tuple[int, int]] = {}
+    active = list(range(n_taxa))
+    node = n_taxa
+    while len(active) > 1:
+        i, j = rng.choice(len(active), size=2, replace=False)
+        a, b = active[i], active[j]
+        kids[node] = (a, b)
+        active = [x for x in active if x not in (a, b)] + [node]
+        node += 1
+    root = active[0]
+    seqs = {root: rng.choice(q, n_sites, p=freqs / freqs.sum())}
+    stack = [root]
+    while stack:
+        parent = stack.pop()
+        for child in kids.get(parent, ()):
+            t = rng.uniform(*branch)
+            cdf = torch.linalg.matrix_exp(gen * (t * cat_rates)[:, None, None]).cumsum(-1).numpy()
+            rows = cdf[site_cat, seqs[parent]]  # (L, Q)
+            seqs[child] = np.minimum((rng.random(n_sites)[:, None] > rows).sum(1), q - 1)
+            stack.append(child)
+    table = np.frombuffer(letters, dtype=np.uint8)
+    with open(path, "w") as fh:
+        for t in range(n_taxa):
+            row = table[seqs[t]].copy()
+            row[rng.random(n_sites) < missing] = ord("-")
+            fh.write(f">taxon{t}\n{row.tobytes().decode()}\n")
+
+
+def gtr_truth() -> dict:
+    return dict(gtr_rates=pair_matrix(TRUE_GTR["pair_rates"], 4).round(5).tolist(),
+                base_frequencies=list(TRUE_GTR["freqs"]), gamma_shape=TRUE_GTR["gamma_shape"])
+
+
+def fit_profile(torch, topology, leaves, weights, n_states: int, model: str,
+                steps: int = PROFILED_STEPS, **model_kw) -> dict:
+    """``profile_phase`` of a ``steps``-step ``optimize_model`` on the card
+    (its unprofiled wall taken just before): launches a step, idle share,
+    top kernels."""
+    from trex_tpu_torch.ops.likelihood import optimize_model
+
+    def fit():
+        optimize_model(topology, leaves, n_states, model=model, n_iterations=steps,
+                       sequences_are_masks=True, site_weights=weights, **model_kw)
+
+    fit()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit()
+    torch.cuda.synchronize()
+    prof = profile_phase(torch, fit, time.perf_counter() - t0)
+    return dict(prof, steps=steps, launches_per_step=prof["device_launches"] / steps,
+                ms_per_step=prof["unprofiled_wall_s"] / steps * 1e3)
+
+
+def k3_model_batch(torch, dev, children, leaves, weights, prior, transition, timer) -> dict:
+    """K3 on one route's NNI batch under the route's model (a shared P and a
+    non-uniform prior), held within rtol K34_RTOL of its plain version and
+    timed, with its plan and bound."""
+    from trex_tpu_torch._device import device_limits
+    from trex_tpu_torch.ops.likelihood_cuda import (
+        batched_log_likelihood_cuda,
+        batched_log_likelihood_plain,
+    )
+    from trex_tpu_torch.ops.likelihood_cuda import launch_plan as k34_plan
+
+    q = transition.shape[-1]
+
+    def run(fn):
+        return lambda: fn(children, leaves, weights, prior, transition, sequences_are_masks=True)
+
+    plan = k34_plan(leaves.shape[0], q, True, True, device_limits(dev).smem_optin)
+    shape = (children.shape[0], leaves.shape[0], leaves.shape[1], q, False)
+    got = measure(torch, run(batched_log_likelihood_cuda), run(batched_log_likelihood_plain),
+                  *k34_work(*shape), rtol=K34_RTOL, plain_reps=2)
+    return dict(batch=shape[0], n_taxa=shape[1], patterns=shape[2], n_states=q,
+                plan=dataclasses.asdict(plan), **got, **timer(run(batched_log_likelihood_cuda),
+                                                              got["ms"]))
+
+
+def model_route(torch, dev, fasta: str, argv_tail: list[str], reset_counts, launch_counts,
+                workdir: str, name: str, alphabet: str = "dna") -> tuple:
+    """One ``infer --criterion ml --model ...`` run on the card, every count
+    set to 0 just before it and read just after, with its peak device
+    memory; returns (InferRun, phase fields)."""
+    tree_path = os.path.join(workdir, f"{name}.nwk")
+    argv = ["infer", "--alignment", fasta, "--alphabet", alphabet, "--criterion", "ml",
+            *argv_tail, "--output-tree", tree_path]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    run = run_cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    out = run.out
+    if not np.isfinite(out["neg_log_likelihood"]) or out["neg_log_likelihood"] <= 0:
+        raise AssertionError(f"{name}: bad result {out}")
+    fields = dict(
+        command=" ".join(argv[:1] + argv[3:-2]), n_taxa=out["n_taxa"], n_sites=out["n_sites"],
+        unique_patterns=out["unique_patterns"], neg_log_likelihood=out["neg_log_likelihood"],
+        ranking_score=out["ranking_score"], search_rounds=out["search_rounds"],
+        model_rounds=out.get("model_rounds", 0), wall_s=wall,
+        seconds={k: run.seconds.get(k) for k in ("start", "climb", "newton", "fit", "rounds")},
+        fitted={k: out.get(k) for k in ("gtr_rates", "base_frequencies", "gamma_shape")},
+        launches=counts, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+    )
+    return run, fields, tree_path
+
+
+def slice_2b_routes(torch, dev, workdir: str, phases: set, reset_counts, launch_counts,
+                    timer) -> dict:
+    """Slice 2b's routes at full width: the model routes (GTR+G on 512 x
+    2048, scan and NNI variants), the protein route (empirical+G at 20
+    states, 128 x 1024), ``score --criterion ml`` with joint ASR and site
+    rates, ``trait`` and ``ml``; each with every count set to 0 just before
+    it. K3 is held at the NNI routes' own batches under their models.
+    Returns the K3 measurements and launches for the kernels line."""
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli._common import _load_alignment
+    from trex_tpu_torch.io import nni_neighbors_host
+    from trex_tpu_torch.ops.likelihood import fixed_length_model
+
+    found: dict = {"at_model_routes": {}, "launches": {}}
+    gtr_fasta = os.path.join(workdir, "gtr_g.fasta")
+    simulate_model_fasta(gtr_fasta, MODEL_SHAPE["n_taxa"], MODEL_SHAPE["n_sites"], SEED + 9,
+                         pair_matrix(TRUE_GTR["pair_rates"], 4), TRUE_GTR["freqs"],
+                         TRUE_GTR["gamma_shape"])
+    _, aln, _ = _load_alignment(gtr_fasta, "dna")
+    patterns, counts = compress_alignment(aln)
+    pat_t = torch.as_tensor(patterns.astype(np.int32), device=dev)
+    w_t = torch.as_tensor(counts.astype(np.float32), device=dev)
+    truth = gtr_truth()
+
+    if "ml_models" in phases:
+        for variant, tail in MODEL_ROUTES.items():
+            run, fields, tree_path = model_route(torch, dev, gtr_fasta, tail, reset_counts,
+                                                 launch_counts, workdir, f"gtr_{variant}")
+            k3 = fields["launches"]["k34"]
+            if (k3 > 0) != (variant == "nni") or fields["launches"]["k2"] <= 0:
+                raise AssertionError(f"ml_model_route {variant}: launches {fields['launches']}")
+            found["launches"][f"gtr_{variant}"] = k3
+            profile = fit_profile(torch, run.result.topology, pat_t, w_t, 4, "gtr+g")
+            row = dict(variant=variant, truth=truth, **fields, k3_launches=k3,
+                       fit_profile=profile)
+            if variant == "nni":
+                rates = torch.as_tensor(run.out["gtr_rates"], dtype=torch.float32, device=dev)
+                freqs = torch.as_tensor(run.out["base_frequencies"], dtype=torch.float32,
+                                        device=dev)
+                p, prior = fixed_length_model(4, RANKING_LENGTH, rates, freqs, dev)
+                batch = torch.as_tensor(nni_neighbors_host(run.result.topology)[0], device=dev)
+                row["k3_at_this_shape"] = found["at_model_routes"]["gtr_nni"] = dict(
+                    model="the route's fitted GTR (as printed) at t = 0.1",
+                    **k3_model_batch(torch, dev, batch, pat_t, w_t, prior.contiguous(),
+                                     p.contiguous(), timer))
+                del batch
+            else:
+                found["scan_tree"] = tree_path
+            emit("ml_model_route", **row)
+        # The same fit on a caterpillar over the route's patterns: the
+        # deepest tree (511 levels), where the pruning's traffic and launches
+        # a step are largest.
+        from trex_tpu_torch.topology import from_numpy, parents_from_children
+
+        deep = caterpillar_trees(np.random.default_rng(SEED + 15), MODEL_SHAPE["n_taxa"], 1)[0]
+        emit("ml_fit_deep", tree="caterpillar", n_taxa=MODEL_SHAPE["n_taxa"],
+             patterns=int(pat_t.shape[1]), model="gtr+g", fit_profile=fit_profile(
+                 torch, from_numpy(deep, parents_from_children(deep), dev), pat_t, w_t, 4,
+                 "gtr+g", steps=DEEP_FIT_STEPS))
+
+    if "score_ml" in phases:
+        rates_file = os.path.join(workdir, "site_rates.tsv")
+        argv = ["score", "--alignment", gtr_fasta, "--tree", found["scan_tree"], "--criterion",
+                "ml", "--model", "gtr+g", "--asr", "joint", "--site-rates", rates_file]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out, wall = timed_cli(torch, argv)
+        rates = np.loadtxt(rates_file, skiprows=1)[:, 1]
+        if rates.shape != (MODEL_SHAPE["n_sites"],) or not np.isfinite(out["log_likelihood"]):
+            raise AssertionError(f"score_ml: {out}, {rates.shape}")
+        emit("score_ml", command=" ".join(argv[:1] + argv[3:-1]), wall_s=wall,
+             log_likelihood=out["log_likelihood"],
+             joint_log_probability=out["joint_log_probability"],
+             mean_site_rate=out["mean_site_rate"], mean_branch_length=out["mean_branch_length"],
+             mean_ancestor_posterior=out["mean_ancestor_posterior"],
+             site_rate_quartiles=np.quantile(rates, [0.25, 0.5, 0.75]).tolist(),
+             launches=launch_counts(), peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+    if "trait" in phases:
+        traits = os.path.join(workdir, "traits.tsv")
+        write_traits(traits, found["scan_tree"], SEED + 10)
+        reset_counts()
+        out, wall = timed_cli(torch, ["trait", "--tree", found["scan_tree"], "--traits", traits])
+        if (not np.isfinite(out["log_likelihood"])
+                or len(out["ancestral_nodes"]) != MODEL_SHAPE["n_taxa"] - 1):
+            raise AssertionError(f"trait: {out['mk_rate']}, {out['log_likelihood']}")
+        emit("trait", n_taxa=out["n_taxa"], states=out["states"], mk_rate=out["mk_rate"],
+             log_likelihood=out["log_likelihood"], wall_s=wall, launches=launch_counts(),
+             mean_map_posterior=float(np.mean([
+                 a["posterior"][a["map_state"]] for a in out["ancestral_nodes"]])))
+
+    if "ml" in phases:
+        reset_counts()
+        (out, _), wall = timed_cli(torch, ["ml"])
+        counts_ml = launch_counts()
+        if counts_ml["k34"] <= 0 or not np.isfinite(out["final_neg_log_likelihood"]):
+            raise AssertionError(f"ml: {out}, {counts_ml}")
+        found["launches"]["ml"] = counts_ml["k34"]
+        emit("ml", command="ml (defaults: 16 leaves, 128 sites, 30 rounds, SPR)", **out,
+             wall_s=wall, launches=counts_ml)
+
+    if "protein" in phases:
+        paml = os.path.join(workdir, "synthetic_aa.dat")
+        aa_rates, aa_freqs = write_paml(paml, 20, SEED + 11)
+        aa_fasta = os.path.join(workdir, "protein.fasta")
+        simulate_model_fasta(aa_fasta, PROTEIN_SHAPE["n_taxa"], PROTEIN_SHAPE["n_sites"],
+                             SEED + 12, aa_rates, aa_freqs, 0.8,
+                             letters=b"ARNDCQEGHILKMFPSTWYV", branch=(0.05, 0.3))
+        run, fields, _ = model_route(
+            torch, dev, aa_fasta, ["--neighborhood", "nni", "--model", "empirical+g",
+                                   "--model-file", paml, "--model-rounds", "1"],
+            reset_counts, launch_counts, workdir, "protein", alphabet="protein")
+        k3 = fields["launches"]["k34"]
+        if k3 <= 0:
+            raise AssertionError(f"protein route launched no K3: {fields['launches']}")
+        found["launches"]["protein"] = k3
+        _, aa_aln, _ = _load_alignment(aa_fasta, "protein")
+        aa_pat, aa_counts = compress_alignment(aa_aln)
+        aa_t = torch.as_tensor(aa_pat.astype(np.int32), device=dev)
+        aa_w = torch.as_tensor(aa_counts.astype(np.float32), device=dev)
+        p, prior = fixed_length_model(20, RANKING_LENGTH, torch.as_tensor(aa_rates, device=dev),
+                                      torch.as_tensor(aa_freqs, device=dev), dev)
+        batch = torch.as_tensor(nni_neighbors_host(run.result.topology)[0], device=dev)
+        k3_row = found["at_model_routes"]["protein_nni"] = dict(
+            model="the route's empirical matrix and frequencies (the file's) at t = 0.1",
+            **k3_model_batch(torch, dev, batch, aa_t, aa_w, prior.contiguous(), p.contiguous(),
+                             timer))
+        emit("protein_route", truth=dict(gamma_shape=0.8, frequencies="the file's"), **fields,
+             k3_launches=k3, k3_at_this_shape=k3_row,
+             fit_profile=fit_profile(torch, run.result.topology, aa_t, aa_w, 20, "empirical+g",
+                                     fixed_rates=torch.as_tensor(aa_rates, device=dev),
+                                     fixed_freqs=torch.as_tensor(aa_freqs, device=dev)))
+    return found
+
+
+def write_traits(path: str, tree_path: str, seed: int) -> None:
+    """A 3-state trait evolved down the tree of ``tree_path`` (Mk, rate 1 on
+    its branch lengths) from ``seed``, as ``taxon,state`` lines."""
+    from trex_tpu_torch.io import load_newick
+
+    with open(tree_path) as fh:
+        topo, lengths, names = load_newick(fh.read())
+    rng = np.random.default_rng(seed)
+    children = topo.children.numpy()
+    n = len(names)
+    state = np.zeros(2 * n - 1, np.int64)
+    state[-1] = rng.integers(3)
+    for a in range(n - 2, -1, -1):
+        for c in children[a]:
+            change = rng.random() < 2.0 / 3.0 * (1.0 - np.exp(-1.5 * lengths[c]))
+            state[c] = (state[n + a] + rng.integers(1, 3)) % 3 if change else state[n + a]
+    labels = np.array(["red", "green", "blue"])
+    with open(path, "w") as fh:
+        fh.writelines(f"{name},{labels[state[i]]}\n" for i, name in enumerate(names))
+
+
+def slice_2b_reference(torch, workdir: str) -> list[dict]:
+    """Slice 2b on the card against the CPU at 24 x 300 (GTR+G data): infer
+    under each model of MODEL_REF_CASES on both neighbourhoods (the same
+    keys, tree, rounds; NLL within rtol 1e-4); ``score --criterion ml``
+    with joint ASR and site rates; marginal and joint ASR and site rates
+    under one CPU fit on both devices (states equal wherever the CPU's
+    maximum leads by 1e-4, or both assignments tie); ``trait``. Every fit
+    runs REF_FIT_STEPS Adam steps on both devices."""
+    with short_fits(REF_FIT_STEPS):
+        return _slice_2b_reference(torch, workdir)
+
+
+def _slice_2b_reference(torch, workdir: str) -> list[dict]:
+    card, cpu = "cuda", "cpu"
+    from trex_tpu_torch.cli._common import _load_alignment
+    from trex_tpu_torch.io import align_leaf_order, load_newick
+    from trex_tpu_torch.ops import likelihood
+    from trex_tpu_torch.ops.likelihood import posterior_site_rates
+    from trex_tpu_torch.ops.likelihood_asr import (
+        joint_ancestral_reconstruction,
+        marginal_ancestral_posteriors,
+    )
+
+    fasta = os.path.join(workdir, "ref_gtr.fasta")
+    simulate_model_fasta(fasta, REF_SHAPE["n_taxa"], REF_SHAPE["n_sites"], SEED + 13,
+                         pair_matrix(TRUE_GTR["pair_rates"], 4), TRUE_GTR["freqs"],
+                         TRUE_GTR["gamma_shape"], branch=(0.1, 0.4))
+    paml = os.path.join(workdir, "synthetic_dna.dat")
+    write_paml(paml, 4, SEED + 14)
+    rows = []
+    for model, neighborhood in MODEL_REF_CASES:
+        argv = ["infer", "--alignment", fasta, "--orders", "1", "--criterion", "ml",
+                "--neighborhood", neighborhood, "--model", model, "--model-rounds", "1",
+                "--output-tree", os.path.join(workdir, "ref_model.nwk")]
+        if model == "empirical":
+            argv += ["--model-file", paml]
+        on_card = run_cli(argv + ["--device", card]).out
+        on_cpu = run_cli(argv + ["--device", cpu]).out
+        rel = abs(on_card["neg_log_likelihood"] - on_cpu["neg_log_likelihood"]) / abs(
+            on_cpu["neg_log_likelihood"])
+        same = (list(on_card) == list(on_cpu)
+                and strip_lengths(on_card["tree"]) == strip_lengths(on_cpu["tree"])
+                and on_card["search_rounds"] == on_cpu["search_rounds"]
+                and on_card.get("model_rounds") == on_cpu.get("model_rounds"))
+        if not same or rel > 1e-4:
+            raise AssertionError(f"{model} {neighborhood}: card {on_card} != cpu {on_cpu}")
+        rows.append(dict(model=model, neighborhood=neighborhood, n_taxa=on_card["n_taxa"],
+                         neg_log_likelihood=on_card["neg_log_likelihood"],
+                         model_rounds=on_card.get("model_rounds", 0),
+                         search_rounds=on_card["search_rounds"], same_tree=True, rel_err=rel))
+    tree = os.path.join(workdir, "ref_model.nwk")  # the last case's tree, with lengths
+    outs = {}
+    for device in (card, cpu):
+        outs[device] = run_cli([
+            "score", "--alignment", fasta, "--tree", tree, "--criterion", "ml", "--model",
+            "gtr+g", "--asr", "joint", "--site-rates", os.path.join(workdir, f"r_{device}.tsv"),
+            "--device", device])
+    rel = {k: abs(outs[card][k] - outs[cpu][k]) / abs(outs[cpu][k])
+           for k in ("log_likelihood", "joint_log_probability", "mean_site_rate")}
+    if list(outs[card]) != list(outs[cpu]) or max(rel.values()) > 1e-4:
+        raise AssertionError(f"score --criterion ml: card {outs[card]} != cpu {outs[cpu]}")
+    rows.append(dict(command="score --criterion ml --model gtr+g --asr joint --site-rates",
+                     log_likelihood=outs[card]["log_likelihood"], rel_err=rel))
+    # The ASR functions under one fit (the CPU's), on both devices.
+    names, masks, _ = _load_alignment(fasta, "dna")
+    with open(tree) as fh:
+        topo, _, tree_names = load_newick(fh.read())
+    topo = align_leaf_order(topo, tree_names, names)
+    params, _ = likelihood.optimize_model(topo, torch.as_tensor(masks), 4, model="gtr+g",
+                               sequences_are_masks=True, n_iterations=REF_FIT_STEPS)
+    got = {}
+    for device in (card, cpu):
+        args = (topo.to(device), params["branch_lengths"].to(device),
+                torch.as_tensor(masks, device=device), 4, params["rates"].to(device),
+                params["freqs"].to(device))
+        post, maps = marginal_ancestral_posteriors(*args, sequences_are_masks=True)
+        states, joint_lp = joint_ancestral_reconstruction(*args, sequences_are_masks=True)
+        site_rates, _ = posterior_site_rates(*args[:4], params["gamma_shape"].to(device),
+                                             rates=args[4], freqs=args[5],
+                                             sequences_are_masks=True)
+        got[device] = [x.cpu() for x in (post, maps, states, joint_lp, site_rates)]
+    post_card, maps_card, states_card, lp_card, rates_card = got[card]
+    post_cpu, maps_cpu, states_cpu, lp_cpu, rates_cpu = got[cpu]
+    top2 = post_cpu.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+    differ = (states_card != states_cpu).any(dim=0)
+    checks = {
+        "posteriors": float((post_card - post_cpu).abs().max()) <= 1e-5,
+        "map_states": bool((maps_card[clear] == maps_cpu[clear]).all()),
+        "joint_log_prob": bool(torch.allclose(lp_card, lp_cpu, rtol=1e-5, atol=1e-4)),
+        "joint_states": bool(torch.allclose(lp_card[differ], lp_cpu[differ], atol=1e-4)),
+        "site_rates": bool(torch.allclose(rates_card, rates_cpu, rtol=1e-5, atol=1e-6)),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"ML ASR card against CPU: {checks}")
+    rows.append(dict(check="marginal and joint ASR, site rates under one CPU fit",
+                     sites_with_clear_map=float(clear.float().mean()),
+                     joint_sites_differing=int(differ.sum()), **checks))
+    traits = os.path.join(workdir, "ref_traits.tsv")
+    write_traits(traits, tree, SEED + 15)
+    trait = {d: run_cli(["trait", "--tree", tree, "--traits", traits, "--device", d])
+             for d in (card, cpu)}
+    maps_equal = [a["map_state"] for a in trait[card]["ancestral_nodes"]] == [
+        a["map_state"] for a in trait[cpu]["ancestral_nodes"]]
+    # A float32 likelihood resolves the Mk rate at its flat optimum to a few
+    # parts in a thousand (ROADMAP.md, accepted differences).
+    if (abs(trait[card]["mk_rate"] - trait[cpu]["mk_rate"]) > 1e-2 * trait[cpu]["mk_rate"]
+            or abs(trait[card]["log_likelihood"] - trait[cpu]["log_likelihood"]) > 1e-4
+            or not maps_equal):
+        raise AssertionError(f"trait: card {trait[card]} != cpu {trait[cpu]}")
+    rows.append(dict(command="trait", mk_rate=trait[card]["mk_rate"],
+                     log_likelihood=trait[card]["log_likelihood"], same_map_states=True))
+    return rows
+
+
+
+@contextlib.contextmanager
+def short_fits(steps: int):
+    """``ops.likelihood.optimize_model`` at ``steps`` Adam steps while the
+    block runs (the commands look it up at call time)."""
+    import functools
+
+    from trex_tpu_torch.ops import likelihood
+
+    full = likelihood.optimize_model
+    likelihood.optimize_model = functools.partial(full, n_iterations=steps)
+    try:
+        yield
+    finally:
+        likelihood.optimize_model = full
+
+def main(argv: list[str] | None = None) -> int:
+    import torch
+
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to measure", file=sys.stderr)
@@ -1392,11 +1942,17 @@ def main() -> int:
         for name, log in _nvcc.BUILD_LOG.items()
     }
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
-    # 2b. The native move library (host code, built with g++ from the
-    # port's copy): loaded, or the run fails; each generator against Python.
-    emit("native", **native_phase())
+    if "native" in phases:
+        # 2b. The native move library (host code, built with g++ from the
+        # port's copy): loaded, or the run fails; each generator against Python.
+        emit("native", **native_phase())
 
     workdir = tempfile.mkdtemp(prefix="trex_chip_smoke_")
+    # The alignments shared by several phases (simulated in seconds).
+    main_fasta = os.path.join(workdir, "main.fasta")
+    simulate_fasta(main_fasta, MAIN_SHAPE["n_taxa"], MAIN_SHAPE["n_sites"], SEED + 1)
+    nni_fasta = os.path.join(workdir, "nni.fasta")
+    simulate_fasta(nni_fasta, NNI_SHAPE["n_taxa"], NNI_SHAPE["n_sites"], SEED + 2)
 
     def k1_on(children, masks, weights, n_states=4, plain_reps=5) -> dict:
         plan = k1_plan(children.shape[0], masks.shape[0], masks.shape[1], n_states,
@@ -1409,793 +1965,808 @@ def main() -> int:
             ops_per_s=INT32_OPS_PER_S, plain_reps=plain_reps,
         ))
 
-    # 3. K1 at bench.py's shape (a): 64 taxa x 1024 sites, B = 2048 trees;
-    # then at (d)-(i), each with its launch plan ((i) in the global mode,
-    # whose plain version walks 8191 ancestors: 2 timed calls).
-    rng = np.random.default_rng(SEED)
-    k1 = k1_on(*k1_inputs(torch, dev, "a", rng))
-    emit("k1", shape="a", **K1_SHAPE, trees_per_s=K1_SHAPE["batch"] / (k1["ms"] / 1e3), **k1)
-    k1_shapes = {"a": dict(K1_SHAPE, **k1)}
-    for key in "defghi":
-        k1_shapes[key] = dict(K1_SHAPES[key], **k1_on(
-            *k1_inputs(torch, dev, key, np.random.default_rng(SEED + ord(key))),
-            plain_reps=2 if key == "i" else 5))
-        emit("k1", shape=key, **k1_shapes[key])
-    if k1_shapes["i"]["plan"]["staged"]:
-        raise AssertionError(f"K1 (i) did not take the global mode: {k1_shapes['i']['plan']}")
+    if "kernels" in phases:
+        # 3. K1 at bench.py's shape (a): 64 taxa x 1024 sites, B = 2048 trees;
+        # then at (d)-(i), each with its launch plan ((i) in the global mode,
+        # whose plain version walks 8191 ancestors: 2 timed calls).
+        rng = np.random.default_rng(SEED)
+        k1 = k1_on(*k1_inputs(torch, dev, "a", rng))
+        emit("k1", shape="a", **K1_SHAPE, trees_per_s=K1_SHAPE["batch"] / (k1["ms"] / 1e3), **k1)
+        k1_shapes = {"a": dict(K1_SHAPE, **k1)}
+        for key in "defghi":
+            k1_shapes[key] = dict(K1_SHAPES[key], **k1_on(
+                *k1_inputs(torch, dev, key, np.random.default_rng(SEED + ord(key))),
+                plain_reps=2 if key == "i" else 5))
+            emit("k1", shape=key, **k1_shapes[key])
+        if k1_shapes["i"]["plan"]["staged"]:
+            raise AssertionError(f"K1 (i) did not take the global mode: {k1_shapes['i']['plan']}")
 
-    # 3b. Each K1 call has its own scratch: a call captured in a CUDA graph,
-    # then larger calls (2048 taxa; 8192 taxa in the global mode), then the
-    # graph replayed must still give the plain version's scores bit for bit.
-    # And shape (b) timed with a buffer the caller keeps (the cache the
-    # wrapper had before) and with the per-call buffer, in turns.
-    k1_b = k1_route_inputs(torch, dev, workdir, "b")
-    plain_b = batched_fitch_score_plain(*k1_b[:3])
-    graph = torch.cuda.CUDAGraph()
-    captured = lambda: batched_fitch_score_cuda(*k1_b[:3], n_states=4)  # noqa: E731
-    captured()
-    torch.cuda.synchronize()
-    with torch.cuda.graph(graph):
-        graph_scores = captured()
-    for key in "fi":
-        children, masks, weights, q = k1_inputs(torch, dev, key, np.random.default_rng(SEED + 50))
-        batched_fitch_score_cuda(children, masks, weights, n_states=q)
-        del children, masks, weights
-    graph.replay()
-    torch.cuda.synchronize()
-    if not torch.equal(graph_scores, plain_b):
-        raise AssertionError("K1's graph replay after larger calls differs from the plain version")
-    del graph
-    plan_b = k1_plan(1, k1_b[1].shape[0], k1_b[1].shape[1], 4, *device_limits(dev))
-    kept = torch.empty((k1_scratch_words(plan_b, k1_b[1].shape[0], k1_b[1].shape[1]),),
-                       dtype=torch.int32, device=dev)
-    scratch_runs = {
-        "per_call": lambda: run_k1_plan(*k1_b[:3], plan_b),
-        "kept": lambda: run_k1_plan(*k1_b[:3], plan_b, scratch=kept),
-    }
-    scratch_ab = {name: {"ms": [], "graph_ms": []} for name in scratch_runs}
-    for name in ("per_call", "kept", "kept", "per_call"):
-        if not torch.equal(scratch_runs[name](), plain_b):
-            raise AssertionError(f"K1 (b) with the {name} scratch differs from the plain version")
-        scratch_ab[name]["ms"].append(time_ms(torch, scratch_runs[name], 30))
-        scratch_ab[name]["graph_ms"].append(graph_ms(torch, scratch_runs[name]))
-    emit("k1_scratch", shape="b", graph_replay_after_larger_calls_equal=True,
-         plan=dataclasses.asdict(plan_b), **scratch_ab)
-    del kept, k1_b, plain_b
+        # 3b. Each K1 call has its own scratch: a call captured in a CUDA graph,
+        # then larger calls (2048 taxa; 8192 taxa in the global mode), then the
+        # graph replayed must still give the plain version's scores bit for bit.
+        # And shape (b) timed with a buffer the caller keeps (the cache the
+        # wrapper had before) and with the per-call buffer, in turns.
+        k1_b = k1_route_inputs(torch, dev, workdir, "b")
+        plain_b = batched_fitch_score_plain(*k1_b[:3])
+        graph = torch.cuda.CUDAGraph()
+        captured = lambda: batched_fitch_score_cuda(*k1_b[:3], n_states=4)  # noqa: E731
+        captured()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            graph_scores = captured()
+        for key in "fi":
+            children, masks, weights, q = k1_inputs(torch, dev, key, np.random.default_rng(SEED + 50))
+            batched_fitch_score_cuda(children, masks, weights, n_states=q)
+            del children, masks, weights
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(graph_scores, plain_b):
+            raise AssertionError("K1's graph replay after larger calls differs from the plain version")
+        del graph
+        plan_b = k1_plan(1, k1_b[1].shape[0], k1_b[1].shape[1], 4, *device_limits(dev))
+        kept = torch.empty((k1_scratch_words(plan_b, k1_b[1].shape[0], k1_b[1].shape[1]),),
+                           dtype=torch.int32, device=dev)
+        scratch_runs = {
+            "per_call": lambda: run_k1_plan(*k1_b[:3], plan_b),
+            "kept": lambda: run_k1_plan(*k1_b[:3], plan_b, scratch=kept),
+        }
+        scratch_ab = {name: {"ms": [], "graph_ms": []} for name in scratch_runs}
+        for name in ("per_call", "kept", "kept", "per_call"):
+            if not torch.equal(scratch_runs[name](), plain_b):
+                raise AssertionError(f"K1 (b) with the {name} scratch differs from the plain version")
+            scratch_ab[name]["ms"].append(time_ms(torch, scratch_runs[name], 30))
+            scratch_ab[name]["graph_ms"].append(graph_ms(torch, scratch_runs[name]))
+        emit("k1_scratch", shape="b", graph_replay_after_larger_calls_equal=True,
+             plan=dataclasses.asdict(plan_b), **scratch_ab)
+        del kept, k1_b, plain_b
 
-    # 4. K2 at real stepwise insertions, shapes (a)-(d) of K2_SHAPES, and on
-    # the wide tree (e), each bit for bit against its plain version, with
-    # its launch plan.
-    main_fasta = os.path.join(workdir, "main.fasta")
-    simulate_fasta(main_fasta, MAIN_SHAPE["n_taxa"], MAIN_SHAPE["n_sites"], SEED + 1)
-    _, aln, n_states = _load_alignment(main_fasta, "dna")
-    patterns, counts = compress_alignment(aln)
+        # 4. K2 at real stepwise insertions, shapes (a)-(d) of K2_SHAPES, and on
+        # the wide tree (e), each bit for bit against its plain version, with
+        # its launch plan.
+        _, aln, n_states = _load_alignment(main_fasta, "dna")
+        patterns, counts = compress_alignment(aln)
 
-    def k2_on(var, up, t, w, plain_reps=5) -> dict:
-        n_all, sites = up.shape
-        limits = device_limits(dev)
-        plan = launch_plan(n_all, sites, limits.smem_optin, limits.n_sms)
-        return dict(padded_patterns=sites, plan=dataclasses.asdict(plan), **measure(
-            torch, lambda: insertion_delta_cuda(var, up, t, w),
-            lambda: insertion_delta_plain(var, up, t, w), *k2_work(n_all, sites),
-            plain_reps=plain_reps, ops_per_s=INT32_OPS_PER_S))
+        def k2_on(var, up, t, w, plain_reps=5) -> dict:
+            n_all, sites = up.shape
+            limits = device_limits(dev)
+            plan = launch_plan(n_all, sites, limits.smem_optin, limits.n_sms)
+            return dict(padded_patterns=sites, plan=dataclasses.asdict(plan), **measure(
+                torch, lambda: insertion_delta_cuda(var, up, t, w),
+                lambda: insertion_delta_plain(var, up, t, w), *k2_work(n_all, sites),
+                plain_reps=plain_reps, ops_per_s=INT32_OPS_PER_S))
 
-    k2_shapes = []
-    for key, group in itertools.groupby(K2_SHAPES, lambda c: (c["n_taxa"], c["n_sites"])):
-        group = list(group)
-        q = group[0]["n_states"]
-        pats, cnts = k2_alignment(workdir, *key, q, SEED + 1)
-        for step, inputs in k2_insertions(
-                pats, cnts, q, sorted(c["insertion"] for c in group), dev):
-            cell = next(c for c in group if c["insertion"] == step)
-            k2_shapes.append(dict(cell, **k2_on(*inputs)))
-            emit("k2", **k2_shapes[-1])
-    k2_shapes.append(dict(K2_WIDE, **k2_on(
-        *k2_wide_inputs(torch, dev, K2_WIDE["n_taxa"], K2_WIDE["n_sites"], SEED), plain_reps=2)))
-    emit("k2", **k2_shapes[-1])
-    k2 = next(c for c in k2_shapes if c["shape"] == "a")
+        k2_shapes = []
+        for key, group in itertools.groupby(K2_SHAPES, lambda c: (c["n_taxa"], c["n_sites"])):
+            group = list(group)
+            q = group[0]["n_states"]
+            pats, cnts = k2_alignment(workdir, *key, q, SEED + 1)
+            for step, inputs in k2_insertions(
+                    pats, cnts, q, sorted(c["insertion"] for c in group), dev):
+                cell = next(c for c in group if c["insertion"] == step)
+                k2_shapes.append(dict(cell, **k2_on(*inputs)))
+                emit("k2", **k2_shapes[-1])
+        k2_shapes.append(dict(K2_WIDE, **k2_on(
+            *k2_wide_inputs(torch, dev, K2_WIDE["n_taxa"], K2_WIDE["n_sites"], SEED), plain_reps=2)))
+        emit("k2", **k2_shapes[-1])
+        k2 = next(c for c in k2_shapes if c["shape"] == "a")
 
-    # 5. Main path: the default infer on 512 x 2048, on the card. The
-    # parsimony path ranks nothing by likelihood: K3/K4 must not launch.
-    reset_counts()
-    t0 = time.perf_counter()
-    run = run_cli(["infer", "--alignment", main_fasta])
-    torch.cuda.synchronize()
-    main_wall = time.perf_counter() - t0
-    main_counts = launch_counts()
-    main_k1, main_k2, main_k34 = (main_counts[k] for k in ("k1", "k2", "k34"))
-    if (main_k2 <= 0 or main_k1 <= 0 or main_k34 != 0 or main_counts["k5"] != 0
-            or main_counts["plan"] != 0):
-        raise AssertionError(f"main path launches: {main_counts}")
-    out = run.out
-    # K1 at the main path's own shape (one tree, 512 x 2048): the returned
-    # tree rescored by the kernel and the plain version must both give the
-    # reported score.
-    tree = run.result.topology.children[None].contiguous()
-    pat_t = torch.as_tensor(patterns.astype(np.int32), device=dev)
-    w_t = torch.as_tensor(counts.astype(np.float32), device=dev)
-    k1_main = k1_on(tree, pat_t, w_t)
-    rescored = float(batched_fitch_score_cuda(tree, pat_t, w_t)[0])
-    if rescored != out["parsimony_score"]:
-        raise AssertionError(f"rescored tree {rescored} != reported {out['parsimony_score']}")
-    emit("main_path", command="infer (defaults)", n_taxa=out["n_taxa"],
-         n_sites=out["n_sites"], unique_patterns=out["unique_patterns"],
-         parsimony_score=out["parsimony_score"], search_rounds=out["search_rounds"],
-         evaluations=out["evaluations"], stepwise_s=run.seconds["start"],
-         climb_s=run.seconds["climb"], wall_s=main_wall,
-         k1_launches=main_k1, k2_launches=main_k2, k34_launches=main_k34,
-         k5_launches=main_counts["k5"], rescored=rescored,
-         k1_at_this_shape=k1_main)
-
-    # 5b. Where the main path's time goes: its two calls, profiled one by one.
-    starts = []
-    emit("profile", part="stepwise (4 orders)", **profile_phase(
-        torch,
-        lambda: starts.append(stepwise.stepwise_addition_multi(
-            patterns, n_states, n_orders=4, seed=0, sequences_are_masks=True,
-            site_weights=w_t, device=dev)[0]),
-        run.seconds["start"]))
-    emit("profile", part="spr-scan climb", **profile_phase(
-        torch,
-        lambda: parsimony_hill_climb(
-            starts[0], CostModel.hamming(n_states, device=dev).matrix, pat_t,
-            neighborhood="spr-scan", site_weights=w_t, sequences_are_masks=True),
-        run.seconds["climb"]))
-
-    # 5c. K3/K4 against its plain version at three shapes.
-    p_shared = jc69_transition(torch.tensor(RANKING_LENGTH, device=dev), 4)
-    uniform = torch.full((4,), 0.25, device=dev)
-
-    def k34_on(children, leaves, weights, transition, masks, plain_reps=5) -> dict:
-        def run(fn):
-            return lambda: fn(children, leaves, weights, uniform, transition,
-                              sequences_are_masks=masks)
-        plan = k34_plan(leaves.shape[0], 4, transition.dim() == 2, masks,
-                        device_limits(dev).smem_optin)
-        shape = (children.shape[0], leaves.shape[0], leaves.shape[1], 4, transition.dim() == 4)
-        got = measure(
-            torch, run(batched_log_likelihood_cuda), run(batched_log_likelihood_plain),
-            *k34_work(*shape, leaf_table=plan.leaf_table), rtol=K34_RTOL, plain_reps=plain_reps,
-        )
-        return dict(plan=dataclasses.asdict(plan), **got,
-                    **device_times(run(batched_log_likelihood_cuda), got["ms"]),
-                    bound_ms_earlier=bound_ms(*k34_work(*shape, leaf_table=False))[0])
-
-    # (a) bench.py's K3 configuration: states 0..3, shared P(0.1).
-    n, length, batch = K34_SHAPE["n_taxa"], K34_SHAPE["n_sites"], K34_SHAPE["batch"]
-    k34 = k34_on(
-        torch.as_tensor(random_trees(rng, n, batch), device=dev),
-        torch.as_tensor(rng.integers(0, 4, (n, length)).astype(np.int32), device=dev),
-        torch.ones((length,), device=dev), p_shared, False,
-    )
-    emit("k34", shape="a: bench.py K3, shared P", **K34_SHAPE, **k34)
-    # (b) the ML NNI route's own shape: the NNI neighborhood of its start
-    # tree (the stepwise tree profiled above) on 512 x 2048, masks, weights.
-    ml_batch = torch.as_tensor(nni_neighbors_host(starts[0])[0], device=dev)
-    k34_route = k34_on(ml_batch, pat_t, w_t, p_shared, True)
-    emit("k34", shape="b: ML NNI route, shared P", n_taxa=aln.shape[0],
-         n_sites=int(patterns.shape[1]), batch=int(ml_batch.shape[0]), **k34_route)
-    # K5 (c): the same batch and alignment in the mask mode with pattern
-    # weights (the infer-style input), under transition/transversion costs.
-    tt_cost = CostModel.transition_transversion(1.0, 2.0, device=dev).matrix
-
-    def k5_on(children, leaves, cost, weights, hamming=False, masks=False,
-              plain_reps=5, reps=30, kernel=None) -> dict:
-        """K5 against its plain version, bit for bit, with its plan, device
-        times and its bound at the instruction rate (and the global-scratch
-        version's, two messages an ancestor at the FMA-flop rate).
-        ``kernel``: the call under test, when it is not the wrapper itself
-        (the dispatch)."""
-        def call(fn):
-            return lambda: fn(children, leaves, cost, weights, hamming=hamming,
-                              sequences_are_masks=masks)
-        plan = k5_plan(leaves.shape[0], cost.shape[0], hamming, masks,
-                       device_limits(dev).smem_optin)
-        shape = (children.shape[0], leaves.shape[0], leaves.shape[1], cost.shape[0], hamming)
-        kernel = kernel or call(batched_sankoff_score_cuda)
-        got = measure(torch, kernel, call(batched_sankoff_score_plain),
-                      *k5_work(*shape, leaf_table=plan.leaf_table),
-                      plain_reps=plain_reps, reps=reps, ops_per_s=F32_INSTR_PER_S)
-        return dict(plan=dataclasses.asdict(plan), **got, **device_times(kernel, got["ms"]),
-                    bound_ms_earlier=bound_ms(*k5_work(*shape, leaf_table=False))[0])
-
-    k5_shapes = {}
-    k5_shapes["c"] = dict(
-        shape="c: masks + pattern weights, transition/transversion(1, 2)",
-        n_taxa=aln.shape[0], n_sites=int(patterns.shape[1]),
-        batch=int(ml_batch.shape[0]), **k5_on(ml_batch, pat_t, tt_cost, w_t, masks=True,
-                                             plain_reps=2))
-    emit("k5", **k5_shapes["c"])
-
-    # 5d. The tree plan kernel against its plain version, integer for
-    # integer: the ML NNI batch (512 taxa, B = 1020), the deep trees, and
-    # trees too large to stage in shared memory (its global mode).
-    deep = deep_inputs(torch, dev)
-    wide = torch.as_tensor(random_trees(np.random.default_rng(SEED + 31), PLAN_WIDE["n_taxa"],
-                                        PLAN_WIDE["batch"]), device=dev)
-    plan_shapes = {}
-    for key, children in (("ml nni batch", ml_batch), *((k, v[0]) for k, v in deep.items()),
-                          ("wide", wide)):
-        batch, n_anc, _ = children.shape
-        launch = plan_launch(n_anc, device_limits(dev).smem_optin)
-        used = int(tree_plan_plain(children)[..., 3].max()) + 1
-        got = measure(torch, lambda children=children: tree_plan(children),
-                      lambda children=children: tree_plan_plain(children),
-                      *plan_work(batch, n_anc + 1), reps=10, plain_reps=1,
-                      ops_per_s=INT32_OPS_PER_S)
-        plan_shapes[key] = dict(
-            shape=key, n_taxa=n_anc + 1, batch=batch, launch=dataclasses.asdict(launch),
-            slots_used=used, slots_bound=slots_for(n_anc + 1), **got,
-            **device_times(lambda children=children: tree_plan(children), got["ms"]))
-        if (used > slots_for(n_anc + 1) or launch.staged != (key != "wide")):
-            raise AssertionError(f"tree plan ({key}): {plan_shapes[key]}")
-        emit("tree_plan", **plan_shapes[key])
-    del ml_batch, wide
-    # (c) per-branch P, JC lengths U(0.05, 1.0); states with 5% missing
-    # (negative), so state mode's missing data is held against the plain
-    # version too.
-    n, length, batch = (K4_BRANCH_SHAPE[k] for k in ("n_taxa", "n_sites", "batch"))
-    lengths = torch.as_tensor(
-        rng.uniform(0.05, 1.0, (batch, 2 * n - 1)).astype(np.float32), device=dev)
-    states = rng.integers(0, 4, (n, length)).astype(np.int32)
-    states[rng.random((n, length)) < 0.05] = -1
-    k34_branch = k34_on(
-        torch.as_tensor(random_trees(rng, n, batch), device=dev),
-        torch.as_tensor(states, device=dev),
-        torch.ones((length,), device=dev), jc69_transition(lengths, 4).contiguous(), False,
-    )
-    emit("k34", shape="c: per-branch P, 5% missing states", **K4_BRANCH_SHAPE,
-         **k34_branch)
-    k34_deep = {}
-    for key, (children, leaves, weights) in deep.items():
-        k34_deep[key] = dict(shape=f"{key}: shared P", **DEEP_SHAPE, **k34_on(
-            children, leaves, weights, p_shared, False, plain_reps=1))
-        emit("k34", **k34_deep[key])
-
-    # 6. NNI route: candidate batches through K1.
-    nni_fasta = os.path.join(workdir, "nni.fasta")
-    simulate_fasta(nni_fasta, NNI_SHAPE["n_taxa"], NNI_SHAPE["n_sites"], SEED + 2)
-    reset_counts()
-    t0 = time.perf_counter()
-    nni_argv = ["infer", "--alignment", nni_fasta, "--neighborhood", "nni", "--rounds", "20"]
-    nni = run_cli(nni_argv)
-    torch.cuda.synchronize()
-    nni_wall = time.perf_counter() - t0
-    nni_k1 = batched_fitch_score_cuda.launches
-    nni_k2 = insertion_delta_cuda.launches
-    if nni_k1 <= 0:
-        raise AssertionError("the NNI route launched no Fitch kernel")
-    # K1 at the route's own shape: the NNI neighborhood of its result.
-    _, nni_aln, _ = _load_alignment(nni_fasta, "dna")
-    nni_pat, nni_counts = compress_alignment(nni_aln)
-    k1_nni = k1_on(
-        torch.as_tensor(nni_neighbors_host(nni.result.topology)[0], device=dev),
-        torch.as_tensor(nni_pat.astype(np.int32), device=dev),
-        torch.as_tensor(nni_counts.astype(np.float32), device=dev),
-    )
-    if nni.out["parsimony_score"] != NNI_ROUTE_SCORE:
-        raise AssertionError(f"NNI route score {nni.out['parsimony_score']} != {NNI_ROUTE_SCORE}")
-    emit("nni_route", command="infer --neighborhood nni --rounds 20",
-         n_taxa=nni.out["n_taxa"], unique_patterns=nni.out["unique_patterns"],
-         parsimony_score=nni.out["parsimony_score"],
-         search_rounds=nni.out["search_rounds"], evaluations=nni.out["evaluations"],
-         stepwise_s=nni.seconds["start"], climb_s=nni.seconds["climb"],
-         wall_s=nni_wall, k1_launches=nni_k1, k2_launches=nni_k2,
-         k1_at_this_shape=k1_nni)
-    emit("profile", part="NNI route (the whole infer)",
-         **profile_phase(torch, lambda: run_cli(nni_argv), nni_wall))
-
-    # 6b. ML NNI route on the main path's alignment: candidate batches
-    # ranked by K3/K4, then the Newton fit.
-    reset_counts()
-    t0 = time.perf_counter()
-    ml = run_cli(["infer", "--alignment", main_fasta, "--criterion", "ml",
-                  "--neighborhood", "nni", "--rounds", "10"])
-    torch.cuda.synchronize()
-    ml_wall = time.perf_counter() - t0
-    ml_launches = launch_counts()
-    ml_calls = call_counts()
-    if ml_launches["k34"] <= 0 or ml_launches["k2"] <= 0 or ml_launches["plan"] <= 0:
-        raise AssertionError(f"the ML NNI route skipped a kernel: {ml_launches}")
-    # The returned tree rescored at P(0.1) by the kernel and by the plain
-    # version must both give the reported ranking score.
-    ml_tree = ml.result.topology.children[None].contiguous()
-    rescored = {
-        name: -float(fn(ml_tree, pat_t, w_t, uniform, p_shared, sequences_are_masks=True)[0])
-        for name, fn in (("kernel", batched_log_likelihood_cuda),
-                         ("plain", batched_log_likelihood_plain))
-    }
-    for name, value in rescored.items():
-        if abs(value - ml.out["ranking_score"]) > 1e-5 * abs(ml.out["ranking_score"]):
-            raise AssertionError(
-                f"{name} rescoring {value} != reported {ml.out['ranking_score']}")
-    if not np.isfinite(ml.out["neg_log_likelihood"]) or ml.out["neg_log_likelihood"] <= 0:
-        raise AssertionError(f"bad ML result {ml.out}")
-    if abs(ml.out["ranking_score"] - ML_NNI_ROUTE_RANKING) > 1e-6 * ML_NNI_ROUTE_RANKING:
-        raise AssertionError(
-            f"ML NNI route ranking score {ml.out['ranking_score']} != {ML_NNI_ROUTE_RANKING}")
-    emit("ml_nni_route", command="infer --criterion ml --neighborhood nni --rounds 10",
-         n_taxa=ml.out["n_taxa"], n_sites=ml.out["n_sites"],
-         unique_patterns=ml.out["unique_patterns"],
-         neg_log_likelihood=ml.out["neg_log_likelihood"],
-         ranking_score=ml.out["ranking_score"],
-         mean_branch_length=ml.out["mean_branch_length"],
-         search_rounds=ml.out["search_rounds"], evaluations=ml.out["evaluations"],
-         stepwise_s=ml.seconds["start"], climb_s=ml.seconds["climb"],
-         newton_s=ml.seconds["newton"], wall_s=ml_wall,
-         k1_launches=ml_launches["k1"], k2_launches=ml_launches["k2"],
-         k34_launches=ml_launches["k34"], k34_calls=ml_calls["k34"],
-         plan_launches=ml_launches["plan"], rescored=rescored)
-
-    # 6c. Where the ML NNI route's time goes: its climb and its Newton fit.
-    climbed = []
-    emit("profile", part="ML NNI climb (10 rounds)", **profile_phase(
-        torch,
-        lambda: climbed.append(ml_hill_climb(
-            starts[0], pat_t, n_states, max_rounds=10, neighborhood="nni",
-            optimize_final_lengths=False, sequences_are_masks=True,
-            site_weights=w_t)[0]),
-        ml.seconds["climb"]))
-    if not torch.equal(climbed[0].topology.children, ml.result.topology.children):
-        raise AssertionError("the profiled ML climb returned another tree")
-    emit("profile", part="ML Newton fit (12 sweeps)", **profile_phase(
-        torch,
-        lambda: optimize_branch_lengths_newton(
-            climbed[0].topology, pat_t, n_states, site_weights=w_t,
-            sequences_are_masks=True, init_length=RANKING_LENGTH),
-        ml.seconds["newton"]))
-    del starts, climbed
-
-    # 6d. The default ML route (analytic SPR scan, plain torch) at a reduced
-    # size: its scan rounds are launch-bound Python loops.
-    scan_fasta = os.path.join(workdir, "ml_scan.fasta")
-    simulate_fasta(scan_fasta, ML_SCAN_SHAPE["n_taxa"], ML_SCAN_SHAPE["n_sites"], SEED + 4)
-    reset_counts()
-    t0 = time.perf_counter()
-    scan = run_cli(["infer", "--alignment", scan_fasta, "--criterion", "ml",
-                    "--rounds", "5"])
-    torch.cuda.synchronize()
-    scan_wall = time.perf_counter() - t0
-    if not np.isfinite(scan.out["neg_log_likelihood"]):
-        raise AssertionError(f"bad ML scan result {scan.out}")
-    emit("ml_scan_route", command="infer --criterion ml --rounds 5",
-         reduced="128 x 1024 and 5 rounds, not the main path's 512 x 2048: "
-                 "the plain-torch scan is launch-bound",
-         n_taxa=scan.out["n_taxa"], unique_patterns=scan.out["unique_patterns"],
-         neg_log_likelihood=scan.out["neg_log_likelihood"],
-         ranking_score=scan.out["ranking_score"],
-         search_rounds=scan.out["search_rounds"], evaluations=scan.out["evaluations"],
-         stepwise_s=scan.seconds["start"], climb_s=scan.seconds["climb"],
-         newton_s=scan.seconds["newton"], wall_s=scan_wall,
-         k1_launches=batched_fitch_score_cuda.launches,
-         k2_launches=insertion_delta_cuda.launches,
-         k34_launches=batched_log_likelihood_cuda.launches)
-
-    # 6e. K5 against its plain version, bit for bit, at its other shapes.
-    # (a) bench.py's shape under transition/transversion(1, 2) costs.
-    n, length, batch = (K5_BENCH_SHAPE[k] for k in ("n_taxa", "n_sites", "batch"))
-    trees = torch.as_tensor(random_trees(rng, n, batch), device=dev)
-    states = torch.as_tensor(rng.integers(0, 4, (n, length)).astype(np.int32), device=dev)
-    ones = torch.ones((length,), device=dev)
-    k5 = k5_on(trees, states, tt_cost, ones)
-    k5_shapes["a"] = dict(shape="a: bench.py's shape, transition/transversion(1, 2)",
-                          **K5_BENCH_SHAPE, **k5)
-    emit("k5", **k5_shapes["a"])
-    # (f) the closed-form Hamming mode on the same trees and states, with K1
-    # on them (as singleton masks) beside it.
-    hamming4 = CostModel.hamming(4, device=dev).matrix
-    k5_shapes["f"] = dict(shape="f: closed-form Hamming, Q = 4", **K5_BENCH_SHAPE,
-                          **k5_on(trees, states, hamming4, ones, hamming=True),
-                          k1_same_inputs=k1_on(trees, torch.ones_like(states) << states, ones))
-    emit("k5", **k5_shapes["f"])
-    del trees
-    # (d) protein-sized Q = 20 under a seeded asymmetric integer cost 0..3.
-    n, length, batch, q = K5_Q20_SHAPE.values()
-    q20_cost = asymmetric_cost(rng, q)
-    k5_shapes["d"] = dict(shape="d: Q = 20, asymmetric integer cost", **K5_Q20_SHAPE, **k5_on(
-        torch.as_tensor(random_trees(rng, n, batch), device=dev),
-        torch.as_tensor(rng.integers(0, q, (n, length)).astype(np.int32), device=dev),
-        torch.as_tensor(q20_cost, device=dev), ones))
-    emit("k5", **k5_shapes["d"])
-    # (e) Hamming at Q = 61 (codons) through the dispatch: past Fitch's 32
-    # states, so K5 in its general mode, on the runtime-Q kernel.
-    n, length, batch, q = K5_Q61_SHAPE.values()
-    trees61 = torch.as_tensor(random_trees(rng, n, batch), device=dev)
-    topos61 = Topology(trees61, torch.zeros((batch, 2 * n - 1), dtype=torch.int32, device=dev))
-    states61 = torch.as_tensor(rng.integers(0, q, (n, length)).astype(np.int32), device=dev)
-    hamming61 = CostModel.hamming(q, device=dev).matrix
-    k5_shapes["e"] = dict(
-        shape="e: Hamming, Q = 61, through the dispatch (general mode)", **K5_Q61_SHAPE,
-        **k5_on(trees61, states61, hamming61, ones,
-                kernel=lambda: batched_scores_fastest(topos61, hamming61, states61)))
-    emit("k5", **k5_shapes["e"])
-    del trees61, topos61
-    # The deep trees, and Q = 128 on 2048 taxa in the global-slot mode, a
-    # random float cost and weights (bit for bit whatever the cost).
-    for key, (children, leaves, weights) in deep.items():
-        k5_shapes[key] = dict(shape=f"{key}: transition/transversion(1, 2)", **DEEP_SHAPE,
-                              **k5_on(children, leaves, tt_cost, weights, plain_reps=1))
-        emit("k5", **k5_shapes[key])
-    n, length, batch, q = K5_GLOBAL_SHAPE.values()
-    rng = np.random.default_rng(SEED + 32)
-    k5_shapes["global"] = dict(
-        shape="global slots: Q = 128, random float cost", **K5_GLOBAL_SHAPE, **k5_on(
-            torch.as_tensor(random_trees(rng, n, batch), device=dev),
-            torch.as_tensor(rng.integers(0, q, (n, length)).astype(np.int32), device=dev),
-            torch.as_tensor(rng.random((q, q)).astype(np.float32) * 3, device=dev),
-            torch.as_tensor(rng.random(length).astype(np.float32) * 3, device=dev),
-            plain_reps=1, reps=5))
-    if k5_shapes["global"]["plan"]["mode"] != "global":
-        raise AssertionError(f"K5 global shape plan: {k5_shapes['global']['plan']}")
-    emit("k5", **k5_shapes["global"])
-    del deep
-
-    # 6f. This slice's main path: the weighted-parsimony NNI climb at full
-    # width — stepwise start (best of 4 orders; K2, K1), then
-    # parsimony_hill_climb under transition/transversion(1, 2) on int32
-    # states, whose candidate batches K5 scores. The climb runs under the
-    # profiler (few launches per round, so its wall time is kept).
-    wt_fasta = os.path.join(workdir, "weighted.fasta")
-    # Longer branches than the main path's, so the stepwise start is not
-    # already an NNI optimum under the weighted cost.
-    simulate_fasta(wt_fasta, MAIN_SHAPE["n_taxa"], MAIN_SHAPE["n_sites"], SEED + 5,
-                   branch=(0.05, 0.3), missing=0.0)
-    wt_states = dna_states(wt_fasta)
-    wt_t = torch.as_tensor(wt_states, device=dev)
-    wt_ones = torch.ones((wt_t.shape[1],), device=dev)
-    reset_counts()
-    t0 = time.perf_counter()
-    wt_start, wt_start_score = stepwise.stepwise_addition_multi(
-        wt_states, 4, n_orders=4, seed=0, device=dev)
-    torch.cuda.synchronize()
-    wt_stepwise_s = time.perf_counter() - t0
-    climbs = []
-    wt_profile = profile_phase(torch, lambda: climbs.append(parsimony_hill_climb(
-        wt_start, tt_cost, wt_t, neighborhood="nni", max_rounds=WEIGHTED_ROUNDS)), None)
-    wt_wall = time.perf_counter() - t0
-    wt_counts = launch_counts()
-    wt_calls = call_counts()
-    if (wt_counts["k5"] <= 0 or wt_counts["k2"] <= 0 or wt_counts["plan"] <= 0
-            or wt_counts["k34"] != 0):
-        raise AssertionError(f"weighted route launches: {wt_counts}")
-    climb = climbs[0]
-    # The returned tree rescored by K5 and by its plain version.
-    wt_tree = climb.topology.children[None].contiguous()
-    wt_rescored = {
-        name: float(fn(wt_tree, wt_t, tt_cost, wt_ones, hamming=False)[0])
-        for name, fn in (("kernel", batched_sankoff_score_cuda),
-                         ("plain", batched_sankoff_score_plain))
-    }
-    if set(wt_rescored.values()) != {climb.score} or climb.score != WEIGHTED_ROUTE_SCORE:
-        raise AssertionError(f"weighted climb score {climb.score} != {wt_rescored}, "
-                             f"{WEIGHTED_ROUTE_SCORE}")
-    emit("weighted_route",
-         command="stepwise_addition_multi(4 orders) + parsimony_hill_climb(nni, "
-                 f"transition_transversion(1, 2), max_rounds={WEIGHTED_ROUNDS})",
-         n_taxa=int(wt_t.shape[0]), n_sites=int(wt_t.shape[1]),
-         start_unit_cost_score=wt_start_score, weighted_score=climb.score,
-         rounds=climb.rounds, evaluations=climb.evaluations, trace=climb.trace,
-         stepwise_s=wt_stepwise_s, climb_s=wt_profile["profiled_wall_s"], wall_s=wt_wall,
-         launches=wt_counts, calls=wt_calls, rescored=wt_rescored, profile=wt_profile)
-    # K5 (b): the route's own batch, the NNI neighbourhood of its start tree.
-    wt_batch = torch.as_tensor(nni_neighbors_host(wt_start)[0], device=dev)
-    k5_shapes["b"] = dict(
-        shape="b: the weighted NNI route's batch, transition/transversion(1, 2)",
-        n_taxa=int(wt_t.shape[0]), n_sites=int(wt_t.shape[1]),
-        batch=int(wt_batch.shape[0]),
-        **k5_on(wt_batch, wt_t, tt_cost, wt_ones, plain_reps=2))
-    emit("k5", **k5_shapes["b"])
-    del wt_batch, wt_start, climbs, climb
-
-    # 6g. The score command on generated data (plain-torch Sankoff DP and
-    # reconstruction on the card), its score held against K5's rescoring
-    # of the same balanced tree; then bench on the codon alphabet (K5) and
-    # on DNA (K1), each batch held against the plain version.
-    reset_counts()
-    t0 = time.perf_counter()
-    scored = run_cli(SCORE_ARGS)
-    torch.cuda.synchronize()
-    score_wall = time.perf_counter() - t0
-    score_counts = launch_counts()
-    n_leaves, n_sites = int(SCORE_ARGS[2]), int(SCORE_ARGS[4])
-    gt = generate_groundtruth(n_leaves, 4, 3, n_sites, seed=0, device=dev)
-    balanced = balanced_topology(n_leaves, dev).children[None].contiguous()
-    gt_leaves = gt.all_sequences[:n_leaves].to(torch.int32)
-    gt_ones = torch.ones((n_sites,), device=dev)
-    score_rescored = {
-        name: float(fn(balanced, gt_leaves, hamming4, gt_ones, hamming=False)[0])
-        for name, fn in (("kernel", batched_sankoff_score_cuda),
-                         ("plain", batched_sankoff_score_plain))
-    }
-    if set(score_rescored.values()) != {scored["parsimony_score"]}:
-        raise AssertionError(f"score {scored} != K5 rescoring {score_rescored}")
-    emit("score", command=" ".join(SCORE_ARGS), **scored, wall_s=score_wall,
-         launches=score_counts, k5_rescored=score_rescored)
-    del gt, balanced, gt_leaves
-    bench_runs = {}
-    for n_states in (61, 4):
-        argv = BENCH_ARGS + ["--states", str(n_states)]
+        # 5. Main path: the default infer on 512 x 2048, on the card. The
+        # parsimony path ranks nothing by likelihood: K3/K4 must not launch.
         reset_counts()
         t0 = time.perf_counter()
-        bench_out, bench_scores = run_cli(argv)
+        run = run_cli(["infer", "--alignment", main_fasta])
         torch.cuda.synchronize()
-        bench_wall = time.perf_counter() - t0
-        bench_counts = launch_counts()
-        topos, cost, leaves = bench_inputs(build_parser().parse_args(argv), dev)
-        ones_b = torch.ones((leaves.shape[1],), device=dev)
-        if n_states > 32:
-            want = batched_sankoff_score_plain(topos.children, leaves, cost, ones_b)
-        else:
-            want = batched_fitch_score_plain(
-                topos.children, torch.ones_like(leaves) << leaves, ones_b)
-        kernel = "k5" if n_states > 32 else "k1"
-        if bench_counts[kernel] <= 0 or not torch.equal(bench_scores, want):
-            raise AssertionError(f"bench --states {n_states}: {bench_counts}, scores differ")
-        bench_runs[n_states] = dict(bench_out, wall_s=bench_wall, launches=bench_counts)
-        emit("bench", command=" ".join(argv), same_scores_as_plain=True,
-             **bench_runs[n_states])
-        del topos, leaves, bench_scores, want
+        main_wall = time.perf_counter() - t0
+        main_counts = launch_counts()
+        main_k1, main_k2, main_k34 = (main_counts[k] for k in ("k1", "k2", "k34"))
+        if (main_k2 <= 0 or main_k1 <= 0 or main_k34 != 0 or main_counts["k5"] != 0
+                or main_counts["plan"] != 0):
+            raise AssertionError(f"main path launches: {main_counts}")
+        out = run.out
+        # K1 at the main path's own shape (one tree, 512 x 2048): the returned
+        # tree rescored by the kernel and the plain version must both give the
+        # reported score.
+        tree = run.result.topology.children[None].contiguous()
+        pat_t = torch.as_tensor(patterns.astype(np.int32), device=dev)
+        w_t = torch.as_tensor(counts.astype(np.float32), device=dev)
+        k1_main = k1_on(tree, pat_t, w_t)
+        rescored = float(batched_fitch_score_cuda(tree, pat_t, w_t)[0])
+        if rescored != out["parsimony_score"]:
+            raise AssertionError(f"rescored tree {rescored} != reported {out['parsimony_score']}")
+        emit("main_path", command="infer (defaults)", n_taxa=out["n_taxa"],
+             n_sites=out["n_sites"], unique_patterns=out["unique_patterns"],
+             parsimony_score=out["parsimony_score"], search_rounds=out["search_rounds"],
+             evaluations=out["evaluations"], stepwise_s=run.seconds["start"],
+             climb_s=run.seconds["climb"], wall_s=main_wall,
+             k1_launches=main_k1, k2_launches=main_k2, k34_launches=main_k34,
+             k5_launches=main_counts["k5"], rescored=rescored,
+             k1_at_this_shape=k1_main)
 
-    # 6h. K6's path: the level-synchronous scorer on the balanced
-    # level-order tree at shapes (a)-(f), through its entry point with the
-    # alphabet given, every count set to 0 just before and read just
-    # after. Then each shape held bit for bit against its plain version
-    # and against K1 on the same topology (K1 also one site per word),
-    # checked to reproduce itself, and timed; its CUDA graph (n_states
-    # given) also shows that the call makes no host sync. (e) at 32 states
-    # checks the one-site-per-word mode's global reads. Last, the split
-    # over calls whose tickets and part roots lie elsewhere in their
-    # buffer: (b) split at B = 1, 3, 1 and (e) at B = 1, 3, 1.
-    k6_in = {key: k6_inputs(torch, dev, key) for key in "abcdef"}
-    reset_counts()
-    k6_path = {
-        key: fitch_levels_balanced(x[0], n_leaves=K6_SHAPES[key]["n_leaves"],
-                                   batch=K6_SHAPES[key]["batch"], n_states=x[3])
-        for key, x in k6_in.items()
-    }
-    torch.cuda.synchronize()
-    k6_counts = launch_counts()
-    if k6_counts["k6"] != len(k6_in) or any(v for k, v in k6_counts.items() if k != "k6"):
-        raise AssertionError(f"K6 path launches: {k6_counts}")
-    k6_shapes = {}
-    for key in "abcdef":
-        shape = K6_SHAPES[key]
-        n, length, batch = shape["n_leaves"], shape["n_sites"], shape["batch"]
-        masks, children, ones, alphabet, used = k6_in[key]
-        plain = fitch_levels_plain(masks, n, batch)
-        checks = {
-            "path": k6_path[key],
-            "k1_plain": batched_fitch_score_plain(children, masks, ones),
-            **{f"k1_{q}_states": batched_fitch_score_cuda(children, masks, ones, n_states=q)
-               for q in sorted({alphabet, 32})},
-            "alphabet_read": fitch_levels_balanced(masks, n_leaves=n, batch=batch),
-        }
-        if key == "e":
-            checks["one_site_per_word"] = fitch_levels_balanced(
-                masks, n_leaves=n, batch=batch, n_states=32)
-            if k6_plan(batch, n, length, 32, *device_limits(dev)).staged:
-                raise AssertionError("K6 (e) at 32 states: expected global reads")
-        for name, got in checks.items():
-            if not torch.equal(got, plain):
-                raise AssertionError(f"K6 ({key}): {name} differs from the plain version")
-        plan = k6_plan(batch, n, length, alphabet, *device_limits(dev))
-        if (plan.mode, plan.parts) != K6_PLANS[key]:
-            raise AssertionError(f"K6 ({key}) plan {plan}")
+        # 5b. Where the main path's time goes: its two calls, profiled one by one.
+        starts = []
+        emit("profile", part="stepwise (4 orders)", **profile_phase(
+            torch,
+            lambda: starts.append(stepwise.stepwise_addition_multi(
+                patterns, n_states, n_orders=4, seed=0, sequences_are_masks=True,
+                site_weights=w_t, device=dev)[0]),
+            run.seconds["start"]))
+        emit("profile", part="spr-scan climb", **profile_phase(
+            torch,
+            lambda: parsimony_hill_climb(
+                starts[0], CostModel.hamming(n_states, device=dev).matrix, pat_t,
+                neighborhood="spr-scan", site_weights=w_t, sequences_are_masks=True),
+            run.seconds["climb"]))
 
-        def k6_run(masks=masks, n=n, batch=batch, q=alphabet):
-            return fitch_levels_balanced(masks, n_leaves=n, batch=batch, n_states=q)
+        # 5c. K3/K4 against its plain version at three shapes.
+        p_shared = jc69_transition(torch.tensor(RANKING_LENGTH, device=dev), 4)
+        uniform = torch.full((4,), 0.25, device=dev)
 
-        def k1_run(q, children=children, masks=masks, ones=ones):
-            return lambda: batched_fitch_score_cuda(children, masks, ones, n_states=q)
+        def k34_on(children, leaves, weights, transition, masks, plain_reps=5) -> dict:
+            def run(fn):
+                return lambda: fn(children, leaves, weights, uniform, transition,
+                                  sequences_are_masks=masks)
+            plan = k34_plan(leaves.shape[0], 4, transition.dim() == 2, masks,
+                            device_limits(dev).smem_optin)
+            shape = (children.shape[0], leaves.shape[0], leaves.shape[1], 4, transition.dim() == 4)
+            got = measure(
+                torch, run(batched_log_likelihood_cuda), run(batched_log_likelihood_plain),
+                *k34_work(*shape), rtol=K34_RTOL, plain_reps=plain_reps,
+            )
+            return dict(plan=dataclasses.asdict(plan), **got,
+                        **device_times(run(batched_log_likelihood_cuda), got["ms"]))
 
-        k6_shapes[key] = dict(
-            shape=key, **shape, states_used=used, k1_alphabet=alphabet,
-            plan=dataclasses.asdict(plan), mode=plan.mode, split=plan.parts,
-            score=float(plain[0]), equal_to_k1=True,
-            **measure(torch, k6_run, lambda: fitch_levels_plain(masks, n, batch),
-                      *k6_work(batch, n, length, used), ops_per_s=INT32_OPS_PER_S,
-                      plain_reps=2),
-            graph_ms=graph_ms(torch, k6_run),
-            k1_graph_ms=graph_ms(torch, k1_run(alphabet)),
-            k1_one_site_per_word_graph_ms=graph_ms(torch, k1_run(32)),
+        # (a) bench.py's K3 configuration: states 0..3, shared P(0.1).
+        n, length, batch = K34_SHAPE["n_taxa"], K34_SHAPE["n_sites"], K34_SHAPE["batch"]
+        k34 = k34_on(
+            torch.as_tensor(random_trees(rng, n, batch), device=dev),
+            torch.as_tensor(rng.integers(0, 4, (n, length)).astype(np.int32), device=dev),
+            torch.ones((length,), device=dev), p_shared, False,
         )
-        emit("k6", **k6_shapes[key])
-    for key in "be":
-        n, length = K6_SHAPES[key]["n_leaves"], K6_SHAPES[key]["n_sites"]
-        masks = k6_in[key][0]
-        for batch in (1, 3, 1):
-            split = k6_sliced_plan(batch, n, length, 4, *device_limits(dev))
-            got = {"split": run_k6_plan(masks, batch, split),
-                   "entry": fitch_levels_balanced(masks, n_leaves=n, batch=batch, n_states=4)}
-            for name, scores in got.items():
-                if split.parts == 1 or not torch.equal(scores, fitch_levels_plain(masks, n, batch)):
-                    raise AssertionError(f"K6 ({key}) B={batch}: {name} differs ({split})")
-        emit("k6_split_sequence", shape=key, batches=[1, 3, 1], equal=True)
-    del k6_in, k6_path
+        emit("k34", shape="a: bench.py K3, shared P", **K34_SHAPE, **k34)
+        # (b) the ML NNI route's own shape: the NNI neighborhood of its start
+        # tree (the stepwise tree profiled above) on 512 x 2048, masks, weights.
+        ml_batch = torch.as_tensor(nni_neighbors_host(starts[0])[0], device=dev)
+        k34_route = k34_on(ml_batch, pat_t, w_t, p_shared, True)
+        emit("k34", shape="b: ML NNI route, shared P", n_taxa=aln.shape[0],
+             n_sites=int(patterns.shape[1]), batch=int(ml_batch.shape[0]), **k34_route)
+        # K5 (c): the same batch and alignment in the mask mode with pattern
+        # weights (the infer-style input), under transition/transversion costs.
+        tt_cost = CostModel.transition_transversion(1.0, 2.0, device=dev).matrix
 
-    # 6i. The differentiable core's routes at full width (infer --start diff,
-    # search, asr, nk-bench, search-run), then the core on the card against
-    # the CPU at a small size.
-    routes = differentiable_routes(torch, dev, workdir, nni_fasta, reset_counts, launch_counts)
-    emit("reference", part="differentiable core", **differentiable_reference(torch))
+        def k5_on(children, leaves, cost, weights, hamming=False, masks=False,
+                  plain_reps=5, reps=30, kernel=None) -> dict:
+            """K5 against its plain version, bit for bit, with its plan, device
+            times and its bound at the instruction rate.
+            ``kernel``: the call under test, when it is not the wrapper itself
+            (the dispatch)."""
+            def call(fn):
+                return lambda: fn(children, leaves, cost, weights, hamming=hamming,
+                                  sequences_are_masks=masks)
+            plan = k5_plan(leaves.shape[0], cost.shape[0], hamming, masks,
+                           device_limits(dev).smem_optin)
+            shape = (children.shape[0], leaves.shape[0], leaves.shape[1], cost.shape[0], hamming)
+            kernel = kernel or call(batched_sankoff_score_cuda)
+            got = measure(torch, kernel, call(batched_sankoff_score_plain),
+                          *k5_work(*shape),
+                          plain_reps=plain_reps, reps=reps, ops_per_s=F32_INSTR_PER_S)
+            return dict(plan=dataclasses.asdict(plan), **got, **device_times(kernel, got["ms"]))
 
-    # 6j. Slice 1b: the support route (ratchet, decay, bootstrap, outgroup)
-    # and the enumerating routes at full width, the batched stepwise path
-    # at 32 states; each holds its printed tree's score to K1 and K1's
-    # plain version.
-    slice_1b = slice_1b_routes(torch, dev, workdir, main_fasta, nni_fasta, run, nni,
-                               reset_counts, launch_counts, k1_on)
+        k5_shapes = {}
+        k5_shapes["c"] = dict(
+            shape="c: masks + pattern weights, transition/transversion(1, 2)",
+            n_taxa=aln.shape[0], n_sites=int(patterns.shape[1]),
+            batch=int(ml_batch.shape[0]), **k5_on(ml_batch, pat_t, tt_cost, w_t, masks=True,
+                                                 plain_reps=2))
+        emit("k5", **k5_shapes["c"])
 
-    # 7. Reference: on a small, divergent alignment (the climbs take rounds)
-    # the card's run returns the same tree and score as the CPU run — the
-    # plain versions, which the CPU tests hold against the JAX package.
-    ref_fasta = os.path.join(workdir, "ref.fasta")
-    simulate_fasta(ref_fasta, REF_SHAPE["n_taxa"], REF_SHAPE["n_sites"], SEED + 3,
-                   branch=(0.2, 0.6))
-    for neighborhood in ("spr-scan", "nni"):
-        argv = ["infer", "--alignment", ref_fasta, "--neighborhood", neighborhood,
-                "--orders", "1"]
-        on_card = run_cli(argv).out
-        on_cpu = run_cli(argv + ["--device", "cpu"]).out
-        if on_card != on_cpu:
-            raise AssertionError(f"{neighborhood}: card {on_card} != cpu {on_cpu}")
-        emit("reference", neighborhood=neighborhood, n_taxa=REF_SHAPE["n_taxa"],
-             parsimony_score=on_card["parsimony_score"],
-             search_rounds=on_card["search_rounds"], same_tree_and_score=True)
-        # ML: the same topology and rounds; log-likelihoods within rtol 1e-5
-        # (float32 sums in another order on the card).
-        argv += ["--criterion", "ml"]
-        on_card = run_cli(argv).out
-        on_cpu = run_cli(argv + ["--device", "cpu"]).out
-        same = (
-            strip_lengths(on_card["tree"]) == strip_lengths(on_cpu["tree"])
-            and on_card["search_rounds"] == on_cpu["search_rounds"]
-            and list(on_card) == list(on_cpu)
+        # 5d. The tree plan kernel against its plain version, integer for
+        # integer: the ML NNI batch (512 taxa, B = 1020), the deep trees, and
+        # trees too large to stage in shared memory (its global mode).
+        deep = deep_inputs(torch, dev)
+        wide = torch.as_tensor(random_trees(np.random.default_rng(SEED + 31), PLAN_WIDE["n_taxa"],
+                                            PLAN_WIDE["batch"]), device=dev)
+        plan_shapes = {}
+        for key, children in (("ml nni batch", ml_batch), *((k, v[0]) for k, v in deep.items()),
+                              ("wide", wide)):
+            batch, n_anc, _ = children.shape
+            launch = plan_launch(n_anc, device_limits(dev).smem_optin)
+            used = int(tree_plan_plain(children)[..., 3].max()) + 1
+            got = measure(torch, lambda children=children: tree_plan(children),
+                          lambda children=children: tree_plan_plain(children),
+                          *plan_work(batch, n_anc + 1), reps=10, plain_reps=1,
+                          ops_per_s=INT32_OPS_PER_S)
+            plan_shapes[key] = dict(
+                shape=key, n_taxa=n_anc + 1, batch=batch, launch=dataclasses.asdict(launch),
+                slots_used=used, slots_bound=slots_for(n_anc + 1), **got,
+                **device_times(lambda children=children: tree_plan(children), got["ms"]))
+            if (used > slots_for(n_anc + 1) or launch.staged != (key != "wide")):
+                raise AssertionError(f"tree plan ({key}): {plan_shapes[key]}")
+            emit("tree_plan", **plan_shapes[key])
+        del ml_batch, wide
+        # (c) per-branch P, JC lengths U(0.05, 1.0); states with 5% missing
+        # (negative), so state mode's missing data is held against the plain
+        # version too.
+        n, length, batch = (K4_BRANCH_SHAPE[k] for k in ("n_taxa", "n_sites", "batch"))
+        lengths = torch.as_tensor(
+            rng.uniform(0.05, 1.0, (batch, 2 * n - 1)).astype(np.float32), device=dev)
+        states = rng.integers(0, 4, (n, length)).astype(np.int32)
+        states[rng.random((n, length)) < 0.05] = -1
+        k34_branch = k34_on(
+            torch.as_tensor(random_trees(rng, n, batch), device=dev),
+            torch.as_tensor(states, device=dev),
+            torch.ones((length,), device=dev), jc69_transition(lengths, 4).contiguous(), False,
         )
-        rel = {
-            key: abs(on_card[key] - on_cpu[key]) / abs(on_cpu[key])
-            for key in ("neg_log_likelihood", "ranking_score")
+        emit("k34", shape="c: per-branch P, 5% missing states", **K4_BRANCH_SHAPE,
+             **k34_branch)
+        k34_deep = {}
+        for key, (children, leaves, weights) in deep.items():
+            k34_deep[key] = dict(shape=f"{key}: shared P", **DEEP_SHAPE, **k34_on(
+                children, leaves, weights, p_shared, False, plain_reps=1))
+            emit("k34", **k34_deep[key])
+
+    if "routes" in phases:
+        # 6. NNI route: candidate batches through K1.
+        reset_counts()
+        t0 = time.perf_counter()
+        nni_argv = ["infer", "--alignment", nni_fasta, "--neighborhood", "nni", "--rounds", "20"]
+        nni = run_cli(nni_argv)
+        torch.cuda.synchronize()
+        nni_wall = time.perf_counter() - t0
+        nni_k1 = batched_fitch_score_cuda.launches
+        nni_k2 = insertion_delta_cuda.launches
+        if nni_k1 <= 0:
+            raise AssertionError("the NNI route launched no Fitch kernel")
+        # K1 at the route's own shape: the NNI neighborhood of its result.
+        _, nni_aln, _ = _load_alignment(nni_fasta, "dna")
+        nni_pat, nni_counts = compress_alignment(nni_aln)
+        k1_nni = k1_on(
+            torch.as_tensor(nni_neighbors_host(nni.result.topology)[0], device=dev),
+            torch.as_tensor(nni_pat.astype(np.int32), device=dev),
+            torch.as_tensor(nni_counts.astype(np.float32), device=dev),
+        )
+        if nni.out["parsimony_score"] != NNI_ROUTE_SCORE:
+            raise AssertionError(f"NNI route score {nni.out['parsimony_score']} != {NNI_ROUTE_SCORE}")
+        emit("nni_route", command="infer --neighborhood nni --rounds 20",
+             n_taxa=nni.out["n_taxa"], unique_patterns=nni.out["unique_patterns"],
+             parsimony_score=nni.out["parsimony_score"],
+             search_rounds=nni.out["search_rounds"], evaluations=nni.out["evaluations"],
+             stepwise_s=nni.seconds["start"], climb_s=nni.seconds["climb"],
+             wall_s=nni_wall, k1_launches=nni_k1, k2_launches=nni_k2,
+             k1_at_this_shape=k1_nni)
+        emit("profile", part="NNI route (the whole infer)",
+             **profile_phase(torch, lambda: run_cli(nni_argv), nni_wall))
+
+        # 6b. ML NNI route on the main path's alignment: candidate batches
+        # ranked by K3/K4, then the Newton fit.
+        reset_counts()
+        t0 = time.perf_counter()
+        ml = run_cli(["infer", "--alignment", main_fasta, "--criterion", "ml",
+                      "--neighborhood", "nni", "--rounds", "10"])
+        torch.cuda.synchronize()
+        ml_wall = time.perf_counter() - t0
+        ml_launches = launch_counts()
+        ml_calls = call_counts()
+        if ml_launches["k34"] <= 0 or ml_launches["k2"] <= 0 or ml_launches["plan"] <= 0:
+            raise AssertionError(f"the ML NNI route skipped a kernel: {ml_launches}")
+        # The returned tree rescored at P(0.1) by the kernel and by the plain
+        # version must both give the reported ranking score.
+        ml_tree = ml.result.topology.children[None].contiguous()
+        rescored = {
+            name: -float(fn(ml_tree, pat_t, w_t, uniform, p_shared, sequences_are_masks=True)[0])
+            for name, fn in (("kernel", batched_log_likelihood_cuda),
+                             ("plain", batched_log_likelihood_plain))
         }
-        if not same or max(rel.values()) > 1e-5:
-            raise AssertionError(f"ml {neighborhood}: card {on_card} != cpu {on_cpu}")
-        emit("reference", criterion="ml", neighborhood=neighborhood,
-             n_taxa=REF_SHAPE["n_taxa"], neg_log_likelihood=on_card["neg_log_likelihood"],
-             ranking_score=on_card["ranking_score"],
-             search_rounds=on_card["search_rounds"], same_tree=True, rel_err=rel)
-    # The weighted NNI climb (from a one-order stepwise start) and
-    # ``score --alignment`` with ``--output-fasta``: card and CPU identical.
-    wref_fasta = os.path.join(workdir, "weighted_ref.fasta")
-    simulate_fasta(wref_fasta, REF_SHAPE["n_taxa"], REF_SHAPE["n_sites"], SEED + 6,
-                   branch=(0.2, 0.6), missing=0.0)
-    wref = dna_states(wref_fasta)
-    climbed = {}
-    for device in ("cuda", "cpu"):
-        start, _ = stepwise.stepwise_addition_multi(wref, 4, n_orders=1, seed=0, device=device)
-        result = parsimony_hill_climb(
-            start, CostModel.transition_transversion(1.0, 2.0, device=device).matrix,
-            torch.as_tensor(wref, device=device), neighborhood="nni", max_rounds=50)
-        climbed[device] = (result.topology.children.cpu().tolist(), result.score,
-                           result.rounds, result.evaluations)
-    if climbed["cuda"] != climbed["cpu"]:
-        raise AssertionError(f"weighted climb: card {climbed['cuda'][1:]} != cpu {climbed['cpu'][1:]}")
-    emit("reference", route="weighted nni climb, transition/transversion(1, 2)",
-         n_taxa=REF_SHAPE["n_taxa"], weighted_score=climbed["cuda"][1],
-         rounds=climbed["cuda"][2], evaluations=climbed["cuda"][3], same_tree_and_score=True)
-    scored_on = {}
-    for device in ("cuda", "cpu"):
-        fasta_out = os.path.join(workdir, f"score_{device}.fasta")
-        out = run_cli(["score", "--alignment", ref_fasta, "--output-fasta", fasta_out,
-                       "--device", device])
-        out.pop("output_fasta")
-        with open(fasta_out) as fh:
-            scored_on[device] = (out, fh.read())
-    if scored_on["cuda"] != scored_on["cpu"]:
-        raise AssertionError(f"score --alignment: card {scored_on['cuda'][0]} != cpu")
-    emit("reference", command="score --alignment --output-fasta", **scored_on["cuda"][0],
-         same_output_and_fasta=True)
-    # Stepwise addition on masks with bits above the alphabet (bit 5 in 20%
-    # of them, bit 31 in 5%): the card hands K1 every bit the masks use, so
-    # its tree and score are the CPU's (which the CPU tests hold to the JAX
-    # package's).
-    wide = _load_alignment(ref_fasta, "dna")[1].astype(np.int64)
-    wide_rng = np.random.default_rng(SEED + 7)
-    wide[wide_rng.random(wide.shape) < 0.2] |= 1 << 5
-    wide[wide_rng.random(wide.shape) < 0.05] |= 1 << 31
-    wide = (wide - ((wide >> 31) << 32)).astype(np.int32)
-    grown = {}
-    for device in ("cuda", "cpu"):
-        topo, score = stepwise.stepwise_addition(wide, 4, sequences_are_masks=True, seed=0,
-                                                 device=device)
-        grown[device] = (topo.children.cpu().tolist(), score)
-    if grown["cuda"] != grown["cpu"]:
-        raise AssertionError(f"stepwise on wide masks: card {grown['cuda'][1]} != cpu {grown['cpu'][1]}")
-    emit("reference", route="stepwise_addition, masks with bits 5 and 31 set, n_states 4",
-         n_taxa=REF_SHAPE["n_taxa"], parsimony_score=grown["cuda"][1], same_tree_and_score=True)
-    # Slice 1b's flags, card against CPU.
-    for row in slice_1b_reference(torch, workdir, ref_fasta):
-        emit("reference", part="slice 1b", **row)
+        for name, value in rescored.items():
+            if abs(value - ml.out["ranking_score"]) > 1e-5 * abs(ml.out["ranking_score"]):
+                raise AssertionError(
+                    f"{name} rescoring {value} != reported {ml.out['ranking_score']}")
+        if not np.isfinite(ml.out["neg_log_likelihood"]) or ml.out["neg_log_likelihood"] <= 0:
+            raise AssertionError(f"bad ML result {ml.out}")
+        if abs(ml.out["ranking_score"] - ML_NNI_ROUTE_RANKING) > 1e-6 * ML_NNI_ROUTE_RANKING:
+            raise AssertionError(
+                f"ML NNI route ranking score {ml.out['ranking_score']} != {ML_NNI_ROUTE_RANKING}")
+        emit("ml_nni_route", command="infer --criterion ml --neighborhood nni --rounds 10",
+             n_taxa=ml.out["n_taxa"], n_sites=ml.out["n_sites"],
+             unique_patterns=ml.out["unique_patterns"],
+             neg_log_likelihood=ml.out["neg_log_likelihood"],
+             ranking_score=ml.out["ranking_score"],
+             mean_branch_length=ml.out["mean_branch_length"],
+             search_rounds=ml.out["search_rounds"], evaluations=ml.out["evaluations"],
+             stepwise_s=ml.seconds["start"], climb_s=ml.seconds["climb"],
+             newton_s=ml.seconds["newton"], wall_s=ml_wall,
+             k1_launches=ml_launches["k1"], k2_launches=ml_launches["k2"],
+             k34_launches=ml_launches["k34"], k34_calls=ml_calls["k34"],
+             plan_launches=ml_launches["plan"], rescored=rescored)
+
+        # 6c. Where the ML NNI route's time goes: its climb and its Newton fit.
+        climbed = []
+        emit("profile", part="ML NNI climb (10 rounds)", **profile_phase(
+            torch,
+            lambda: climbed.append(ml_hill_climb(
+                starts[0], pat_t, n_states, max_rounds=10, neighborhood="nni",
+                optimize_final_lengths=False, sequences_are_masks=True,
+                site_weights=w_t)[0]),
+            ml.seconds["climb"]))
+        if not torch.equal(climbed[0].topology.children, ml.result.topology.children):
+            raise AssertionError("the profiled ML climb returned another tree")
+        emit("profile", part="ML Newton fit (12 sweeps)", **profile_phase(
+            torch,
+            lambda: optimize_branch_lengths_newton(
+                climbed[0].topology, pat_t, n_states, site_weights=w_t,
+                sequences_are_masks=True, init_length=RANKING_LENGTH),
+            ml.seconds["newton"]))
+        del starts, climbed
+
+        # 6d. The default ML route (analytic SPR scan, plain torch) at a reduced
+        # size: its scan rounds are launch-bound Python loops.
+        scan_fasta = os.path.join(workdir, "ml_scan.fasta")
+        simulate_fasta(scan_fasta, ML_SCAN_SHAPE["n_taxa"], ML_SCAN_SHAPE["n_sites"], SEED + 4)
+        reset_counts()
+        t0 = time.perf_counter()
+        scan = run_cli(["infer", "--alignment", scan_fasta, "--criterion", "ml",
+                        "--rounds", "5"])
+        torch.cuda.synchronize()
+        scan_wall = time.perf_counter() - t0
+        if not np.isfinite(scan.out["neg_log_likelihood"]):
+            raise AssertionError(f"bad ML scan result {scan.out}")
+        emit("ml_scan_route", command="infer --criterion ml --rounds 5",
+             reduced="128 x 1024 and 5 rounds, not the main path's 512 x 2048: "
+                     "the plain-torch scan is launch-bound",
+             n_taxa=scan.out["n_taxa"], unique_patterns=scan.out["unique_patterns"],
+             neg_log_likelihood=scan.out["neg_log_likelihood"],
+             ranking_score=scan.out["ranking_score"],
+             search_rounds=scan.out["search_rounds"], evaluations=scan.out["evaluations"],
+             stepwise_s=scan.seconds["start"], climb_s=scan.seconds["climb"],
+             newton_s=scan.seconds["newton"], wall_s=scan_wall,
+             k1_launches=batched_fitch_score_cuda.launches,
+             k2_launches=insertion_delta_cuda.launches,
+             k34_launches=batched_log_likelihood_cuda.launches)
+
+        # 6e. K5 against its plain version, bit for bit, at its other shapes.
+        # (a) bench.py's shape under transition/transversion(1, 2) costs.
+        n, length, batch = (K5_BENCH_SHAPE[k] for k in ("n_taxa", "n_sites", "batch"))
+        trees = torch.as_tensor(random_trees(rng, n, batch), device=dev)
+        states = torch.as_tensor(rng.integers(0, 4, (n, length)).astype(np.int32), device=dev)
+        ones = torch.ones((length,), device=dev)
+        k5 = k5_on(trees, states, tt_cost, ones)
+        k5_shapes["a"] = dict(shape="a: bench.py's shape, transition/transversion(1, 2)",
+                              **K5_BENCH_SHAPE, **k5)
+        emit("k5", **k5_shapes["a"])
+        # (f) the closed-form Hamming mode on the same trees and states, with K1
+        # on them (as singleton masks) beside it.
+        hamming4 = CostModel.hamming(4, device=dev).matrix
+        k5_shapes["f"] = dict(shape="f: closed-form Hamming, Q = 4", **K5_BENCH_SHAPE,
+                              **k5_on(trees, states, hamming4, ones, hamming=True),
+                              k1_same_inputs=k1_on(trees, torch.ones_like(states) << states, ones))
+        emit("k5", **k5_shapes["f"])
+        del trees
+        # (d) protein-sized Q = 20 under a seeded asymmetric integer cost 0..3.
+        n, length, batch, q = K5_Q20_SHAPE.values()
+        q20_cost = asymmetric_cost(rng, q)
+        k5_shapes["d"] = dict(shape="d: Q = 20, asymmetric integer cost", **K5_Q20_SHAPE, **k5_on(
+            torch.as_tensor(random_trees(rng, n, batch), device=dev),
+            torch.as_tensor(rng.integers(0, q, (n, length)).astype(np.int32), device=dev),
+            torch.as_tensor(q20_cost, device=dev), ones))
+        emit("k5", **k5_shapes["d"])
+        # (e) Hamming at Q = 61 (codons) through the dispatch: past Fitch's 32
+        # states, so K5 in its general mode, on the runtime-Q kernel.
+        n, length, batch, q = K5_Q61_SHAPE.values()
+        trees61 = torch.as_tensor(random_trees(rng, n, batch), device=dev)
+        topos61 = Topology(trees61, torch.zeros((batch, 2 * n - 1), dtype=torch.int32, device=dev))
+        states61 = torch.as_tensor(rng.integers(0, q, (n, length)).astype(np.int32), device=dev)
+        hamming61 = CostModel.hamming(q, device=dev).matrix
+        k5_shapes["e"] = dict(
+            shape="e: Hamming, Q = 61, through the dispatch (general mode)", **K5_Q61_SHAPE,
+            **k5_on(trees61, states61, hamming61, ones,
+                    kernel=lambda: batched_scores_fastest(topos61, hamming61, states61)))
+        emit("k5", **k5_shapes["e"])
+        del trees61, topos61
+        # The deep trees, and Q = 128 on 2048 taxa in the global-slot mode, a
+        # random float cost and weights (bit for bit whatever the cost).
+        for key, (children, leaves, weights) in deep.items():
+            k5_shapes[key] = dict(shape=f"{key}: transition/transversion(1, 2)", **DEEP_SHAPE,
+                                  **k5_on(children, leaves, tt_cost, weights, plain_reps=1))
+            emit("k5", **k5_shapes[key])
+        n, length, batch, q = K5_GLOBAL_SHAPE.values()
+        rng = np.random.default_rng(SEED + 32)
+        k5_shapes["global"] = dict(
+            shape="global slots: Q = 128, random float cost", **K5_GLOBAL_SHAPE, **k5_on(
+                torch.as_tensor(random_trees(rng, n, batch), device=dev),
+                torch.as_tensor(rng.integers(0, q, (n, length)).astype(np.int32), device=dev),
+                torch.as_tensor(rng.random((q, q)).astype(np.float32) * 3, device=dev),
+                torch.as_tensor(rng.random(length).astype(np.float32) * 3, device=dev),
+                plain_reps=1, reps=5))
+        if k5_shapes["global"]["plan"]["mode"] != "global":
+            raise AssertionError(f"K5 global shape plan: {k5_shapes['global']['plan']}")
+        emit("k5", **k5_shapes["global"])
+        del deep
+
+        # 6f. This slice's main path: the weighted-parsimony NNI climb at full
+        # width — stepwise start (best of 4 orders; K2, K1), then
+        # parsimony_hill_climb under transition/transversion(1, 2) on int32
+        # states, whose candidate batches K5 scores. The climb runs under the
+        # profiler (few launches per round, so its wall time is kept).
+        wt_fasta = os.path.join(workdir, "weighted.fasta")
+        # Longer branches than the main path's, so the stepwise start is not
+        # already an NNI optimum under the weighted cost.
+        simulate_fasta(wt_fasta, MAIN_SHAPE["n_taxa"], MAIN_SHAPE["n_sites"], SEED + 5,
+                       branch=(0.05, 0.3), missing=0.0)
+        wt_states = dna_states(wt_fasta)
+        wt_t = torch.as_tensor(wt_states, device=dev)
+        wt_ones = torch.ones((wt_t.shape[1],), device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        wt_start, wt_start_score = stepwise.stepwise_addition_multi(
+            wt_states, 4, n_orders=4, seed=0, device=dev)
+        torch.cuda.synchronize()
+        wt_stepwise_s = time.perf_counter() - t0
+        climbs = []
+        wt_profile = profile_phase(torch, lambda: climbs.append(parsimony_hill_climb(
+            wt_start, tt_cost, wt_t, neighborhood="nni", max_rounds=WEIGHTED_ROUNDS)), None)
+        wt_wall = time.perf_counter() - t0
+        wt_counts = launch_counts()
+        wt_calls = call_counts()
+        if (wt_counts["k5"] <= 0 or wt_counts["k2"] <= 0 or wt_counts["plan"] <= 0
+                or wt_counts["k34"] != 0):
+            raise AssertionError(f"weighted route launches: {wt_counts}")
+        climb = climbs[0]
+        # The returned tree rescored by K5 and by its plain version.
+        wt_tree = climb.topology.children[None].contiguous()
+        wt_rescored = {
+            name: float(fn(wt_tree, wt_t, tt_cost, wt_ones, hamming=False)[0])
+            for name, fn in (("kernel", batched_sankoff_score_cuda),
+                             ("plain", batched_sankoff_score_plain))
+        }
+        if set(wt_rescored.values()) != {climb.score} or climb.score != WEIGHTED_ROUTE_SCORE:
+            raise AssertionError(f"weighted climb score {climb.score} != {wt_rescored}, "
+                                 f"{WEIGHTED_ROUTE_SCORE}")
+        emit("weighted_route",
+             command="stepwise_addition_multi(4 orders) + parsimony_hill_climb(nni, "
+                     f"transition_transversion(1, 2), max_rounds={WEIGHTED_ROUNDS})",
+             n_taxa=int(wt_t.shape[0]), n_sites=int(wt_t.shape[1]),
+             start_unit_cost_score=wt_start_score, weighted_score=climb.score,
+             rounds=climb.rounds, evaluations=climb.evaluations, trace=climb.trace,
+             stepwise_s=wt_stepwise_s, climb_s=wt_profile["profiled_wall_s"], wall_s=wt_wall,
+             launches=wt_counts, calls=wt_calls, rescored=wt_rescored, profile=wt_profile)
+        # K5 (b): the route's own batch, the NNI neighbourhood of its start tree.
+        wt_batch = torch.as_tensor(nni_neighbors_host(wt_start)[0], device=dev)
+        k5_shapes["b"] = dict(
+            shape="b: the weighted NNI route's batch, transition/transversion(1, 2)",
+            n_taxa=int(wt_t.shape[0]), n_sites=int(wt_t.shape[1]),
+            batch=int(wt_batch.shape[0]),
+            **k5_on(wt_batch, wt_t, tt_cost, wt_ones, plain_reps=2))
+        emit("k5", **k5_shapes["b"])
+        del wt_batch, wt_start, climbs, climb
+
+        # 6g. The score command on generated data (plain-torch Sankoff DP and
+        # reconstruction on the card), its score held against K5's rescoring
+        # of the same balanced tree; then bench on the codon alphabet (K5) and
+        # on DNA (K1), each batch held against the plain version.
+        reset_counts()
+        t0 = time.perf_counter()
+        scored = run_cli(SCORE_ARGS)
+        torch.cuda.synchronize()
+        score_wall = time.perf_counter() - t0
+        score_counts = launch_counts()
+        n_leaves, n_sites = int(SCORE_ARGS[2]), int(SCORE_ARGS[4])
+        gt = generate_groundtruth(n_leaves, 4, 3, n_sites, seed=0, device=dev)
+        balanced = balanced_topology(n_leaves, dev).children[None].contiguous()
+        gt_leaves = gt.all_sequences[:n_leaves].to(torch.int32)
+        gt_ones = torch.ones((n_sites,), device=dev)
+        score_rescored = {
+            name: float(fn(balanced, gt_leaves, hamming4, gt_ones, hamming=False)[0])
+            for name, fn in (("kernel", batched_sankoff_score_cuda),
+                             ("plain", batched_sankoff_score_plain))
+        }
+        if set(score_rescored.values()) != {scored["parsimony_score"]}:
+            raise AssertionError(f"score {scored} != K5 rescoring {score_rescored}")
+        emit("score", command=" ".join(SCORE_ARGS), **scored, wall_s=score_wall,
+             launches=score_counts, k5_rescored=score_rescored)
+        del gt, balanced, gt_leaves
+        bench_runs = {}
+        for n_states in (61, 4):
+            argv = BENCH_ARGS + ["--states", str(n_states)]
+            reset_counts()
+            t0 = time.perf_counter()
+            bench_out, bench_scores = run_cli(argv)
+            torch.cuda.synchronize()
+            bench_wall = time.perf_counter() - t0
+            bench_counts = launch_counts()
+            topos, cost, leaves = bench_inputs(build_parser().parse_args(argv), dev)
+            ones_b = torch.ones((leaves.shape[1],), device=dev)
+            if n_states > 32:
+                want = batched_sankoff_score_plain(topos.children, leaves, cost, ones_b)
+            else:
+                want = batched_fitch_score_plain(
+                    topos.children, torch.ones_like(leaves) << leaves, ones_b)
+            kernel = "k5" if n_states > 32 else "k1"
+            if bench_counts[kernel] <= 0 or not torch.equal(bench_scores, want):
+                raise AssertionError(f"bench --states {n_states}: {bench_counts}, scores differ")
+            bench_runs[n_states] = dict(bench_out, wall_s=bench_wall, launches=bench_counts)
+            emit("bench", command=" ".join(argv), same_scores_as_plain=True,
+                 **bench_runs[n_states])
+            del topos, leaves, bench_scores, want
+
+        # 6h. K6's path: the level-synchronous scorer on the balanced
+        # level-order tree at shapes (a)-(f), through its entry point with the
+        # alphabet given, every count set to 0 just before and read just
+        # after. Then each shape held bit for bit against its plain version
+        # and against K1 on the same topology (K1 also one site per word),
+        # checked to reproduce itself, and timed; its CUDA graph (n_states
+        # given) also shows that the call makes no host sync. (e) at 32 states
+        # checks the one-site-per-word mode's global reads. Last, the split
+        # over calls whose tickets and part roots lie elsewhere in their
+        # buffer: (b) split at B = 1, 3, 1 and (e) at B = 1, 3, 1.
+        k6_in = {key: k6_inputs(torch, dev, key) for key in "abcdef"}
+        reset_counts()
+        k6_path = {
+            key: fitch_levels_balanced(x[0], n_leaves=K6_SHAPES[key]["n_leaves"],
+                                       batch=K6_SHAPES[key]["batch"], n_states=x[3])
+            for key, x in k6_in.items()
+        }
+        torch.cuda.synchronize()
+        k6_counts = launch_counts()
+        if k6_counts["k6"] != len(k6_in) or any(v for k, v in k6_counts.items() if k != "k6"):
+            raise AssertionError(f"K6 path launches: {k6_counts}")
+        k6_shapes = {}
+        for key in "abcdef":
+            shape = K6_SHAPES[key]
+            n, length, batch = shape["n_leaves"], shape["n_sites"], shape["batch"]
+            masks, children, ones, alphabet, used = k6_in[key]
+            plain = fitch_levels_plain(masks, n, batch)
+            checks = {
+                "path": k6_path[key],
+                "k1_plain": batched_fitch_score_plain(children, masks, ones),
+                **{f"k1_{q}_states": batched_fitch_score_cuda(children, masks, ones, n_states=q)
+                   for q in sorted({alphabet, 32})},
+                "alphabet_read": fitch_levels_balanced(masks, n_leaves=n, batch=batch),
+            }
+            if key == "e":
+                checks["one_site_per_word"] = fitch_levels_balanced(
+                    masks, n_leaves=n, batch=batch, n_states=32)
+                if k6_plan(batch, n, length, 32, *device_limits(dev)).staged:
+                    raise AssertionError("K6 (e) at 32 states: expected global reads")
+            for name, got in checks.items():
+                if not torch.equal(got, plain):
+                    raise AssertionError(f"K6 ({key}): {name} differs from the plain version")
+            plan = k6_plan(batch, n, length, alphabet, *device_limits(dev))
+            if (plan.mode, plan.parts) != K6_PLANS[key]:
+                raise AssertionError(f"K6 ({key}) plan {plan}")
+
+            def k6_run(masks=masks, n=n, batch=batch, q=alphabet):
+                return fitch_levels_balanced(masks, n_leaves=n, batch=batch, n_states=q)
+
+            def k1_run(q, children=children, masks=masks, ones=ones):
+                return lambda: batched_fitch_score_cuda(children, masks, ones, n_states=q)
+
+            k6_shapes[key] = dict(
+                shape=key, **shape, states_used=used, k1_alphabet=alphabet,
+                plan=dataclasses.asdict(plan), mode=plan.mode, split=plan.parts,
+                score=float(plain[0]), equal_to_k1=True,
+                **measure(torch, k6_run, lambda: fitch_levels_plain(masks, n, batch),
+                          *k6_work(batch, n, length, used), ops_per_s=INT32_OPS_PER_S,
+                          plain_reps=2),
+                graph_ms=graph_ms(torch, k6_run),
+                k1_graph_ms=graph_ms(torch, k1_run(alphabet)),
+                k1_one_site_per_word_graph_ms=graph_ms(torch, k1_run(32)),
+            )
+            emit("k6", **k6_shapes[key])
+        for key in "be":
+            n, length = K6_SHAPES[key]["n_leaves"], K6_SHAPES[key]["n_sites"]
+            masks = k6_in[key][0]
+            for batch in (1, 3, 1):
+                split = k6_sliced_plan(batch, n, length, 4, *device_limits(dev))
+                got = {"split": run_k6_plan(masks, batch, split),
+                       "entry": fitch_levels_balanced(masks, n_leaves=n, batch=batch, n_states=4)}
+                for name, scores in got.items():
+                    if split.parts == 1 or not torch.equal(scores, fitch_levels_plain(masks, n, batch)):
+                        raise AssertionError(f"K6 ({key}) B={batch}: {name} differs ({split})")
+            emit("k6_split_sequence", shape=key, batches=[1, 3, 1], equal=True)
+        del k6_in, k6_path
+
+    if "differentiable" in phases:
+        # 6i. The differentiable core's routes at full width (infer --start diff,
+        # search, asr, nk-bench, search-run), then the core on the card against
+        # the CPU at a small size.
+        routes = differentiable_routes(torch, dev, workdir, nni_fasta, reset_counts, launch_counts)
+        emit("reference", part="differentiable core", **differentiable_reference(torch))
+
+    if "slice_1b" in phases:
+        # 6j. Slice 1b: the support route (ratchet, decay, bootstrap, outgroup)
+        # and the enumerating routes at full width, the batched stepwise path
+        # at 32 states; each holds its printed tree's score to K1 and K1's
+        # plain version.
+        slice_1b = slice_1b_routes(torch, dev, workdir, main_fasta, nni_fasta, run, nni,
+                                   reset_counts, launch_counts, k1_on)
+
+    if "reference" in phases:
+        # 7. Reference: on a small, divergent alignment (the climbs take rounds)
+        # the card's run returns the same tree and score as the CPU run — the
+        # plain versions, which the CPU tests hold against the JAX package.
+        ref_fasta = os.path.join(workdir, "ref.fasta")
+        simulate_fasta(ref_fasta, REF_SHAPE["n_taxa"], REF_SHAPE["n_sites"], SEED + 3,
+                       branch=(0.2, 0.6))
+        for neighborhood in ("spr-scan", "nni"):
+            argv = ["infer", "--alignment", ref_fasta, "--neighborhood", neighborhood,
+                    "--orders", "1"]
+            on_card = run_cli(argv).out
+            on_cpu = run_cli(argv + ["--device", "cpu"]).out
+            if on_card != on_cpu:
+                raise AssertionError(f"{neighborhood}: card {on_card} != cpu {on_cpu}")
+            emit("reference", neighborhood=neighborhood, n_taxa=REF_SHAPE["n_taxa"],
+                 parsimony_score=on_card["parsimony_score"],
+                 search_rounds=on_card["search_rounds"], same_tree_and_score=True)
+            # ML: the same topology and rounds; log-likelihoods within rtol 1e-5
+            # (float32 sums in another order on the card).
+            argv += ["--criterion", "ml"]
+            on_card = run_cli(argv).out
+            on_cpu = run_cli(argv + ["--device", "cpu"]).out
+            same = (
+                strip_lengths(on_card["tree"]) == strip_lengths(on_cpu["tree"])
+                and on_card["search_rounds"] == on_cpu["search_rounds"]
+                and list(on_card) == list(on_cpu)
+            )
+            rel = {
+                key: abs(on_card[key] - on_cpu[key]) / abs(on_cpu[key])
+                for key in ("neg_log_likelihood", "ranking_score")
+            }
+            if not same or max(rel.values()) > 1e-5:
+                raise AssertionError(f"ml {neighborhood}: card {on_card} != cpu {on_cpu}")
+            emit("reference", criterion="ml", neighborhood=neighborhood,
+                 n_taxa=REF_SHAPE["n_taxa"], neg_log_likelihood=on_card["neg_log_likelihood"],
+                 ranking_score=on_card["ranking_score"],
+                 search_rounds=on_card["search_rounds"], same_tree=True, rel_err=rel)
+        # The weighted NNI climb (from a one-order stepwise start) and
+        # ``score --alignment`` with ``--output-fasta``: card and CPU identical.
+        wref_fasta = os.path.join(workdir, "weighted_ref.fasta")
+        simulate_fasta(wref_fasta, REF_SHAPE["n_taxa"], REF_SHAPE["n_sites"], SEED + 6,
+                       branch=(0.2, 0.6), missing=0.0)
+        wref = dna_states(wref_fasta)
+        climbed = {}
+        for device in ("cuda", "cpu"):
+            start, _ = stepwise.stepwise_addition_multi(wref, 4, n_orders=1, seed=0, device=device)
+            result = parsimony_hill_climb(
+                start, CostModel.transition_transversion(1.0, 2.0, device=device).matrix,
+                torch.as_tensor(wref, device=device), neighborhood="nni", max_rounds=50)
+            climbed[device] = (result.topology.children.cpu().tolist(), result.score,
+                               result.rounds, result.evaluations)
+        if climbed["cuda"] != climbed["cpu"]:
+            raise AssertionError(f"weighted climb: card {climbed['cuda'][1:]} != cpu {climbed['cpu'][1:]}")
+        emit("reference", route="weighted nni climb, transition/transversion(1, 2)",
+             n_taxa=REF_SHAPE["n_taxa"], weighted_score=climbed["cuda"][1],
+             rounds=climbed["cuda"][2], evaluations=climbed["cuda"][3], same_tree_and_score=True)
+        scored_on = {}
+        for device in ("cuda", "cpu"):
+            fasta_out = os.path.join(workdir, f"score_{device}.fasta")
+            out = run_cli(["score", "--alignment", ref_fasta, "--output-fasta", fasta_out,
+                           "--device", device])
+            out.pop("output_fasta")
+            with open(fasta_out) as fh:
+                scored_on[device] = (out, fh.read())
+        if scored_on["cuda"] != scored_on["cpu"]:
+            raise AssertionError(f"score --alignment: card {scored_on['cuda'][0]} != cpu")
+        emit("reference", command="score --alignment --output-fasta", **scored_on["cuda"][0],
+             same_output_and_fasta=True)
+        # Stepwise addition on masks with bits above the alphabet (bit 5 in 20%
+        # of them, bit 31 in 5%): the card hands K1 every bit the masks use, so
+        # its tree and score are the CPU's (which the CPU tests hold to the JAX
+        # package's).
+        wide = _load_alignment(ref_fasta, "dna")[1].astype(np.int64)
+        wide_rng = np.random.default_rng(SEED + 7)
+        wide[wide_rng.random(wide.shape) < 0.2] |= 1 << 5
+        wide[wide_rng.random(wide.shape) < 0.05] |= 1 << 31
+        wide = (wide - ((wide >> 31) << 32)).astype(np.int32)
+        grown = {}
+        for device in ("cuda", "cpu"):
+            topo, score = stepwise.stepwise_addition(wide, 4, sequences_are_masks=True, seed=0,
+                                                     device=device)
+            grown[device] = (topo.children.cpu().tolist(), score)
+        if grown["cuda"] != grown["cpu"]:
+            raise AssertionError(f"stepwise on wide masks: card {grown['cuda'][1]} != cpu {grown['cpu'][1]}")
+        emit("reference", route="stepwise_addition, masks with bits 5 and 31 set, n_states 4",
+             n_taxa=REF_SHAPE["n_taxa"], parsimony_score=grown["cuda"][1], same_tree_and_score=True)
+        # Slice 1b's flags, card against CPU.
+        for row in slice_1b_reference(torch, workdir, ref_fasta):
+            emit("reference", part="slice 1b", **row)
+    # 8. Slice 2b: fitted ML models and rate heterogeneity (the model routes,
+    # the protein route, score --criterion ml, trait, ml), then slice 2b on
+    # the card against the CPU.
+    slice_2b = {}
+    if phases & set(SLICE_2B_PHASES):
+        slice_2b = slice_2b_routes(torch, dev, workdir, phases, reset_counts, launch_counts,
+                                   device_times)
+    if "reference_2b" in phases:
+        for row in slice_2b_reference(torch, workdir):
+            emit("reference", part="slice 2b", **row)
     shutil.rmtree(workdir)
 
-    kernels = [
-        {
-            "name": "fitch_batched", "route": "cuda",
-            "source": "trex_tpu_torch/csrc/fitch_batched.cu",
-            "replaces": "trex_tpu/ops/sankoff_pallas.py:183",
-            "launches": main_k1, "nni_route_launches": nni_k1,
-            "diff_route_launches": routes["diff"]["k1_launches"],
-            "support_route_launches": slice_1b["support"]["launches"]["k1"],
-            "enumerating_route_launches": {
-                key: v["launches"]["k1"] for key, v in slice_1b["enumerating"].items()},
-            "stepwise_batched_launches": slice_1b["stepwise_batched"]["k1_launches"],
-            "ml_nni_route_launches": ml_launches["k1"],
-            "weighted_route_launches": wt_counts["k1"],
-            "bench_q4_launches": bench_runs[4]["launches"]["k1"],
-            "shape": K1_SHAPE, **k1, "library_ms": None,
-            "at_main_path": k1_main, "at_nni_route": k1_nni, "scratch_at_b": scratch_ab,
-            "at_support_route": slice_1b["support"]["k1_at_this_shape"],
-            "at_enumerating_routes": {
-                key: v["k1_at_this_shape"] for key, v in slice_1b["enumerating"].items()},
-            "at_shapes": dict(k1_shapes, b=k1_main, c=k1_nni),
-        },
-        {
-            "name": "insertion_delta", "route": "cuda",
-            "source": "trex_tpu_torch/csrc/insertion_delta.cu",
-            "replaces": "trex_tpu/ops/insertion_pallas.py:84",
-            "launches": main_k2, "nni_route_launches": nni_k2,
-            "support_route_launches": slice_1b["support"]["launches"]["k2"],
-            "enumerating_route_launches": {
-                key: v["launches"]["k2"] for key, v in slice_1b["enumerating"].items()},
-            "ml_nni_route_launches": ml_launches["k2"],
-            "weighted_route_launches": wt_counts["k2"],
-            **k2, "library_ms": None, "at_shapes": k2_shapes,
-        },
-        {
-            "name": "likelihood_batched", "route": "cuda",
-            "source": "trex_tpu_torch/csrc/likelihood_batched.cu",
-            "replaces": ["trex_tpu/ops/likelihood_pallas.py:255",
-                         "trex_tpu/ops/likelihood_pallas.py:135"],
-            # Its path is the ML NNI route; the parsimony main path runs none.
-            "launches": ml_launches["k34"], "calls": ml_calls["k34"],
-            "main_path_launches": main_k34, "weighted_route_launches": wt_counts["k34"],
-            "shape": K34_SHAPE, **k34, "library_ms": None,
-            "at_ml_nni_route": k34_route, "per_branch": k34_branch, "at_shapes": k34_deep,
-        },
-        {
-            "name": "sankoff_batched", "route": "cuda",
-            "source": "trex_tpu_torch/csrc/sankoff_batched.cu",
-            "replaces": "trex_tpu/ops/sankoff_pallas.py:62",
-            # Its path is the weighted NNI route; bench runs it at Q = 61.
-            "launches": wt_counts["k5"], "calls": wt_calls["k5"],
-            "main_path_launches": main_counts["k5"],
-            "bench_q61_launches": bench_runs[61]["launches"]["k5"],
-            "score_launches": score_counts["k5"],
-            "shape": K5_BENCH_SHAPE, **k5, "library_ms": None,
-            "at_shapes": {key: v for key, v in k5_shapes.items() if key != "a"},
-        },
-        {
-            "name": "tree_plan", "route": "cuda",
-            "source": "trex_tpu_torch/csrc/tree_plan.cu",
-            # A pre-pass of the K5 and K3/K4 ports: the Pallas kernels
-            # walked index order with every row in VMEM.
-            "replaces": ["trex_tpu/ops/sankoff_pallas.py:62",
-                         "trex_tpu/ops/likelihood_pallas.py:255",
-                         "trex_tpu/ops/likelihood_pallas.py:135"],
-            # Its path is every K5 and K3/K4 call: the weighted route's and
-            # the ML NNI route's.
-            "launches": wt_counts["plan"], "ml_nni_route_launches": ml_launches["plan"],
-            "main_path_launches": main_counts["plan"],
-            **plan_shapes["ml nni batch"], "library_ms": None, "at_shapes": plan_shapes,
-        },
-        {
-            "name": "fitch_levels", "route": "cuda",
-            "source": "trex_tpu_torch/csrc/fitch_levels.cu",
-            "replaces": "benchmarks/fitch_levels.py:63",
-            # Its path is the A/B's entry point at shapes (a)-(f); no route
-            # of the CLI runs it.
-            "launches": k6_counts["k6"], "main_path_launches": main_counts["k6"],
-            **k6_shapes["a"], "library_ms": None, "at_shapes": k6_shapes,
-        },
-    ]
+    k3_model = k3_model_entry(slice_2b)
+    if not EARLIER_PHASES <= phases:
+        # A subset of the phases: the kernels its phases measured.
+        kernels = [k3_model] if k3_model else []
+    else:
+        kernels = [
+            {
+                "name": "fitch_batched", "route": "cuda",
+                "source": "trex_tpu_torch/csrc/fitch_batched.cu",
+                "replaces": "trex_tpu/ops/sankoff_pallas.py:183",
+                "launches": main_k1, "nni_route_launches": nni_k1,
+                "diff_route_launches": routes["diff"]["k1_launches"],
+                "support_route_launches": slice_1b["support"]["launches"]["k1"],
+                "enumerating_route_launches": {
+                    key: v["launches"]["k1"] for key, v in slice_1b["enumerating"].items()},
+                "stepwise_batched_launches": slice_1b["stepwise_batched"]["k1_launches"],
+                "ml_nni_route_launches": ml_launches["k1"],
+                "weighted_route_launches": wt_counts["k1"],
+                "bench_q4_launches": bench_runs[4]["launches"]["k1"],
+                "shape": K1_SHAPE, **k1, "library_ms": None,
+                "at_main_path": k1_main, "at_nni_route": k1_nni, "scratch_at_b": scratch_ab,
+                "at_support_route": slice_1b["support"]["k1_at_this_shape"],
+                "at_enumerating_routes": {
+                    key: v["k1_at_this_shape"] for key, v in slice_1b["enumerating"].items()},
+                "at_shapes": dict(k1_shapes, b=k1_main, c=k1_nni),
+            },
+            {
+                "name": "insertion_delta", "route": "cuda",
+                "source": "trex_tpu_torch/csrc/insertion_delta.cu",
+                "replaces": "trex_tpu/ops/insertion_pallas.py:84",
+                "launches": main_k2, "nni_route_launches": nni_k2,
+                "support_route_launches": slice_1b["support"]["launches"]["k2"],
+                "enumerating_route_launches": {
+                    key: v["launches"]["k2"] for key, v in slice_1b["enumerating"].items()},
+                "ml_nni_route_launches": ml_launches["k2"],
+                "weighted_route_launches": wt_counts["k2"],
+                **k2, "library_ms": None, "at_shapes": k2_shapes,
+            },
+            {
+                "name": "likelihood_batched", "route": "cuda",
+                "source": "trex_tpu_torch/csrc/likelihood_batched.cu",
+                "replaces": ["trex_tpu/ops/likelihood_pallas.py:255",
+                             "trex_tpu/ops/likelihood_pallas.py:135"],
+                # Its path is the ML NNI route; the parsimony main path runs none.
+                "launches": ml_launches["k34"], "calls": ml_calls["k34"],
+                "main_path_launches": main_k34, "weighted_route_launches": wt_counts["k34"],
+                "shape": K34_SHAPE, **k34, "library_ms": None,
+                "at_ml_nni_route": k34_route, "per_branch": k34_branch, "at_shapes": k34_deep,
+                "model_route_launches": slice_2b.get("launches"),
+                "at_model_routes": slice_2b.get("at_model_routes"),
+            },
+            {
+                "name": "sankoff_batched", "route": "cuda",
+                "source": "trex_tpu_torch/csrc/sankoff_batched.cu",
+                "replaces": "trex_tpu/ops/sankoff_pallas.py:62",
+                # Its path is the weighted NNI route; bench runs it at Q = 61.
+                "launches": wt_counts["k5"], "calls": wt_calls["k5"],
+                "main_path_launches": main_counts["k5"],
+                "bench_q61_launches": bench_runs[61]["launches"]["k5"],
+                "score_launches": score_counts["k5"],
+                "shape": K5_BENCH_SHAPE, **k5, "library_ms": None,
+                "at_shapes": {key: v for key, v in k5_shapes.items() if key != "a"},
+            },
+            {
+                "name": "tree_plan", "route": "cuda",
+                "source": "trex_tpu_torch/csrc/tree_plan.cu",
+                # A pre-pass of the K5 and K3/K4 ports: the Pallas kernels
+                # walked index order with every row in VMEM.
+                "replaces": ["trex_tpu/ops/sankoff_pallas.py:62",
+                             "trex_tpu/ops/likelihood_pallas.py:255",
+                             "trex_tpu/ops/likelihood_pallas.py:135"],
+                # Its path is every K5 and K3/K4 call: the weighted route's and
+                # the ML NNI route's.
+                "launches": wt_counts["plan"], "ml_nni_route_launches": ml_launches["plan"],
+                "main_path_launches": main_counts["plan"],
+                **plan_shapes["ml nni batch"], "library_ms": None, "at_shapes": plan_shapes,
+            },
+            {
+                "name": "fitch_levels", "route": "cuda",
+                "source": "trex_tpu_torch/csrc/fitch_levels.cu",
+                "replaces": "benchmarks/fitch_levels.py:63",
+                # Its path is the A/B's entry point at shapes (a)-(f); no route
+                # of the CLI runs it.
+                "launches": k6_counts["k6"], "main_path_launches": main_counts["k6"],
+                **k6_shapes["a"], "library_ms": None, "at_shapes": k6_shapes,
+            },
+        ]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

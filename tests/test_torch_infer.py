@@ -89,19 +89,17 @@ def test_cli_defaults_to_the_card(fasta):
 @pytest.mark.parametrize(
     "flags, slice_name",
     [
-        (["--criterion", "ml", "--model", "gtr"], "slice 2 item 7"),
-        (["--criterion", "ml", "--model-file", "lg.dat"], "slice 2 item 7"),
-        (["--criterion", "distance"], "slice 2b"),
-        (["--criterion", "ml", "--alrt", "10"], "queue A item 13"),
-        (["--criterion", "ml", "--ufboot", "10"], "queue A item 13"),
-        (["--criterion", "ml", "--ratchet", "2"], "slice 1b"),
-        (["--criterion", "ml", "--bootstrap", "5"], "slice 1b"),
-        (["--criterion", "ml", "--constraint", "c.nwk"], "slice 1b"),
-        (["--criterion", "ml", "--neighborhood", "spr"], "slice 1b"),
-        (["--criterion", "ml", "--neighborhood", "tbr"], "slice 1b"),
-        (["--mesh", "2,1"], "queue A"),
-        (["--start", "nj"], "slice 2b"),
-        (["--criterion", "ml", "--start", "random", "--ratchet", "1"], "slice 1b"),
+        (["--model", "gtr"], "accepted differences"),
+        (["--model-rounds", "1"], "accepted differences"),
+        (["--criterion", "distance"], "slice 2c"),
+        (["--criterion", "ml", "--alrt", "10"], "Supports"),
+        (["--criterion", "ml", "--ufboot", "10"], "Supports"),
+        (["--criterion", "ml", "--ratchet", "2"], "slice 2c"),
+        (["--criterion", "ml", "--bootstrap", "5"], "slice 2c"),
+        (["--criterion", "ml", "--constraint", "c.nwk"], "slice 2c"),
+        (["--mesh", "2,1"], "Multi-device"),
+        (["--start", "nj"], "slice 2c"),
+        (["--criterion", "ml", "--start", "random", "--ratchet", "1"], "slice 2c"),
     ],
 )
 def test_unported_flags_name_their_slice(fasta, flags, slice_name):

@@ -1,6 +1,6 @@
 """End to end: ``trex_tpu_torch.cli infer --criterion ml --device cpu`` against
 ``trex_tpu.cli infer --criterion ml --mesh 1,1`` on the same FASTA, plus the
-ML search's refusals of what is not ported.
+ML search's refusals (a rate mixture off the scan, unknown options).
 
 Same JSON keys in the same order, the same topology and ``search_rounds``;
 log-likelihoods within rtol 2e-5 (float32 sums in another order) and branch
@@ -79,12 +79,12 @@ def _start(seed=0, n=7, length=40):
 @pytest.mark.parametrize(
     "kwargs, error, match",
     [
-        (dict(neighborhood="spr"), NotImplementedError, "slice 1b"),
-        (dict(neighborhood="tbr"), NotImplementedError, "slice 1b"),
-        (dict(neighborhood="nni", length_optimizer="adam"), NotImplementedError, "later slice"),
-        (dict(neighborhood="spr-scan", gamma_shape=0.5), NotImplementedError, "model-fitting slice"),
-        (dict(neighborhood="spr-scan", category_rates=np.ones(2)), NotImplementedError,
-         "model-fitting slice"),
+        # A rate mixture is ranked by the analytic scan only, as in JAX.
+        (dict(neighborhood="nni", gamma_shape=0.5), ValueError, "spr-scan"),
+        (dict(neighborhood="spr", category_rates=np.ones(2)), ValueError, "spr-scan"),
+        (dict(neighborhood="tbr", gamma_shape=0.5), ValueError, "spr-scan"),
+        (dict(neighborhood="nni", length_optimizer="lbfgs"), ValueError, "length_optimizer"),
+        (dict(neighborhood="rings"), ValueError, "unknown neighborhood"),
     ],
 )
 def test_ml_hill_climb_refuses_what_is_not_ported(kwargs, error, match):

@@ -138,19 +138,25 @@ def test_device_neighborhoods_keep_their_trees_across_calls(move):
     assert torch.equal(batch.children, kept[0]) and torch.equal(batch.parents, kept[1])
 
 
-def _jax_native():
-    """The JAX package's native module, when its library is already built
-    (checked by path first, so this test never starts a build under
-    native/)."""
+@pytest.fixture
+def jax_native(monkeypatch):
+    """The JAX package's native binding, loaded from the port's build of the
+    byte-identical source (``test_native_source_is_a_byte_copy``), so the
+    test runs on a fresh checkout without a build under ``native/`` and
+    without editing a JAX file."""
     from trex_tpu.io import native as jax_native
 
-    if not os.path.exists(jax_native._LIB_PATH) or not jax_native.available():
-        pytest.skip("the JAX package's native library is not built")
-    return jax_native
+    try:
+        path = str(native.build())
+    except RuntimeError as exc:  # no g++: neither library can be built
+        pytest.skip(str(exc))
+    monkeypatch.setattr(jax_native, "_LIB_PATH", path)
+    jax_native.load_library.cache_clear()
+    yield jax_native
+    jax_native.load_library.cache_clear()
 
 
-def test_sampler_and_truncated_tbr_equal_the_jax_package():
-    jax_native = _jax_native()
+def test_sampler_and_truncated_tbr_equal_the_jax_package(jax_native):
     import trex_tpu.io as jax_io
     from trex_tpu.topology import Topology as JaxTopology
 

@@ -112,9 +112,13 @@ def test_score_alignment_matches_jax(alignment, with_tree, tmp_path):
 
 
 def test_score_ml_names_its_slice(alignment):
-    with pytest.raises(SystemExit, match="slice 2b"):
-        torch_cli.main(["score", "--alignment", alignment[0], "--criterion", "ml",
-                        "--device", "cpu"])
+    """``score --criterion ml`` is ported (slice 2b): JC69 lengths by Adam,
+    marginal ancestors, the JAX command's keys
+    (``tests/test_torch_ml_score_cli.py`` holds the values to JAX's)."""
+    out = _run(torch_cli, ["score", "--alignment", alignment[0], "--criterion", "ml",
+                           "--device", "cpu"])
+    assert list(out)[3:] == ["log_likelihood", "mean_branch_length", "mean_ancestor_posterior"]
+    assert out["log_likelihood"] < 0 and 0 < out["mean_ancestor_posterior"] <= 1
 
 
 @pytest.mark.parametrize("states", [61, 4])

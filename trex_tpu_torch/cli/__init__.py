@@ -3,20 +3,26 @@
 score       Exact Sankoff scoring + ancestral reconstruction of a generated
             balanced mutation tree, or (``--alignment``) the Fitch score and
             one optimal labeling of a given or stepwise-addition tree.
+            With ``--criterion ml``: ML branch lengths (or a fitted
+            ``--model``), marginal or joint ancestors, site rates.
 infer       File-based parsimony or ML tree inference: FASTA/PHYLIP/NEXUS
             in, stepwise-addition, random, balanced or differentiable
             (``--start diff``) start, SPR-scan (default), NNI, SPR or TBR
             hill climb (parsimony: also the ratchet, constraints, outgroup
-            rooting, SPR-decay and bootstrap supports), newick and score
-            out as one JSON line.
+            rooting, SPR-decay and bootstrap supports; ML: a fitted
+            ``--model`` with +G/+I/+R rate mixtures and model <-> tree
+            ``--model-rounds``), newick and score out as one JSON line.
 search      Multi-restart joint topology + sequence search on a generated
             mutation tree, against exact Sankoff on the true tree.
 asr         Gradient ancestral reconstruction against exact Sankoff.
 search-run  The joint search, checkpointed and resumable.
 bench       Batched candidate-scoring throughput on random trees (the Fitch
             kernel for Hamming with <= 32 states, the Sankoff kernel above).
+ml          ML climb (JC69, SPR neighbourhoods) on a generated alignment.
 nk-bench    Sankoff vs plain and landscape-aware gradient ASR on trees
             evolved over NK fitness landscapes.
+trait       Mk-model marginal ancestral states of a discrete trait on a
+            given tree with branch lengths.
 
 Each prints the same JSON keys as ``python -m trex_tpu.cli <command>``, and
 ``score``/``infer`` the same trees and scores (``infer --start diff``,

@@ -101,7 +101,7 @@ def _start_tree(
         return balanced_topology(n_leaves, device)
     if kind in ("nj", "upgma"):
         raise SystemExit(
-            f"--start {kind} is not ported yet: slice 2b of ROADMAP.md (NJ/UPGMA)"
+            f"--start {kind} is not ported yet: slice 2c of ROADMAP.md (NJ/UPGMA)"
         )
     raise SystemExit(f"unknown --start {kind!r}")
 

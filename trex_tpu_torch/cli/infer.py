@@ -19,20 +19,20 @@ from trex_tpu_torch.search.hillclimb import (
 from trex_tpu_torch.search.ratchet import parsimony_ratchet
 
 # Flags of the JAX ``infer`` that this port does not cover yet, with the
-# value that means "not requested" and where ROADMAP.md queues them.
+# value that means "not requested" and the ROADMAP.md item that queues them.
 _NOT_PORTED = (
-    ("model", "jc", "slice 2 item 7 (model fitting: optimize_model)"),
-    ("model_file", None, "slice 2 item 7 (model fitting: optimize_model)"),
-    ("model_rounds", 0, "slice 2 item 7 (model fitting: optimize_model)"),
-    ("alrt", 0, "queue A item 13 (supports)"),
-    ("ufboot", 0, "queue A item 13 (supports)"),
+    ("alrt", 0, "the Supports item"),
+    ("ufboot", 0, "the Supports item"),
 )
 # Parsimony flags (slice 1b) whose ML counterparts are still queued.
 _ML_NOT_PORTED = (
-    ("ratchet", 0, "queue A item 3 (ml_iterated_search)"),
-    ("bootstrap", 0, "queue A item 4 (ml_bootstrap_analysis)"),
-    ("constraint", None, "queue A items 3 and 4 (the constrained ML climb)"),
+    ("ratchet", 0, "slice 2c (ml_iterated_search)"),
+    ("bootstrap", 0, "slice 2c (ml_bootstrap_analysis)"),
+    ("constraint", None, "slice 2c (the constrained ML climb)"),
 )
+# Model flags, which the JAX CLI ignores under parsimony and this port
+# refuses there (ROADMAP.md, accepted differences).
+_MODEL_FLAGS = (("model", "jc"), ("model_file", None), ("model_rounds", 0))
 
 
 @dataclasses.dataclass
@@ -45,7 +45,8 @@ class InferRun:
     ratchet ("climb"), under parsimony the decay ("decay") and bootstrap
     ("bootstrap") when asked for, an enumerating climb's host generation
     ("generate") and batch scoring ("score"), and for ``--criterion ml``
-    the branch-length fits ("newton")."""
+    the branch-length fits ("newton"), with ``--model`` the first model fit
+    ("fit") and the model <-> tree rounds ("rounds")."""
     lengths: torch.Tensor | None = None
     """The fitted branch lengths (``--criterion ml``)."""
 
@@ -53,14 +54,11 @@ class InferRun:
 def _check_ported(args) -> None:
     if args.criterion == "distance":
         raise SystemExit(
-            "--criterion distance is not ported yet: slice 2b of ROADMAP.md "
-            "(NJ/UPGMA, item 9)"
+            "--criterion distance is not ported yet: slice 2c of ROADMAP.md (NJ/UPGMA)"
         )
     for name, unset, where in _NOT_PORTED:
         if getattr(args, name) != unset:
-            raise SystemExit(
-                f"--{name} is not ported yet: {where} of ROADMAP.md"
-            )
+            raise SystemExit(f"--{name} is not ported yet: {where} of ROADMAP.md")
     if args.criterion == "ml":
         for name, unset, where in _ML_NOT_PORTED:
             if getattr(args, name) != unset:
@@ -68,16 +66,17 @@ def _check_ported(args) -> None:
                     f"--{name} under --criterion ml is not ported yet: {where} of "
                     "ROADMAP.md (slice 1b ported it for parsimony)"
                 )
-        if args.neighborhood in ("spr", "tbr"):
-            raise SystemExit(
-                f"--neighborhood {args.neighborhood} under --criterion ml is not "
-                "ported yet: queue A item 3 of ROADMAP.md (slice 1b ported its "
-                "generator for parsimony)"
-            )
+    else:
+        for name, unset in _MODEL_FLAGS:
+            if getattr(args, name) != unset:
+                raise SystemExit(
+                    f"--{name} applies to --criterion ml only (ROADMAP.md, accepted "
+                    "differences: the JAX CLI ignores it under parsimony)"
+                )
     if args.mesh not in (None, "1,1"):
         raise SystemExit(
-            "--mesh is not ported yet: multi-device search is queue A item 15 "
-            "of ROADMAP.md; this port runs on one device"
+            "--mesh is not ported yet: the Multi-device item of ROADMAP.md; this "
+            "port runs on one device"
         )
 
 
@@ -275,7 +274,9 @@ def _finish(args, out: dict, result: SearchResult, newick: str) -> None:
 
 def _run_ml(args, out, names, leaves, n_states, weights, starts, start_seconds) -> InferRun:
     """The ML branch: a likelihood climb from each start, then the Newton
-    branch-length fit; the start with the lowest fitted NLL wins."""
+    branch-length fit; the start with the lowest fitted NLL wins. With a
+    ``--model`` other than jc, the model fit and the model <-> tree rounds
+    (``_fit_model``)."""
     from trex_tpu_torch.io import save_newick
     from trex_tpu_torch.search.ml import ml_hill_climb
 
@@ -299,22 +300,131 @@ def _run_ml(args, out, names, leaves, n_states, weights, starts, start_seconds) 
             best = (result, lengths, losses)
     result, lengths, losses = best
     if args.outgroup:
-        from trex_tpu_torch.io import reroot_on_outgroup
-
-        topo, rerooted = reroot_on_outgroup(
-            result.topology, _outgroup_indices(names, args.outgroup), lengths.cpu().numpy())
-        result = dataclasses.replace(result, topology=topo)
-        lengths = torch.as_tensor(rerooted, dtype=torch.float32, device=lengths.device)
+        result, lengths = _reroot(args, names, result, lengths)
         out["outgroup"] = args.outgroup
     out.update(
         neg_log_likelihood=float(losses[-1]),
         ranking_score=result.score,
         model=args.model,
     )
+    if args.model != "jc":
+        result, lengths = _fit_model(args, out, names, leaves, n_states, weights, result,
+                                     seconds)
     lengths_np = lengths.cpu().numpy()
     out["mean_branch_length"] = float(lengths_np.mean())
     _finish(args, out, result, save_newick(result.topology, names, lengths_np))
     return InferRun(out, result, seconds, lengths)
+
+
+def _reroot(args, names, result: SearchResult, lengths: torch.Tensor):
+    from trex_tpu_torch.io import reroot_on_outgroup
+
+    topo, rerooted = reroot_on_outgroup(
+        result.topology, _outgroup_indices(names, args.outgroup), lengths.cpu().numpy())
+    return (dataclasses.replace(result, topology=topo),
+            torch.as_tensor(rerooted, dtype=torch.float32, device=lengths.device))
+
+
+def _mixture_kwargs(params: dict) -> dict:
+    """The rate mixture the scan ranks under after a fit: +rK's categories
+    as fitted, +I as an extra rate-0 class (after the four Gamma ones under
+    +G+I), +G by its shape."""
+    import numpy as np
+
+    from trex_tpu_torch.ops.likelihood import discrete_gamma_rates
+
+    if "category_rates" in params:
+        return dict(category_rates=params["category_rates"],
+                    category_weights=params["category_weights"])
+    if "p_invariant" in params:
+        p_inv = float(params["p_invariant"])
+        g = (
+            discrete_gamma_rates(float(params["gamma_shape"]), 4).numpy()
+            if "gamma_shape" in params else np.ones((1,))
+        )
+        device = params["p_invariant"].device
+        return dict(
+            category_rates=torch.as_tensor(
+                np.concatenate([g, [0.0]]), dtype=torch.float32, device=device),
+            category_weights=torch.as_tensor(
+                np.concatenate([np.full(g.size, (1.0 - p_inv) / g.size), [p_inv]]),
+                dtype=torch.float32, device=device),
+        )
+    if "gamma_shape" in params:
+        return dict(gamma_shape=params["gamma_shape"])
+    return {}
+
+
+def _fit_model(args, out, names, leaves, n_states, weights, result, seconds):
+    """``optimize_model`` on the climbed tree, then up to
+    ``--model-rounds`` rounds of climbing under the fitted model (rate
+    mixture aware on the scan) and refitting, stopping when the topology
+    holds. Records the fitted parameters in ``out``; returns the final
+    (result, branch lengths). ``seconds`` gains "fit" (the first fit) and
+    "rounds" (the model rounds)."""
+    import numpy as np
+
+    from trex_tpu_torch.io import parse_paml_rates
+    from trex_tpu_torch.ops.likelihood import optimize_model
+    from trex_tpu_torch.search.ml import ml_hill_climb
+
+    device = leaves.device
+    fixed_rates = fixed_freqs = None
+    if args.model_file:
+        with open(args.model_file) as fh:
+            fixed_rates, fixed_freqs = parse_paml_rates(fh.read(), n_states)
+
+    def fit(topology):
+        return optimize_model(
+            topology, leaves, n_states, model=args.model, sequences_are_masks=True,
+            site_weights=weights, fixed_rates=fixed_rates, fixed_freqs=fixed_freqs,
+        )
+
+    clock = time.perf_counter()
+    params, model_losses = fit(result.topology)
+    out["neg_log_likelihood"] = float(model_losses[-1])
+    seconds["fit"] = time.perf_counter() - clock
+    clock = time.perf_counter()
+    for _ in range(args.model_rounds):
+        if "rates" not in params:
+            break  # jc+g and the like: the ranking model does not change
+        previous = result.topology.children.cpu().numpy().tobytes()
+        mixture = _mixture_kwargs(params) if args.neighborhood == "spr-scan" else {}
+        result, _, _ = ml_hill_climb(
+            result.topology, leaves, n_states,
+            max_rounds=args.rounds, neighborhood=args.neighborhood,
+            sequences_are_masks=True, site_weights=weights,
+            rates=params["rates"], freqs=params["freqs"], **mixture,
+        )
+        params, model_losses = fit(result.topology)
+        out["neg_log_likelihood"] = float(model_losses[-1])
+        out["model_rounds"] = out.get("model_rounds", 0) + 1
+        if result.topology.children.cpu().numpy().tobytes() == previous:
+            break
+    _sync(device)
+    seconds["rounds"] = time.perf_counter() - clock
+    lengths = params["branch_lengths"]
+    if out.get("model_rounds") and args.outgroup:
+        # The rooting again, on whatever tree the rounds settled on.
+        result, lengths = _reroot(args, names, result, lengths)
+
+    def rounded(x, digits):
+        return np.round(x.cpu().numpy(), digits).tolist()
+
+    # The JAX CLI raises KeyError for a jc base here (no "rates"); the port
+    # prints null exchangeabilities and the uniform frequencies.
+    fitted = "rates" in params and not args.model.startswith("empirical")
+    out["gtr_rates"] = rounded(params["rates"], 5) if fitted else None
+    out["base_frequencies"] = rounded(
+        params["freqs"] if "freqs" in params
+        else torch.full((n_states,), 1.0 / n_states), 5)
+    for name in ("gamma_shape", "p_invariant", "kappa", "kappa_purine", "kappa_pyrimidine"):
+        if name in params:
+            out[name] = float(params[name])
+    if "category_rates" in params:
+        out["category_rates"] = rounded(params["category_rates"], 4)
+        out["category_weights"] = rounded(params["category_weights"], 4)
+    return result, lengths
 
 
 def cmd_infer(args) -> None:

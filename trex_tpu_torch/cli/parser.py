@@ -1,6 +1,6 @@
 """Argument parser and entry point (counterpart of ``trex_tpu/cli/parser.py``;
-the ``score``, ``infer``, ``search``, ``asr``, ``search-run``, ``bench`` and
-``nk-bench`` commands)."""
+the ``score``, ``infer``, ``search``, ``asr``, ``search-run``, ``bench``,
+``ml``, ``nk-bench`` and ``trait`` commands)."""
 
 from __future__ import annotations
 
@@ -11,8 +11,14 @@ import torch
 import trex_tpu_torch.cli as _cli_pkg
 from trex_tpu_torch.cli._common import _add_common, _add_device
 from trex_tpu_torch.cli.infer import cmd_infer
-from trex_tpu_torch.cli.score import cmd_asr, cmd_score
-from trex_tpu_torch.cli.search_cmds import cmd_bench, cmd_nk_bench, cmd_search, cmd_search_run
+from trex_tpu_torch.cli.score import cmd_asr, cmd_score, cmd_trait
+from trex_tpu_torch.cli.search_cmds import (
+    cmd_bench,
+    cmd_ml,
+    cmd_nk_bench,
+    cmd_search,
+    cmd_search_run,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,15 +40,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--alphabet", choices=("dna", "protein"), default="dna")
     p.add_argument("--criterion", choices=("parsimony", "ml"),
                    default="parsimony",
-                   help="parsimony (ml: a later slice)")
+                   help="ml = ML branch lengths + marginal posterior ASR")
     p.add_argument("--model", type=str, default="jc",
-                   help="substitution model for --criterion ml (a later slice)")
+                   help="substitution model for --criterion ml "
+                        "(jc|k80|hky|f81|tn93|gtr|empirical, +g/+g+i/+rK; "
+                        "fitted before the ASR)")
     p.add_argument("--model-file", type=str, default=None,
-                   help="PAML-format rate file (a later slice)")
+                   help="PAML-format rate file for --model empirical")
     p.add_argument("--site-rates", type=str, default=None,
-                   help="posterior per-site rates (a later slice)")
+                   help="write posterior mean per-site rates here "
+                        "(needs a rate-mixture model, e.g. gtr+g)")
     p.add_argument("--asr", choices=("marginal", "joint"), default="marginal",
-                   help="ASR flavor for --criterion ml (a later slice)")
+                   help="ancestral reconstruction flavor for --criterion "
+                        "ml: per-node marginal posteriors or the jointly "
+                        "optimal assignment (Pupko max-product)")
     p.add_argument("--output-fasta", type=str, default=None,
                    help="write leaves + reconstructed ancestors here")
     _add_device(p, "the scoring")
@@ -57,12 +68,18 @@ def build_parser() -> argparse.ArgumentParser:
                    default="parsimony",
                    help="parsimony or ml (distance: a later slice)")
     p.add_argument("--model", default="jc",
-                   help="substitution model for --criterion ml: jc (the "
-                        "fitted models: a later slice)")
+                   help="substitution model fitted on the final ML tree: "
+                        "jc|k80|hky|f81|tn93|gtr|empirical with optional "
+                        "+g, +g+i, or +rK (FreeRate, K=2..8); 'empirical' "
+                        "needs --model-file")
     p.add_argument("--model-file", type=str, default=None,
-                   help="PAML-format rate file (a later slice)")
+                   help="PAML-format rate file for --model empirical "
+                        "(exchangeabilities + frequencies, e.g. LG/WAG .dat)")
     p.add_argument("--model-rounds", type=int, default=0,
-                   help="ML model <-> tree iterations (a later slice)")
+                   help="ML model <-> tree iterations: re-search ranking "
+                        "candidates under the fitted model, refit, repeat "
+                        "until the topology is stable (needs a model with "
+                        "free rates, e.g. gtr+g)")
     p.add_argument("--start",
                    choices=("stepwise", "nj", "upgma", "random", "balanced",
                             "diff"),
@@ -86,7 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "tbr = enumerated neighborhoods (the native move "
                         "library), each round's batch scored by the Fitch "
                         "kernel (parsimony; tbr sampled to 16384 a round) or, "
-                        "for nni, the likelihood kernel (ml)")
+                        "for nni, the likelihood kernel (ml; spr-scan ranks "
+                        "under a fitted rate mixture in --model-rounds)")
     p.add_argument("--rounds", type=int, default=100,
                    help="max hill-climb rounds")
     p.add_argument("--ratchet", type=int, default=0,
@@ -100,9 +118,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--outgroup", type=str, default=None,
                    help="comma-separated outgroup taxa to root the tree on")
     p.add_argument("--alrt", type=int, default=0,
-                   help="SH-aLRT supports (a later slice)")
+                   help="SH-aLRT supports (not ported: the Supports item)")
     p.add_argument("--ufboot", type=int, default=0,
-                   help="ultrafast bootstrap supports (a later slice)")
+                   help="ultrafast bootstrap supports (not ported: the "
+                        "Supports item)")
     p.add_argument("--restarts", type=int, default=1,
                    help="independent searches: the --start tree plus N-1 "
                         "more (random-addition stepwise starts, or random "
@@ -150,6 +169,13 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(p, "the scoring")
     p.set_defaults(fn=cmd_bench)
 
+    p = sub.add_parser("ml", help="maximum-likelihood tree search")
+    _add_common(p)
+    p.add_argument("--mutations", type=int, default=3)
+    p.add_argument("--rounds", type=int, default=30)
+    _add_device(p, "the search")
+    p.set_defaults(fn=cmd_ml)
+
     p = sub.add_parser("nk-bench", help="NK accuracy benchmark")
     _add_common(p)
     p.add_argument("--k-values", type=int, nargs="+", default=[1, 2, 5])
@@ -164,6 +190,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "(needs matplotlib)")
     _add_device(p, "the benchmark")
     p.set_defaults(fn=cmd_nk_bench)
+
+    p = sub.add_parser(
+        "trait", help="Mk ancestral states for a discrete trait on a fixed tree")
+    p.add_argument("--tree", required=True, help="branch-length-bearing newick")
+    p.add_argument("--traits", required=True,
+                   help="taxon<TAB or ,>state table ('?' = missing)")
+    p.add_argument("--output-tree", default=None,
+                   help="newick with MAP-state node labels")
+    _add_device(p, "the fit")
+    p.set_defaults(fn=cmd_trait)
     return parser
 
 

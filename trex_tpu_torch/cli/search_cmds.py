@@ -9,7 +9,10 @@
   ``ops.dispatch.batched_scores_fastest`` on random trees — K1 for Hamming
   with at most 32 states, K5 above (``--states 61``, the codon alphabet);
 - ``nk-bench``: ancestor accuracy of exact Sankoff against gradient ASR,
-  plain and landscape-aware, on trees evolved over NK landscapes.
+  plain and landscape-aware, on trees evolved over NK landscapes;
+- ``ml``: the ML climb (JC69, enumerated SPR neighbourhoods ranked by the
+  likelihood kernel, then the Newton fit) from a random tree on a
+  generated balanced mutation tree's leaves.
 
 Each prints the JAX command's JSON keys. Generated data comes from the
 port's own generators (``torch.Generator``s seeded with ``--seed``), so the
@@ -81,6 +84,31 @@ def _generated(args, device: torch.device):
     leaf = gt.all_sequences[: args.leaves].to(torch.int32)
     cost = CostModel.hamming(args.states, device=device).matrix
     return gt, leaf, one_hot_leaves(leaf, args.states), cost
+
+
+def run_ml(args) -> tuple[dict, tuple]:
+    """The printed JSON object of ``ml``, and (start, (n, L) leaves) it
+    climbed from."""
+    from trex_tpu_torch.io import sample_topologies, save_newick
+    from trex_tpu_torch.search.ml import ml_hill_climb
+    from trex_tpu_torch.topology import Topology
+
+    device = resolve_device(args.device)
+    _, leaf, _, _ = _generated(args, device)
+    sampled = sample_topologies(args.seed, args.leaves, 1, device)
+    start = Topology(sampled.children[0], sampled.parents[0])
+    result, lengths, losses = ml_hill_climb(start, leaf, args.states, max_rounds=args.rounds)
+    return {
+        "final_neg_log_likelihood": float(losses[-1]),
+        "ranking_score": result.score,
+        "evaluations": result.evaluations,
+        "tree": save_newick(result.topology),
+        "mean_branch_length": float(lengths.mean()),
+    }, (start, leaf)
+
+
+def cmd_ml(args) -> None:
+    print(json.dumps(run_ml(args)[0]))
 
 
 def run_search(args) -> dict:

@@ -32,6 +32,7 @@ from trex_tpu_torch.io.formats import (
     encode_alignment_masks,
     mask_lookup,
     parse_nexus,
+    parse_paml_rates,
     parse_phylip,
 )
 from trex_tpu_torch.topology import Topology, from_numpy
@@ -510,6 +511,7 @@ __all__ = [
     "nni_neighbors_host",
     "parse_fasta_masks",
     "parse_nexus",
+    "parse_paml_rates",
     "parse_phylip",
     "prune_to_taxa",
     "relabel_leaves",

@@ -244,3 +244,50 @@ def encode_alignment_masks(rows: np.ndarray, alphabet: str) -> np.ndarray:
             "the alphabet or IUPAC table"
         )
     return masks
+
+
+def parse_paml_rates(text: str, n_states: int = 20) -> tuple[np.ndarray, np.ndarray]:
+    """Parse a PAML-format substitution-rate file (the published LG / WAG /
+    JTT amino-acid ``.dat`` layout, or any custom matrix in it).
+
+    Whitespace-separated numbers: the strictly-lower-triangular
+    exchangeabilities row by row (row i has i entries, i = 1..Q-1), then Q
+    stationary frequencies. Text after those numbers is ignored; ``#`` and
+    ``//`` start a comment.
+
+    Returns (rates (Q, Q) symmetric with a zero diagonal, freqs (Q,)
+    normalised), both float32: the ``fixed_rates``/``fixed_freqs`` of
+    ``ops.likelihood.optimize_model(model="empirical", ...)``.
+    """
+    values: list[float] = []
+    n_tri = n_states * (n_states - 1) // 2
+    needed = n_tri + n_states
+    for line in text.splitlines():
+        stripped = line.split("#")[0].split("//")[0]
+        for token in stripped.split():
+            try:
+                values.append(float(token))
+            except ValueError:
+                # Trailing text (matrix names, citations) ends the numbers
+                # only once every number is read.
+                if len(values) >= needed:
+                    break
+                raise ValueError(f"unexpected token {token!r} in PAML rate file") from None
+        if len(values) >= needed:
+            break
+    if len(values) < needed:
+        raise ValueError(
+            f"PAML rate file has {len(values)} numbers; "
+            f"need {n_tri} exchangeabilities + {n_states} frequencies"
+        )
+    rates = np.zeros((n_states, n_states))
+    k = 0
+    for i in range(1, n_states):
+        for j in range(i):
+            rates[i, j] = rates[j, i] = values[k]
+            k += 1
+    freqs = np.asarray(values[n_tri:needed], dtype=np.float64)
+    if (freqs < 0).any() or freqs.sum() <= 0:
+        raise ValueError("invalid frequencies in PAML rate file")
+    freqs = freqs / freqs.sum()
+    return rates.astype(np.float32), freqs.astype(np.float32)

@@ -23,7 +23,8 @@ from trex_tpu_torch.ops.likelihood import (
     _model,
     gtr_generator,
     highest_matmul_precision,
-    pruning_per_site,
+    Levels,
+    _level_pruning,
     tip_partials,
 )
 from trex_tpu_torch.topology import Topology
@@ -195,13 +196,11 @@ def optimize_branch_lengths_newton(
     weights = (
         None if site_weights is None else _f32(site_weights, device=device)
     )
-    children = topology.children.to(device)
+    levels = Levels(topology.children, device)
 
     def nll(lengths: torch.Tensor) -> torch.Tensor:
         """(K,) negative log-likelihoods of K length vectors (K, n_all)."""
-        per_site = pruning_per_site(
-            children.expand(lengths.shape[0], -1, -1), transition(lengths), tips, prior,
-        )
+        per_site = _level_pruning(levels, transition(lengths), tips, prior)
         if weights is not None:
             per_site = per_site * weights
         return -per_site.sum(dim=-1)
@@ -233,3 +232,91 @@ def optimize_branch_lengths_newton(
             lengths, current = candidates[best_index], values[best_index]
         curve.append(current)
     return lengths, torch.stack(curve)
+
+
+@highest_matmul_precision
+def marginal_ancestral_posteriors(
+    topology: Topology,
+    branch_lengths,
+    leaf_sequences,
+    n_states: int,
+    rates=None,
+    freqs=None,
+    *,
+    sequences_are_masks: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-node marginal posterior state probabilities and MAP states:
+    ``posterior(v) ∝ outside(v) * inside(v)``, normalised per site.
+
+    Returns (posteriors (n_all, Q, L), map_states (n_all, L) int32, the
+    first most probable state); leaf rows are the tips' data-informed
+    posteriors.
+    """
+    device = torch.as_tensor(leaf_sequences).device
+    pmats, prior, _ = _transitions(branch_lengths, n_states, rates, freqs, device)
+    inside = _inside_partials(topology, pmats, leaf_sequences, n_states, sequences_are_masks)
+    outside, _ = _outside_partials(topology, pmats, inside, prior)
+    joint = inside * outside
+    posteriors = joint / torch.clamp(joint.sum(dim=1, keepdim=True), min=1e-30)
+    return posteriors, posteriors.argmax(dim=1).to(torch.int32)
+
+
+@highest_matmul_precision
+def joint_ancestral_reconstruction(
+    topology: Topology,
+    branch_lengths,
+    leaf_sequences,
+    n_states: int,
+    rates=None,
+    freqs=None,
+    *,
+    sequences_are_masks: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Jointly most probable ancestral states (Pupko et al. 2000): per site
+    and node v,
+
+        M_v(s_p) = max_{s_v} [ log P_v(s_p -> s_v) + T_v(s_v) ],
+        T_v = sum of the children's M (leaves: 0 at allowed states,
+        -1e30 elsewhere),
+
+    the root maximising ``log prior + T_root``; the argmax tables are
+    replayed from the root down (first maximum on ties).
+
+    Returns (states (n_all, L) int32, joint_log_prob (L,)); ambiguous
+    leaves get their ML resolution.
+    """
+    leaves = torch.as_tensor(leaf_sequences)
+    device = leaves.device
+    n_leaves = topology.n_leaves
+    n_all = topology.n_all
+    length = leaves.shape[-1]
+    q = n_states
+    pmats, prior, _ = _transitions(branch_lengths, n_states, rates, freqs, device)
+    logp = torch.log(torch.clamp(pmats, min=1e-30))  # (n_all, Q_parent, Q_child)
+    allowed = tip_partials(leaves, q, sequences_are_masks) > 0
+    tip_scores = torch.where(allowed, 0.0, -1e30)  # (n_leaves, Q, L)
+
+    messages = torch.zeros((n_all, q, length), dtype=torch.float32, device=device)
+    argmax = torch.zeros((n_all, q, length), dtype=torch.int64, device=device)
+    subtree = torch.zeros((n_all, q, length), dtype=torch.float32, device=device)
+    cand = logp[:n_leaves, :, :, None] + tip_scores[:, None, :, :]
+    messages[:n_leaves], argmax[:n_leaves] = cand.max(dim=2)
+    subtree[:n_leaves] = tip_scores
+    del cand
+    pairs = topology.children.cpu().tolist()
+    for a, (c1, c2) in enumerate(pairs):
+        node = n_leaves + a
+        t_v = messages[c1] + messages[c2]
+        cand = logp[node][:, :, None] + t_v[None, :, :]
+        messages[node], argmax[node] = cand.max(dim=1)
+        subtree[node] = t_v
+    root_score = torch.log(prior)[:, None] + subtree[-1]
+    joint_log_prob, root_state = root_score.max(dim=0)
+    states = torch.zeros((n_all, length), dtype=torch.int64, device=device)
+    states[-1] = root_state
+    sites = torch.arange(length, device=device)
+    for a in range(len(pairs) - 1, -1, -1):
+        node_state = states[n_leaves + a]
+        for child in pairs[a]:
+            states[child] = argmax[child][node_state, sites]
+    return states.to(torch.int32), joint_log_prob

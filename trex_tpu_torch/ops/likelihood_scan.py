@@ -1,5 +1,6 @@
 """All-SPR scan under the likelihood criterion at fixed ranking lengths
-(counterpart of ``trex_tpu/ops/likelihood_scan.py``, one rate category).
+(counterpart of ``trex_tpu/ops/likelihood_scan.py``, with its rate
+mixtures).
 
 With every branch at one length t0, the likelihood of any SPR
 rearrangement is a local contraction of cached partials. Inserting node w
@@ -19,6 +20,8 @@ batched over the prune variants, like the parsimony scan.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -97,8 +100,9 @@ def _down_pass(p0, prior, var_children, inside, ls_in):
     return upstream, ls
 
 
-def _chunk_scores(p0, prior, prune_nodes, var_children, tips, weights):
-    """(C, n_all) negative log-likelihoods of one chunk of prune variants."""
+def _chunk_per_site(p0, prior, prune_nodes, var_children, tips):
+    """(C, n_all, L) per-site log-likelihoods of one chunk of prune
+    variants, in one rate category (transition ``p0``)."""
     inside, ls_in = _up_pass(p0, var_children, tips)
     upstream, ls_up = _down_pass(p0, prior, var_children, inside, ls_in)
     rows = torch.arange(prune_nodes.shape[0], device=tips.device)
@@ -110,10 +114,54 @@ def _chunk_scores(p0, prior, prune_nodes, var_children, tips, weights):
     del upstream
     site_lik = (joint * msg_s[:, None]).sum(dim=2)  # (C, n_all, L)
     del joint
-    per_site = (
-        torch.log(torch.clamp(site_lik, min=1e-30)) + ls_in + ls_up + ls_s[:, None, :]
-    )
-    return -(per_site * weights).sum(dim=-1)
+    return torch.log(torch.clamp(site_lik, min=1e-30)) + ls_in + ls_up + ls_s[:, None, :]
+
+
+def _mix(per_site_k, cat_log_w):
+    """Per-site mixture over the leading category axis (one category: the
+    values themselves)."""
+    if per_site_k.shape[0] == 1:
+        return per_site_k[0]
+    shape = (-1,) + (1,) * (per_site_k.dim() - 1)
+    return torch.logsumexp(per_site_k + cat_log_w.view(shape), dim=0)
+
+
+def _chunk_scores(p0s, cat_log_w, prior, prune_nodes, var_children, tips, weights):
+    """(C, n_all) negative log-likelihoods of one chunk of prune variants:
+    each category's passes in turn, mixed per site before the site sum."""
+    per_site_k = torch.stack([
+        _chunk_per_site(p0, prior, prune_nodes, var_children, tips) for p0 in p0s
+    ])
+    return -(_mix(per_site_k, cat_log_w) * weights).sum(dim=-1)
+
+
+def _category_transitions(n_states: int, ranking_branch_length, rates, freqs, *,
+                         gamma_shape=None, n_categories: int = 4, category_rates=None,
+                         category_weights=None, device=None):
+    """(P0s (K, Q, Q), per-category log-weights (K,), root prior (Q,)) of
+    the ranking model: every branch at ``ranking_branch_length`` times each
+    category's rate. ``category_rates`` (with optional
+    ``category_weights``, else equal) give an explicit mixture,
+    ``gamma_shape`` the equal-weight discrete Gamma, neither one category
+    at rate 1."""
+    from trex_tpu_torch.ops.likelihood import discrete_gamma_rates
+
+    log_w = None
+    if category_rates is not None:
+        cat_rates = _f32(category_rates, device=device)
+        if category_weights is not None:
+            w = _f32(category_weights, device=device)
+            log_w = torch.log(w / w.sum())
+    elif gamma_shape is not None:
+        cat_rates = discrete_gamma_rates(_f32(gamma_shape, device=device), n_categories)
+    else:
+        cat_rates = torch.ones((1,), dtype=torch.float32, device=device)
+    n_cat = cat_rates.shape[0]
+    if log_w is None:
+        log_w = torch.full((n_cat,), -math.log(float(n_cat)), dtype=torch.float32, device=device)
+    lengths = _f32(ranking_branch_length, device=device) * cat_rates
+    models = [fixed_length_model(n_states, t, rates, freqs, device) for t in lengths]
+    return torch.stack([p for p, _ in models]), log_w, models[0][1]
 
 
 @highest_matmul_precision
@@ -126,6 +174,10 @@ def likelihood_spr_scan(
     *,
     rates=None,
     freqs=None,
+    gamma_shape=None,
+    n_categories: int = 4,
+    category_rates=None,
+    category_weights=None,
     sequences_are_masks: bool = False,
     prune_nodes=None,
     prune_chunk: int | None = None,
@@ -140,8 +192,12 @@ def likelihood_spr_scan(
     unmodified tree's negative log-likelihood at the same lengths.
 
     ``rates``/``freqs``: optional GTR exchangeabilities and stationary
-    frequencies (both None: JC69). ``prune_chunk`` bounds how many prune
-    variants' (n_all, Q, L) tables are held at once.
+    frequencies (both None: JC69). A rate mixture (``gamma_shape`` with
+    ``n_categories``, or ``category_rates`` and ``category_weights``; see
+    ``_category_transitions``) runs the passes once per category and mixes
+    the per-site likelihoods before the site sum, as
+    ``tree_log_likelihood_gamma`` does. ``prune_chunk`` bounds how many
+    prune variants' (n_all, Q, L) tables are held at once.
     """
     leaves = torch.as_tensor(leaf_sequences)
     device = leaves.device
@@ -151,7 +207,11 @@ def likelihood_spr_scan(
         torch.ones((length,), dtype=torch.float32, device=device)
         if site_weights is None else _f32(site_weights, device=device)
     )
-    p0, prior = fixed_length_model(n_states, ranking_branch_length, rates, freqs, device)
+    p0s, cat_log_w, prior = _category_transitions(
+        n_states, ranking_branch_length, rates, freqs, gamma_shape=gamma_shape,
+        n_categories=n_categories, category_rates=category_rates,
+        category_weights=category_weights, device=device,
+    )
     children = topology.children.to(device=device, dtype=torch.int32)
     parents = topology.parents.to(device=device, dtype=torch.int32)
 
@@ -159,20 +219,22 @@ def likelihood_spr_scan(
     prune_nodes, var_children, siblings = prune_variants(children, parents, prune_nodes)
     var_children = var_children.to(torch.int64)
 
-    base_inside, base_ls = _up_pass(p0, children.to(torch.int64)[None], tips)
-    base_site = (
-        torch.log(torch.clamp((prior[:, None] * base_inside[0, -1]).sum(dim=0), min=1e-30))
-        + base_ls[0, -1]
-    )
-    base_score = -(base_site * weights).sum()
-    del base_inside, base_ls
+    base_site = []
+    for p0 in p0s:
+        base_inside, base_ls = _up_pass(p0, children.to(torch.int64)[None], tips)
+        base_site.append(
+            torch.log(torch.clamp((prior[:, None] * base_inside[0, -1]).sum(dim=0), min=1e-30))
+            + base_ls[0, -1]
+        )
+        del base_inside, base_ls
+    base_score = -(_mix(torch.stack(base_site), cat_log_w) * weights).sum()
 
     n_prune = prune_nodes.shape[0]
     step = n_prune if prune_chunk is None else max(1, prune_chunk)
     scores = torch.cat([
         _chunk_scores(
-            p0, prior, prune_nodes[s0 : s0 + step], var_children[s0 : s0 + step],
-            tips, weights,
+            p0s, cat_log_w, prior, prune_nodes[s0 : s0 + step],
+            var_children[s0 : s0 + step], tips, weights,
         )
         for s0 in range(0, n_prune, step)
     ])
@@ -188,6 +250,10 @@ def likelihood_spr_scan_best_segmented(
     *,
     rates=None,
     freqs=None,
+    gamma_shape=None,
+    n_categories: int = 4,
+    category_rates=None,
+    category_weights=None,
     sequences_are_masks: bool = False,
     prune_chunk: int | None = None,
     max_cells: int | None = None,
@@ -198,8 +264,9 @@ def likelihood_spr_scan_best_segmented(
     return best_over_segments(
         lambda pn: likelihood_spr_scan(
             topology, leaf_sequences, n_states, ranking_branch_length,
-            site_weights, rates=rates, freqs=freqs,
-            sequences_are_masks=sequences_are_masks,
+            site_weights, rates=rates, freqs=freqs, gamma_shape=gamma_shape,
+            n_categories=n_categories, category_rates=category_rates,
+            category_weights=category_weights, sequences_are_masks=sequences_are_masks,
             prune_nodes=pn, prune_chunk=prune_chunk,
         ),
         topology.n_all, torch.as_tensor(leaf_sequences).device, max_cells,

@@ -3,7 +3,7 @@
 
 Candidates are ranked by pruning log-likelihood with every branch fixed at
 one length (the standard fast heuristic); the winner's branch lengths are
-then fitted by damped Newton sweeps (``ops.likelihood_asr``).
+then fitted by damped Newton sweeps (``ops.likelihood_asr``) or by Adam.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import time
 import torch
 
 from trex_tpu_torch._device import resolve_device
-from trex_tpu_torch.ops.likelihood import _f32, fixed_length_model
+from trex_tpu_torch.ops.likelihood import _f32, fixed_length_model, optimize_branch_lengths
 from trex_tpu_torch.ops.likelihood_asr import optimize_branch_lengths_newton
 from trex_tpu_torch.ops.likelihood_cuda import batched_log_likelihood_cuda
 from trex_tpu_torch.search.hillclimb import SearchResult, parsimony_hill_climb
@@ -36,21 +36,31 @@ def ml_hill_climb(
     freqs=None,
     gamma_shape=None,
     category_rates=None,
+    category_weights=None,
+    n_length_iterations: int = 400,
     device=None,
     timings: dict | None = None,
 ) -> tuple[SearchResult, torch.Tensor, torch.Tensor]:
-    """Greedy ML topology search, then the Newton branch-length fit.
+    """Greedy ML topology search, then the branch-length fit.
 
     Candidates are ranked by log-likelihood with every branch at
     ``ranking_branch_length`` (negated: the climber minimises).
-    ``neighborhood="nni"`` scores each round's 2(n-2) NNI neighbours in one
-    call of ``ops.likelihood_cuda.batched_log_likelihood_cuda`` (K3/K4 on
-    the card) against one shared transition matrix; ``"spr-scan"``
-    evaluates the whole SPR neighbourhood analytically per round
+    ``neighborhood="nni"``, ``"spr"`` or ``"tbr"`` scores each round's
+    enumerated neighbours (the native move library) in one call of
+    ``ops.likelihood_cuda.batched_log_likelihood_cuda`` (K3/K4 on the card)
+    against one shared transition matrix; ``"spr-scan"`` evaluates the
+    whole SPR neighbourhood analytically per round
     (``ops.likelihood_scan``), exact for the same all-fixed-length
     candidates. ``rates``/``freqs``: optional GTR model (JC69 otherwise).
+    ``gamma_shape`` (+G) or ``category_rates``/``category_weights``
+    (FreeRate; +I as a rate-0 class): mixture-aware ranking, ``"spr-scan"``
+    only (the kernel returns site sums, which cannot be mixed per site).
     ``sequences_are_masks``: leaves are int32 state-set bitmasks.
     ``site_weights``: per-site multiplicities (compressed patterns).
+    ``length_optimizer``: ``"newton"`` (damped analytic Newton sweeps) or,
+    on the enumerating neighbourhoods, ``"adam"`` (``n_length_iterations``
+    steps of ``ops.likelihood.optimize_branch_lengths``); the scan
+    neighbourhood always fits by Newton, as the reference does.
     ``device``: where the search runs; default the device of a tensor
     ``leaf_sequences``, else ``cuda``. ``timings``: a dict that, when
     given, receives the wall seconds of the climb (``"climb"``) and of the
@@ -61,24 +71,12 @@ def ml_hill_climb(
     are the fitted ones (the fixed ones when ``optimize_final_lengths`` is
     False, with the curve holding the ranking score alone).
     """
-    if gamma_shape is not None or category_rates is not None:
-        raise NotImplementedError(
-            "rate-mixture ranking (gamma_shape, category_rates) is not ported "
-            "yet: the model-fitting slice of ROADMAP.md (slice 2, item 7)"
-        )
-    if neighborhood in ("spr", "tbr"):
-        raise NotImplementedError(
-            f"ML ranking of the {neighborhood!r} neighborhood is not ported yet: "
-            "slice 1b ported its generator for parsimony; its ML ranking is "
-            "slice 2b of ROADMAP.md (queue A item 3)"
-        )
-    if neighborhood not in ("nni", "spr-scan"):
+    if (gamma_shape is not None or category_rates is not None) and neighborhood != "spr-scan":
+        raise ValueError("rate-mixture-aware ranking needs neighborhood='spr-scan'")
+    if neighborhood not in ("nni", "spr", "tbr", "spr-scan"):
         raise ValueError(f"unknown neighborhood {neighborhood!r}")
-    if length_optimizer != "newton":
-        raise NotImplementedError(
-            f"length_optimizer={length_optimizer!r} is not ported yet: a later "
-            "slice of ROADMAP.md (slice 2, item 7: optimize_branch_lengths)"
-        )
+    if length_optimizer not in ("newton", "adam"):
+        raise ValueError(f"unknown length_optimizer {length_optimizer!r}")
     if device is None and torch.is_tensor(leaf_sequences):
         device = leaf_sequences.device
     device = resolve_device("cuda" if device is None else device)
@@ -97,7 +95,8 @@ def ml_hill_climb(
             start, leaves, n_states,
             ranking_branch_length=ranking_branch_length, max_rounds=max_rounds,
             site_weights=weights, sequences_are_masks=sequences_are_masks,
-            rates=rates, freqs=freqs,
+            rates=rates, freqs=freqs, gamma_shape=gamma_shape,
+            category_rates=category_rates, category_weights=category_weights,
         )
     else:
         # Every ranking branch has the same length, so one (Q, Q) matrix
@@ -116,7 +115,7 @@ def ml_hill_climb(
 
         result = parsimony_hill_climb(  # the generic greedy climber, ML objective
             start, torch.zeros((n_states, n_states), device=device), leaves,
-            max_rounds=max_rounds, neighborhood="nni",
+            max_rounds=max_rounds, neighborhood=neighborhood,
             score_batch_fn=score_batch, device=device,
         )
 
@@ -125,6 +124,13 @@ def ml_hill_climb(
     if not optimize_final_lengths:
         lengths = torch.full((n_all,), float(ranking_branch_length), device=device)
         losses = torch.tensor([result.score], device=device)
+    elif length_optimizer == "adam" and neighborhood != "spr-scan":
+        lengths, losses = optimize_branch_lengths(
+            result.topology, leaves, n_states, init_length=ranking_branch_length,
+            n_iterations=n_length_iterations, rates=rates, freqs=freqs,
+            sequences_are_masks=sequences_are_masks, site_weights=weights,
+        )
+        _sync(device)
     else:
         lengths, losses = optimize_branch_lengths_newton(
             result.topology, leaves, n_states, rates, freqs,
@@ -154,8 +160,12 @@ def _ml_scan_climb(
     sequences_are_masks: bool,
     rates=None,
     freqs=None,
+    gamma_shape=None,
+    category_rates=None,
+    category_weights=None,
 ) -> SearchResult:
-    """Greedy ML climb where each round is one analytic likelihood scan.
+    """Greedy ML climb where each round is one analytic likelihood scan
+    (rate-mixture aware with ``gamma_shape`` or ``category_rates``).
 
     ``evaluations`` counts scored candidates (finite scan entries).
     """
@@ -165,17 +175,26 @@ def _ml_scan_climb(
 
     n_all = start.n_all
     length = leaves.shape[-1]
-    # Each prune variant holds (Q+1)-wide f32 inside and upstream tables.
+    # Each prune variant holds (Q+1)-wide f32 inside and upstream tables,
+    # and under a mixture one (n_all, L) f32 per-site table a category until
+    # the categories are mixed.
+    if category_rates is not None:
+        n_cat = len(category_rates)
+    elif gamma_shape is not None:
+        n_cat = 4
+    else:
+        n_cat = 0
     prune_chunk = auto_prune_chunk(
-        n_all - 1, n_all * length * (n_states + 1) * 4 * 2,
+        n_all - 1, n_all * length * 4 * ((n_states + 1) * 2 + n_cat),
         scan_budget_bytes(leaves.device),
     )
 
     def run_scan(topo):
         return likelihood_spr_scan_best_segmented(
             topo, leaves, n_states, ranking_branch_length, site_weights,
-            rates=rates, freqs=freqs, sequences_are_masks=sequences_are_masks,
-            prune_chunk=prune_chunk,
+            rates=rates, freqs=freqs, gamma_shape=gamma_shape,
+            category_rates=category_rates, category_weights=category_weights,
+            sequences_are_masks=sequences_are_masks, prune_chunk=prune_chunk,
         )
 
     current = start
