@@ -75,7 +75,7 @@ launch count set to 0 just before it and read just after:
   with the analytic scan under the fitted +G mixture (``--rounds 3``) and
   with NNI (``--rounds 10``, K3 ranking under the fitted GTR matrix and
   prior), each with its walls (start, climb, Newton, fit, rounds), fitted
-  parameters, launches, peak memory and a profiled 50-step fit (launches
+  parameters, launches, peak memory and a profiled 20-step fit (launches
   a step, idle share), and that fit profiled on a 512-taxon caterpillar
   (511 levels); K3 held at the NNI route's own batch under that
   model; the protein route (``--model empirical+g --model-file`` a
@@ -85,7 +85,29 @@ launch count set to 0 just before it and read just after:
   the seed; ``ml`` with its defaults (K3 ranking SPR neighbourhoods); and
   card against CPU at 24 x 300: ``infer`` under gtr+g, hky+i, jc+r3 and
   empirical on both neighbourhoods, ``score --criterion ml``, the ML ASR
-  functions under one fit, and ``trait``.
+  functions under one fit, and ``trait``. The scan variant runs on a
+  GTR+G alignment of 128 x 1024 (its +G scan rounds cost about 28 s each
+  at 512 x 2048); ``score_ml`` and ``trait`` read the NNI variant's tree.
+
+- slice 2c (the rest of ML and distance ``infer``, ``modeltest``,
+  ``partition``): the ML support route (``infer --criterion ml --start nj
+  --neighborhood nni --rounds 10 --bootstrap 8`` on the main path's 512 x
+  2048 alignment: the NJ start's distance matrix held card against CPU,
+  the K3 climb, Newton, 8 ML bootstrap replicates whose candidate batches
+  K4's per-branch mode ranks, held at replicate 0's first batch against
+  its plain version, its bound, the P table's build and K3 on the same
+  batch); the ML ratchet route (``--ratchet 3``, 512 x 2048, K3 held at
+  its final batch); the constrained ML climb (a 16-taxon clade, 128 x
+  1024, K3 held at its filtered batch); the distance route (``--criterion
+  distance --bootstrap 20`` and ``--start upgma``, 512 x 2048, the
+  replicates' matrices timed apart from the host agglomeration);
+  ``modeltest --models jc,hky+g,gtr+g`` on the GTR+G alignment and the NNI
+  model route's tree (BIC must pick gtr+g), with a profiled 20-step HKY+G
+  fit; ``partition --search --models gtr,hky+g`` on two genes of 512
+  sites at 128 x 1024 (the second on twice the lengths: its multiplier
+  beside 2.0); each printed tree's JC ranking log-likelihood rescored by
+  K3 and on the CPU; and every new flag and command card against CPU at
+  24 x 300.
 
 K1 is also captured in a CUDA graph, larger calls run, and the graph
 replayed (each call's scratch is its own: bit-equal to the plain version);
@@ -117,6 +139,7 @@ import io
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -218,8 +241,13 @@ K34_RTOL = 1e-5
 RANKING_LENGTH = 0.1
 
 
+_STARTED = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, with the script's seconds so far (``at_s``)."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - _STARTED, **fields}),
+          flush=True)
 
 
 def simulate_fasta(
@@ -665,7 +693,8 @@ def strip_lengths(newick: str) -> str:
 def run_cli(argv: list[str]):
     """A command in this process; returns what its ``run_*`` function
     returns (``infer``: InferRun; ``bench``, ``search-run``, ``ml``: the
-    JSON object and the scores, params or inputs; else the JSON object)."""
+    JSON object and the scores, params or inputs; else the JSON object,
+    ``partition`` and ``modeltest`` too)."""
     from trex_tpu_torch.cli import build_parser
     from trex_tpu_torch.cli.infer import run_infer
     from trex_tpu_torch.cli.score import run_asr, run_score, run_trait
@@ -677,9 +706,12 @@ def run_cli(argv: list[str]):
         run_search_run,
     )
 
+    from trex_tpu_torch.cli.models import run_modeltest, run_partition
+
     run = {"infer": run_infer, "score": run_score, "bench": run_bench, "search": run_search,
            "asr": run_asr, "nk-bench": run_nk_bench, "search-run": run_search_run,
-           "ml": run_ml, "trait": run_trait}[argv[0]]
+           "ml": run_ml, "trait": run_trait, "partition": run_partition,
+           "modeltest": run_modeltest}[argv[0]]
     with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
         return run(build_parser().parse_args(argv))
 
@@ -731,7 +763,7 @@ def profile_phase(torch, fn, unprofiled_wall: float | None) -> dict:
 # (stopped after 2 segments and resumed).
 SEARCH_ARGS = ["search", "--leaves", "128", "--sites", "1024", "--iterations", "3000"]
 ASR_ARGS = ["asr", "--leaves", "128", "--sites", "1024"]
-NK_ITERATIONS, NK_LEAVES, NK_SITES = 1000, 32, 128
+NK_ITERATIONS, NK_LEAVES, NK_SITES = 300, 32, 128
 NK_ARGS = ["nk-bench", "--leaves", str(NK_LEAVES), "--sites", str(NK_SITES),
            "--k-values", "1", "2", "5", "10", "--lambdas", "0", "0.3", "3.0",
            "--iterations", str(NK_ITERATIONS)]
@@ -766,8 +798,8 @@ def differentiable_routes(torch, dev, workdir: str, diff_fasta: str, reset_count
     """The five routes of the differentiable core, each with every launch
     count set to 0 just before it and read just after: wall, launches a
     descent step and idle share (a window of ``WINDOW_STEPS`` steps at the
-    route's width under the profiler; the diff route's whole ``infer``
-    too), and K1's launches. Returns K1's diff-route launches and the
+    route's width under the profiler; the diff route's
+    start too), and K1's launches. Returns K1's diff-route launches and the
     route records."""
     from trex_tpu_torch.alignment import compress_alignment
     from trex_tpu_torch.cli._common import (
@@ -803,7 +835,12 @@ def differentiable_routes(torch, dev, workdir: str, diff_fasta: str, reset_count
     patterns, pattern_counts = compress_alignment(masks)
     patterns = np.asarray(patterns, dtype=np.int32)
     weights = torch.as_tensor(pattern_counts, dtype=torch.float32, device=dev)
-    ranked = diff_start(patterns, n_states, 0, weights, dev)
+    def start():
+        result = diff_start(patterns, n_states, 0, weights, dev)
+        torch.cuda.synchronize()
+        return result
+
+    ranked, start_wall = timed(start)
     plain = batched_fitch_score_plain(ranked.trees.children, torch.as_tensor(patterns, device=dev),
                                       weights)
     if not torch.equal(ranked.scores, plain):
@@ -821,7 +858,10 @@ def differentiable_routes(torch, dev, workdir: str, diff_fasta: str, reset_count
         start_s=run.seconds["start"], climb_s=run.seconds["climb"], wall_s=wall,
         launches=counts, k1_launches=counts["k1"], projected_scores=ranked.scores.tolist(),
         k1_equal_to_plain=True, descent_window=window,
-        route_profile=profile_phase(torch, lambda: run_cli(diff_argv), wall))
+        # The start alone: the climb is the main path's SPR scan, profiled
+        # there, and tracing its 100 rounds' 620,000 launches took about
+        # 100 s of the script.
+        start_profile=profile_phase(torch, start, start_wall))
     emit("diff_route", **routes["diff"])
 
     # search: 8 restarts x 3000 steps on a generated 128-leaf tree.
@@ -1318,9 +1358,10 @@ def slice_1b_reference(torch, workdir: str, ref_fasta: str) -> list[dict]:
 # The phases ``--phases`` selects from; ``card`` and ``build`` always run.
 # A phase named here runs the phases it needs first (REQUIRES).
 PHASES = ("card", "build", "native", "kernels", "routes", "differentiable", "slice_1b",
-          "reference", "ml_models", "score_ml", "trait", "ml", "protein", "reference_2b")
+          "reference", "ml_models", "score_ml", "trait", "ml", "protein", "reference_2b",
+          "slice_2c", "reference_2c")
 REQUIRES = {"routes": ("kernels",), "slice_1b": ("kernels", "routes"),
-            "score_ml": ("ml_models",), "trait": ("ml_models",)}
+            "score_ml": ("ml_models",), "trait": ("ml_models",), "slice_2c": ("ml_models",)}
 SLICE_2B_PHASES = ("ml_models", "score_ml", "trait", "ml", "protein")
 # The phases whose measurements make up the kernels line's full entries.
 EARLIER_PHASES = {"kernels", "routes", "differentiable", "slice_1b"}
@@ -1347,21 +1388,43 @@ def parse_phases(argv: list[str]) -> set[str]:
     return chosen
 
 
-def k3_model_entry(slice_2b: dict) -> dict | None:
-    """K3's kernels-line entry from slice 2b's measurements alone (a run of
-    a subset of the phases), or None when none was taken."""
+def k3_model_entry(slice_2b: dict, slice_2c: dict) -> dict | None:
+    """K3/K4's kernels-line entry from slice 2b's and 2c's measurements
+    alone (a run of a subset of the phases), or None when none was taken:
+    K4's per-branch mode at the ML bootstrap's batch where slice 2c ran."""
     batches = slice_2b.get("at_model_routes") or {}
-    if not batches:
+    if not batches and not slice_2c:
         return None
-    first = batches.get("gtr_nni") or next(iter(batches.values()))
+    first = slice_2c.get("at_ml_bootstrap") or batches.get("gtr_nni") or next(
+        iter(batches.values()))
+    launches = {**slice_2b.get("launches", {}),
+                **{k: v["k34"] for k, v in slice_2c.get("launches", {}).items()}}
     return {
         "name": "likelihood_batched", "route": "cuda",
         "source": "trex_tpu_torch/csrc/likelihood_batched.cu",
-        "replaces": "trex_tpu/ops/likelihood_pallas.py:255",
-        "launches": sum(slice_2b["launches"].values()),
-        "model_route_launches": slice_2b["launches"],
+        "replaces": ["trex_tpu/ops/likelihood_pallas.py:255",
+                     "trex_tpu/ops/likelihood_pallas.py:135"],
+        "launches": sum(launches.values()),
+        "route_launches": launches,
         **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "at_model_routes": batches,
+        **slice_2c_fields(slice_2c),
+    }
+
+
+def slice_2c_fields(slice_2c: dict) -> dict:
+    """The K3/K4 entry's fields from slice 2c: the routes' launches by
+    mode, K4 at the ML bootstrap's batch, K3 at the ratchet's and the
+    constrained climb's."""
+    if not slice_2c:
+        return {}
+    return {
+        "slice_2c_route_launches": {
+            route: {k: v[k] for k in ("k34", "k34_shared", "k34_per_branch")}
+            for route, v in slice_2c["launches"].items()},
+        "at_ml_bootstrap": slice_2c["at_ml_bootstrap"],
+        "at_ml_ratchet": slice_2c["at_ml_ratchet"],
+        "at_ml_constraint": slice_2c["at_ml_constraint"],
     }
 
 
@@ -1377,19 +1440,21 @@ TRUE_GTR = dict(
 MODEL_SHAPE = dict(n_taxa=512, n_sites=2048)
 PROTEIN_SHAPE = dict(n_taxa=128, n_sites=1024)
 MODEL_BRANCH = (0.02, 0.15)
+# The scan variant runs at ML_SCAN_SHAPE (its +G scan rounds cost about 28
+# s each at 512 x 2048); the NNI variant at MODEL_SHAPE.
 MODEL_ROUTES = {
     "scan": ["--model", "gtr+g", "--model-rounds", "1", "--rounds", "3"],
     "nni": ["--neighborhood", "nni", "--model", "gtr+g", "--model-rounds", "1",
             "--rounds", "10"],
 }
 # Adam steps of the profiled fit (the route's fits run the CLI's 800).
-PROFILED_STEPS = 50
+PROFILED_STEPS = 20
 # Adam steps of the caterpillar fit's profile (511 levels a pass, each launch traced).
-DEEP_FIT_STEPS = 10
+DEEP_FIT_STEPS = 3
 # Adam steps of every fit in the card-against-CPU reference (both devices
 # alike; the full-width routes run the CLI's 800): a fit is launch-bound,
 # about 15 ms a step on either device at 24 taxa.
-REF_FIT_STEPS = 100
+REF_FIT_STEPS = 50
 MODEL_REF_CASES = (
     ("gtr+g", "spr-scan"), ("gtr+g", "nni"), ("hky+i", "spr-scan"), ("hky+i", "nni"),
     ("jc+r3", "spr-scan"), ("jc+r3", "nni"), ("empirical", "spr-scan"), ("empirical", "nni"),
@@ -1426,8 +1491,11 @@ def simulate_model_fasta(path: str, n_taxa: int, n_sites: int, seed: int, rates,
                          branch=MODEL_BRANCH, missing: float = 0.01) -> None:
     """An alignment down a random coalescent tree (branch lengths uniform in
     ``branch``) under the reversible model (``rates``, ``freqs``) with
-    four equal-weight discrete-Gamma rate categories, a ``missing`` share of
-    characters replaced by '-'."""
+    four equal-weight discrete-Gamma rate categories (``gamma_shape`` None:
+    one rate), a ``missing`` share of characters replaced by '-'. Every
+    draw's count is fixed by the shapes, so one seed gives one tree and one
+    set of uniform draws whatever the model: with ``branch`` doubled, the
+    same tree with every length doubled."""
     import torch
 
     from trex_tpu_torch.ops.likelihood import discrete_gamma_rates, gtr_generator
@@ -1437,7 +1505,8 @@ def simulate_model_fasta(path: str, n_taxa: int, n_sites: int, seed: int, rates,
     freqs = np.asarray(freqs, np.float64)
     gen = gtr_generator(torch.as_tensor(rates, dtype=torch.float32),
                         torch.as_tensor(freqs, dtype=torch.float32)).double()
-    cat_rates = discrete_gamma_rates(gamma_shape, 4).double()
+    cat_rates = (torch.ones(4, dtype=torch.float64) if gamma_shape is None
+                 else discrete_gamma_rates(gamma_shape, 4).double())
     site_cat = rng.integers(0, 4, n_sites)
     kids: dict[int, tuple[int, int]] = {}
     active = list(range(n_taxa))
@@ -1551,37 +1620,48 @@ def model_route(torch, dev, fasta: str, argv_tail: list[str], reset_counts, laun
 
 def slice_2b_routes(torch, dev, workdir: str, phases: set, reset_counts, launch_counts,
                     timer) -> dict:
-    """Slice 2b's routes at full width: the model routes (GTR+G on 512 x
-    2048, scan and NNI variants), the protein route (empirical+G at 20
-    states, 128 x 1024), ``score --criterion ml`` with joint ASR and site
-    rates, ``trait`` and ``ml``; each with every count set to 0 just before
-    it. K3 is held at the NNI routes' own batches under their models.
-    Returns the K3 measurements and launches for the kernels line."""
+    """Slice 2b's routes: the model routes (GTR+G, the NNI variant on 512 x
+    2048, the scan variant on 128 x 1024), the protein route (empirical+G at
+    20 states, 128 x 1024), ``score --criterion ml`` with joint ASR and
+    site rates and ``trait`` on the NNI variant's tree, and ``ml``; each
+    with every count set to 0 just before it. K3 is held at the NNI routes'
+    own batches under their models. Returns the K3 measurements and
+    launches for the kernels line, the GTR+G alignment and the NNI
+    variant's tree."""
     from trex_tpu_torch.alignment import compress_alignment
     from trex_tpu_torch.cli._common import _load_alignment
     from trex_tpu_torch.io import nni_neighbors_host
     from trex_tpu_torch.ops.likelihood import fixed_length_model
 
     found: dict = {"at_model_routes": {}, "launches": {}}
-    gtr_fasta = os.path.join(workdir, "gtr_g.fasta")
-    simulate_model_fasta(gtr_fasta, MODEL_SHAPE["n_taxa"], MODEL_SHAPE["n_sites"], SEED + 9,
-                         pair_matrix(TRUE_GTR["pair_rates"], 4), TRUE_GTR["freqs"],
-                         TRUE_GTR["gamma_shape"])
-    _, aln, _ = _load_alignment(gtr_fasta, "dna")
-    patterns, counts = compress_alignment(aln)
-    pat_t = torch.as_tensor(patterns.astype(np.int32), device=dev)
-    w_t = torch.as_tensor(counts.astype(np.float32), device=dev)
+
+    def gtr_alignment(name: str, shape: dict, seed: int):
+        fasta = os.path.join(workdir, name)
+        simulate_model_fasta(fasta, shape["n_taxa"], shape["n_sites"], seed,
+                             pair_matrix(TRUE_GTR["pair_rates"], 4), TRUE_GTR["freqs"],
+                             TRUE_GTR["gamma_shape"])
+        _, aln, _ = _load_alignment(fasta, "dna")
+        patterns, counts = compress_alignment(aln)
+        return (fasta, torch.as_tensor(patterns.astype(np.int32), device=dev),
+                torch.as_tensor(counts.astype(np.float32), device=dev))
+
+    gtr_fasta, pat_t, w_t = gtr_alignment("gtr_g.fasta", MODEL_SHAPE, SEED + 9)
+    found.update(gtr_fasta=gtr_fasta, gtr_patterns=pat_t, gtr_weights=w_t)
+    variants = {"nni": (gtr_fasta, pat_t, w_t)}
+    if "ml_models" in phases:
+        variants["scan"] = gtr_alignment("gtr_g_scan.fasta", ML_SCAN_SHAPE, SEED + 17)
     truth = gtr_truth()
 
     if "ml_models" in phases:
         for variant, tail in MODEL_ROUTES.items():
-            run, fields, tree_path = model_route(torch, dev, gtr_fasta, tail, reset_counts,
+            fasta, v_pat, v_w = variants[variant]
+            run, fields, tree_path = model_route(torch, dev, fasta, tail, reset_counts,
                                                  launch_counts, workdir, f"gtr_{variant}")
             k3 = fields["launches"]["k34"]
             if (k3 > 0) != (variant == "nni") or fields["launches"]["k2"] <= 0:
                 raise AssertionError(f"ml_model_route {variant}: launches {fields['launches']}")
             found["launches"][f"gtr_{variant}"] = k3
-            profile = fit_profile(torch, run.result.topology, pat_t, w_t, 4, "gtr+g")
+            profile = fit_profile(torch, run.result.topology, v_pat, v_w, 4, "gtr+g")
             row = dict(variant=variant, truth=truth, **fields, k3_launches=k3,
                        fit_profile=profile)
             if variant == "nni":
@@ -1595,8 +1675,7 @@ def slice_2b_routes(torch, dev, workdir: str, phases: set, reset_counts, launch_
                     **k3_model_batch(torch, dev, batch, pat_t, w_t, prior.contiguous(),
                                      p.contiguous(), timer))
                 del batch
-            else:
-                found["scan_tree"] = tree_path
+                found["nni_tree"] = tree_path
             emit("ml_model_route", **row)
         # The same fit on a caterpillar over the route's patterns: the
         # deepest tree (511 levels), where the pruning's traffic and launches
@@ -1611,7 +1690,7 @@ def slice_2b_routes(torch, dev, workdir: str, phases: set, reset_counts, launch_
 
     if "score_ml" in phases:
         rates_file = os.path.join(workdir, "site_rates.tsv")
-        argv = ["score", "--alignment", gtr_fasta, "--tree", found["scan_tree"], "--criterion",
+        argv = ["score", "--alignment", gtr_fasta, "--tree", found["nni_tree"], "--criterion",
                 "ml", "--model", "gtr+g", "--asr", "joint", "--site-rates", rates_file]
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -1629,9 +1708,9 @@ def slice_2b_routes(torch, dev, workdir: str, phases: set, reset_counts, launch_
 
     if "trait" in phases:
         traits = os.path.join(workdir, "traits.tsv")
-        write_traits(traits, found["scan_tree"], SEED + 10)
+        write_traits(traits, found["nni_tree"], SEED + 10)
         reset_counts()
-        out, wall = timed_cli(torch, ["trait", "--tree", found["scan_tree"], "--traits", traits])
+        out, wall = timed_cli(torch, ["trait", "--tree", found["nni_tree"], "--traits", traits])
         if (not np.isfinite(out["log_likelihood"])
                 or len(out["ancestral_nodes"]) != MODEL_SHAPE["n_taxa"] - 1):
             raise AssertionError(f"trait: {out['mk_rate']}, {out['log_likelihood']}")
@@ -1821,6 +1900,518 @@ def _slice_2b_reference(torch, workdir: str) -> list[dict]:
 
 
 
+# Slice 2c: the rest of ML and distance infer, modeltest and partition.
+ML_SUPPORT_ARGS = ["--criterion", "ml", "--start", "nj", "--neighborhood", "nni", "--rounds",
+                   "10", "--bootstrap", "8"]
+ML_RATCHET_ARGS = ["--criterion", "ml", "--neighborhood", "nni", "--rounds", "10",
+                   "--ratchet", "3"]
+DISTANCE_REPLICATES = 20
+MODELTEST_MODELS = "jc,hky+g,gtr+g"
+# partition --search at ML_SCAN_SHAPE: gene 1 under GTR (TRUE_GTR's
+# exchangeabilities and frequencies, one rate), gene 2 under HKY+G on the
+# same tree with every branch twice as long.
+GENE2 = dict(kappa=4.0, freqs=(0.25, 0.3, 0.25, 0.2), gamma_shape=0.6, multiplier=2.0)
+# Adam steps of the card-against-CPU reference's modeltest and partition
+# fits (both devices alike).
+REF_2C_STEPS = 50
+
+
+def hky_rates(kappa: float) -> np.ndarray:
+    """HKY exchangeabilities: ``kappa`` on the transitions A<->G and C<->T."""
+    rates = np.ones((4, 4)) - np.eye(4)
+    rates[0, 2] = rates[2, 0] = rates[1, 3] = rates[3, 1] = kappa
+    return rates
+
+
+def partition_alignment(workdir: str, n_taxa: int, n_sites: int, seed: int,
+                        branch=MODEL_BRANCH) -> tuple[str, str]:
+    """A two-gene FASTA of ``n_sites`` / 2 sites each, one tree: gene 1
+    under GTR, gene 2 under HKY+G with every length times GENE2's
+    multiplier; returns (FASTA, RAxML partition file)."""
+    half = n_sites // 2
+    genes = []
+    for gene, (rates, freqs, shape, scale) in enumerate((
+            (pair_matrix(TRUE_GTR["pair_rates"], 4), TRUE_GTR["freqs"], None, 1.0),
+            (hky_rates(GENE2["kappa"]), GENE2["freqs"], GENE2["gamma_shape"],
+             GENE2["multiplier"]))):
+        path = os.path.join(workdir, f"gene{gene + 1}_{n_taxa}.fasta")
+        simulate_model_fasta(path, n_taxa, half, seed, rates, freqs, shape,
+                             branch=(branch[0] * scale, branch[1] * scale))
+        with open(path) as fh:
+            genes.append(fh.read().splitlines())
+    fasta = os.path.join(workdir, f"partitioned_{n_taxa}.fasta")
+    with open(fasta, "w") as fh:
+        for line1, line2 in zip(*genes, strict=True):
+            fh.write((line1 if line1.startswith(">") else line1 + line2) + "\n")
+    parts = os.path.join(workdir, f"partitions_{n_taxa}.txt")
+    with open(parts, "w") as fh:
+        fh.write(f"DNA, gene1 = 1-{half}\nDNA, gene2 = {half + 1}-{2 * half}\n")
+    return fasta, parts
+
+
+def unrooted_splits(topology) -> set[frozenset[int]]:
+    """The nontrivial splits of a rooted tree read as unrooted, each named
+    by its side without leaf 0."""
+    from trex_tpu_torch.search.bootstrap import subtree_leaf_sets
+
+    n = topology.n_leaves
+    sides = (s if 0 not in s else frozenset(range(n)) - s for s in subtree_leaf_sets(topology))
+    return {s for s in sides if 2 <= len(s) <= n - 2}
+
+
+def nj_first_different_join(card: np.ndarray, cpu: np.ndarray, card_joins: np.ndarray,
+                             cpu_joins: np.ndarray) -> dict | None:
+    """Where NJ on the card's distance matrix first joins another pair than
+    on the CPU's: None if every join is the same, else the join's index,
+    the rows still active, both pairs and, on each matrix, Q(i, j) =
+    (r - 2) d(i, j) - R(i) - R(j) at both pairs, with the gap between them
+    relative to |Q| at the matrix's own pick. Each matrix is reduced along
+    the joins both runs share, as ``search.nj.neighbor_joining`` reduces it;
+    ``*_joins`` are its (n - 1, 2) children rows, the joins in order."""
+    step = next((a for a in range(len(cpu_joins))
+                 if tuple(card_joins[a]) != tuple(cpu_joins[a])), None)
+    if step is None:
+        return None
+    found = dict(join=step, active_rows=len(cpu_joins) + 1 - step,
+                 card_pair=[int(x) for x in card_joins[step]],
+                 cpu_pair=[int(x) for x in cpu_joins[step]])
+    n_leaves = card.shape[0]
+    for key, d0 in (("card", card), ("cpu", cpu)):
+        d = np.asarray(d0, np.float64).copy()
+        ids = list(range(n_leaves))
+        for a in range(step):
+            i, j = ids.index(int(cpu_joins[a][0])), ids.index(int(cpu_joins[a][1]))
+            new_row = 0.5 * (d[i] + d[j] - d[i, j])
+            keep = [k for k in range(len(ids)) if k not in (i, j)]
+            nd = np.zeros((len(keep) + 1, len(keep) + 1))
+            nd[:-1, :-1] = d[np.ix_(keep, keep)]
+            nd[-1, :-1] = nd[:-1, -1] = new_row[keep]
+            d = nd
+            ids = [ids[k] for k in keep] + [n_leaves + a]
+        r = d.shape[0]
+        row_sums = d.sum(axis=1)
+
+        def q_at(pair):
+            i, j = ids.index(pair[0]), ids.index(pair[1])
+            return float((r - 2) * d[i, j] - row_sums[i] - row_sums[j])
+
+        q_card, q_cpu = q_at(found["card_pair"]), q_at(found["cpu_pair"])
+        own = q_card if key == "card" else q_cpu
+        found[key] = dict(q_at_card_pair=q_card, q_at_cpu_pair=q_cpu,
+                          gap_rel=abs(q_card - q_cpu) / abs(own))
+    return found
+
+
+def rescore_ranking(torch, newick: str, fasta: str) -> dict:
+    """The printed tree's JC69 ranking log-likelihood (every branch at
+    RANKING_LENGTH) over the alignment's patterns: K3 on the card and the
+    plain version on the CPU, within rtol K34_RTOL of each other."""
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli._common import _load_alignment
+    from trex_tpu_torch.io import align_leaf_order, load_newick
+    from trex_tpu_torch.ops.likelihood import jc69_transition
+    from trex_tpu_torch.ops.likelihood_cuda import batched_log_likelihood_cuda
+
+    names, masks, _ = _load_alignment(fasta, "dna")
+    patterns, counts = compress_alignment(masks)
+    topo, _, tree_names = load_newick(newick)
+    topo = align_leaf_order(topo, tree_names, names)
+    got = {}
+    for device in ("cuda", "cpu"):
+        got[device] = float(batched_log_likelihood_cuda(
+            topo.children[None].to(device=device, dtype=torch.int32).contiguous(),
+            torch.as_tensor(patterns.astype(np.int32), device=device),
+            torch.as_tensor(counts.astype(np.float32), device=device),
+            torch.full((4,), 0.25, device=device),
+            jc69_transition(torch.tensor(RANKING_LENGTH, device=device), 4).contiguous(),
+            sequences_are_masks=True)[0])
+    rel = abs(got["cuda"] - got["cpu"]) / abs(got["cpu"])
+    if rel > K34_RTOL:
+        raise AssertionError(f"rescored tree: card {got['cuda']} != cpu {got['cpu']}")
+    return dict(card=got["cuda"], cpu=got["cpu"], rel_err=rel)
+
+
+def k4_at_ml_bootstrap(torch, dev, reference, fasta: str, replicates: int, timer) -> dict:
+    """K4 at the ML bootstrap's own first batch: replicate 0's first NNI
+    round (the reference tree's neighbourhood, under the replicate's
+    weights drawn as ``infer`` draws them, a CPU generator seeded --seed +
+    1) with a P a branch and tree, held within rtol K34_RTOL of its plain
+    version and timed, beside its bound (over the patterns of nonzero
+    weight), the P table's build and the same batch under one shared P
+    through K3."""
+    from trex_tpu_torch._device import device_limits
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli._common import _load_alignment
+    from trex_tpu_torch.io import nni_neighbors_host
+    from trex_tpu_torch.ops.likelihood import jc69_transition
+    from trex_tpu_torch.ops.likelihood_cuda import (
+        batched_log_likelihood_cuda,
+        batched_log_likelihood_plain,
+    )
+    from trex_tpu_torch.ops.likelihood_cuda import launch_plan as k34_plan
+    from trex_tpu_torch.search.bootstrap import _replicate_weights
+
+    _, masks, _ = _load_alignment(fasta, "dna")
+    patterns, counts = compress_alignment(masks)
+    weights = _replicate_weights(patterns.shape[1], replicates, counts,
+                                 torch.Generator().manual_seed(SEED + 1))[0]
+    pat = torch.as_tensor(patterns.astype(np.int32), device=dev)
+    w = weights.to(device=dev, dtype=torch.float32).contiguous()
+    batch = torch.as_tensor(nni_neighbors_host(reference)[0], device=dev)
+    n_trees, n_taxa = batch.shape[0], pat.shape[0]
+    n_all = 2 * n_taxa - 1
+    shared = jc69_transition(torch.tensor(RANKING_LENGTH, device=dev), 4).contiguous()
+    prior = torch.full((4,), 0.25, device=dev)
+
+    def build():
+        return shared.expand(n_trees, n_all, 4, 4).contiguous()
+
+    per_branch = build()
+
+    def run(fn, transition):
+        return lambda: fn(batch, pat, w, prior, transition, sequences_are_masks=True)
+
+    # A pattern of weight 0 adds nothing to the sum: the bounds count the
+    # weighted ones (the kernel computes every pattern).
+    weighted = int((weights > 0).sum())
+    shape = (n_trees, n_taxa, weighted, 4)
+    got = measure(torch, run(batched_log_likelihood_cuda, per_branch),
+                  run(batched_log_likelihood_plain, per_branch), *k34_work(*shape, True),
+                  rtol=K34_RTOL, plain_reps=1)
+    k3 = measure(torch, run(batched_log_likelihood_cuda, shared),
+                 run(batched_log_likelihood_plain, shared), *k34_work(*shape, False),
+                 rtol=K34_RTOL, plain_reps=1)
+    return dict(
+        batch="ML bootstrap replicate 0, first NNI round", trees=n_trees, n_taxa=n_taxa,
+        patterns=pat.shape[1], weighted_patterns=weighted,
+        zero_weight_patterns=pat.shape[1] - weighted,
+        plan=dataclasses.asdict(k34_plan(n_taxa, 4, False, True, device_limits(dev).smem_optin)),
+        **got, **timer(run(batched_log_likelihood_cuda, per_branch), got["ms"]),
+        p_table_bytes=per_branch.numel() * 4, p_table_build_ms=time_ms(torch, build, 10),
+        shared_p_k3=dict({k: k3[k] for k in ("max_rel_err", "ms", "ms_back_to_back",
+                                             "bound_ms", "bound_by")},
+                         **timer(run(batched_log_likelihood_cuda, shared), k3["ms"])),
+    )
+
+
+def ml_route(torch, argv: list[str], reset_counts, launch_counts) -> tuple:
+    """One ``infer`` run on the card, every count set to 0 just before it
+    and read just after, with its peak device memory: (InferRun, wall,
+    launches, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run, wall = timed_cli(torch, argv)
+    return run, wall, launch_counts(), torch.cuda.max_memory_allocated()
+
+
+def slice_2c_routes(torch, dev, workdir: str, main_fasta: str, nni_fasta: str, slice_2b: dict,
+                    reset_counts, launch_counts, timer) -> dict:
+    """Slice 2c's routes: the ML support route (NJ start, K3 climb, Newton,
+    8 bootstrap replicates through K4's per-branch mode) and the ML ratchet
+    route on the main path's 512 x 2048 alignment, the constrained ML climb
+    on 128 x 1024, the distance route (NJ with 20 replicates, and UPGMA) on
+    512 x 2048, ``modeltest`` on the GTR+G alignment and the NNI model
+    route's tree, and ``partition --search`` on 128 x 1024; each with every
+    count set to 0 just before it and read just after, and its printed tree
+    rescored on the card against the CPU. K4 is held at the bootstrap's own
+    first batch, K3 at the ratchet's and the constrained climb's. Returns
+    what the kernels line reads."""
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli import build_parser
+    from trex_tpu_torch.cli._common import _load_alignment, lowest_states
+    from trex_tpu_torch.cli.models import run_partition
+    from trex_tpu_torch.io import nni_neighbors_host
+    from trex_tpu_torch.ops.distances import jc_distance_matrix
+    from trex_tpu_torch.ops.likelihood import jc69_transition
+    from trex_tpu_torch.search.bootstrap import subtree_leaf_sets
+    from trex_tpu_torch.search.hillclimb import constraint_mask
+    from trex_tpu_torch.search.nj import neighbor_joining, nj_start_tree
+
+    found: dict = {"launches": {}}
+    names, masks, _ = _load_alignment(main_fasta, "dna")
+    patterns, counts = compress_alignment(masks)
+    pat_t = torch.as_tensor(patterns.astype(np.int32), device=dev)
+    w_t = torch.as_tensor(counts.astype(np.float32), device=dev)
+    uniform = torch.full((4,), 0.25, device=dev)
+    shared_p = jc69_transition(torch.tensor(RANKING_LENGTH, device=dev), 4).contiguous()
+
+    # The NJ start's matrix on the card against the CPU's, and their trees.
+    ints = lowest_states(patterns, 4)
+    mats = {d: jc_distance_matrix(torch.as_tensor(ints, device=d), 4,
+                                  torch.as_tensor(counts.astype(np.float32), device=d))
+            for d in ("cuda", "cpu")}
+    mat_rel = float(((mats["cuda"].cpu() - mats["cpu"]).abs()
+                     / mats["cpu"].abs().clamp(min=1e-30)).max())
+    nj_trees = {d: neighbor_joining(m)[0] for d, m in mats.items()}
+    nj_joins = {d: t.children.cpu().numpy() for d, t in nj_trees.items()}
+    same_nj = bool(np.array_equal(nj_joins["cuda"], nj_joins["cpu"]))
+    first_different_join = nj_first_different_join(
+        mats["cuda"].cpu().numpy(), mats["cpu"].numpy(), nj_joins["cuda"], nj_joins["cpu"])
+    # Joins that differ only where Q ties exactly (at 4 rows and fewer a
+    # pair's Q equals its complement's) move the root, not a split.
+    same_unrooted_nj = unrooted_splits(nj_trees["cuda"]) == unrooted_splits(nj_trees["cpu"])
+    if mat_rel > 1e-6 or not same_unrooted_nj:
+        raise AssertionError(f"NJ start: card distances differ from the CPU's by {mat_rel}; "
+                             f"first different join {first_different_join}")
+    matrix_ms = time_ms(torch, lambda: jc_distance_matrix(
+        torch.as_tensor(ints, device=dev), 4, w_t), 10)
+
+    # ML support route: NJ start, K3 climb, Newton, 8 ML bootstrap
+    # replicates (each a per-branch K4 NNI climb of up to 3 rounds).
+    run, wall, launches, peak = ml_route(
+        torch, ["infer", "--alignment", main_fasta, *ML_SUPPORT_ARGS], reset_counts,
+        launch_counts)
+    out = run.out
+    if (launches["k34_per_branch"] <= 0 or launches["k34_shared"] <= 0
+            or launches["k1"] or launches["k2"]
+            or len(out["split_support"]) != len(names) - 1):
+        raise AssertionError(f"ml support route: launches {launches}, {list(out)}")
+    rescored = rescore_ranking(torch, out["tree"], main_fasta)
+    if abs(-rescored["card"] - out["ranking_score"]) > K34_RTOL * abs(out["ranking_score"]):
+        raise AssertionError(f"ml support route: rescored {rescored}, {out['ranking_score']}")
+    k4 = k4_at_ml_bootstrap(torch, dev, run.result.topology, main_fasta, 8, timer)
+    found["at_ml_bootstrap"] = k4
+    found["launches"]["ml_support"] = launches
+    emit("ml_support_route", command="infer " + " ".join(ML_SUPPORT_ARGS) + " (512 x 2048)",
+         n_taxa=out["n_taxa"], unique_patterns=out["unique_patterns"],
+         neg_log_likelihood=out["neg_log_likelihood"], ranking_score=out["ranking_score"],
+         search_rounds=out["search_rounds"], mean_split_support=out["mean_split_support"],
+         nj_distances=dict(max_rel_err_card_cpu=mat_rel, same_nj_tree=same_nj,
+                           same_unrooted_nj_tree=same_unrooted_nj,
+                           first_different_join=first_different_join, card_ms=matrix_ms),
+         seconds={k: run.seconds.get(k) for k in ("start", "climb", "newton", "bootstrap")},
+         wall_s=wall, launches=launches, peak_memory_bytes=peak, rescored=rescored,
+         k4_at_this_shape=k4)
+
+    # ML ratchet route: stepwise start, then 3 kicked reclimbs (numpy draws).
+    run, wall, launches, peak = ml_route(
+        torch, ["infer", "--alignment", main_fasta, *ML_RATCHET_ARGS], reset_counts,
+        launch_counts)
+    out = run.out
+    if launches["k34_shared"] <= 0 or launches["k34_per_branch"] or launches["k2"] <= 0:
+        raise AssertionError(f"ml ratchet route: launches {launches}")
+    rescored = rescore_ranking(torch, out["tree"], main_fasta)
+    if abs(-rescored["card"] - out["ranking_score"]) > K34_RTOL * abs(out["ranking_score"]):
+        raise AssertionError(f"ml ratchet route: rescored {rescored}, {out['ranking_score']}")
+    batch = torch.as_tensor(nni_neighbors_host(run.result.topology)[0], device=dev)
+    k3 = k3_model_batch(torch, dev, batch, pat_t, w_t, uniform, shared_p, timer)
+    found["launches"]["ml_ratchet"] = launches
+    found["at_ml_ratchet"] = k3
+    emit("ml_ratchet_route", command="infer " + " ".join(ML_RATCHET_ARGS) + " (512 x 2048)",
+         ml_iterations=out["ml_iterations"], search_rounds=out["search_rounds"],
+         trace=run.result.trace, evaluations=out["evaluations"],
+         neg_log_likelihood=out["neg_log_likelihood"], ranking_score=out["ranking_score"],
+         seconds={k: run.seconds.get(k) for k in ("start", "climb", "newton")},
+         reclimb_s=run.seconds["reclimbs"], wall_s=wall, k3_launches=launches["k34"],
+         launches=launches, peak_memory_bytes=peak, rescored=rescored,
+         k3_at_this_shape=dict(candidates="NNI neighbourhood of the final tree", **k3))
+
+    # The constrained ML climb on 128 x 1024: a 16-taxon clade of the NJ tree.
+    nni_names, nni_masks, _ = _load_alignment(nni_fasta, "dna")
+    nni_patterns, nni_counts = compress_alignment(nni_masks)
+    nj_topo, _ = nj_start_tree(lowest_states(nni_patterns, 4), 4, nni_counts, device="cpu")
+    newick, keep = clade_newick(nj_topo, nni_names, CONSTRAINT_TAXA)
+    clade_path = os.path.join(workdir, "ml_clade.nwk")
+    with open(clade_path, "w") as fh:
+        fh.write(newick + "\n")
+    flags = ["--criterion", "ml", "--neighborhood", "nni", "--constraint", clade_path]
+    run, wall, launches, peak = ml_route(torch, ["infer", "--alignment", nni_fasta, *flags],
+                                         reset_counts, launch_counts)
+    out = run.out
+    ctopo, cnames = load_tree(clade_path)
+    ids = [nni_names.index(x) for x in cnames]
+    splits = [frozenset(ids[i] for i in c) for c in subtree_leaf_sets(ctopo)
+              if 2 <= len(c) <= len(ids) - 2]
+    check = constraint_mask(splits, len(nni_names), frozenset(keep))
+    if not bool(check(run.result.topology.children.cpu().numpy()[None])[0]) \
+            or launches["k34_shared"] <= 0:
+        raise AssertionError(f"ml constrained route: clade lost or launches {launches}")
+    batch = nni_neighbors_host(run.result.topology)[0]
+    batch = torch.as_tensor(batch[check(batch)], device=dev)
+    k3 = k3_model_batch(torch, dev, batch, torch.as_tensor(nni_patterns.astype(np.int32),
+                                                           device=dev),
+                        torch.as_tensor(nni_counts.astype(np.float32), device=dev), uniform,
+                        shared_p, timer)
+    found["launches"]["ml_constraint"] = launches
+    found["at_ml_constraint"] = k3
+    emit("ml_constrained_route", command="infer " + " ".join(flags[:-1]) + " <16-taxon clade>"
+         " (128 x 1024)", constraint_splits=out["constraint_splits"], clade_held=True,
+         search_rounds=out["search_rounds"], neg_log_likelihood=out["neg_log_likelihood"],
+         seconds={k: run.seconds.get(k) for k in ("start", "climb", "newton")}, wall_s=wall,
+         launches=launches, peak_memory_bytes=peak,
+         rescored=rescore_ranking(torch, out["tree"], nni_fasta),
+         k3_at_this_shape=dict(candidates="the final tree's NNI neighbourhood, filtered",
+                               **k3))
+
+    # The distance route: NJ with 20 replicates (their matrices in one
+    # batched call), and UPGMA, 512 x 2048.
+    for flags in (["--criterion", "distance", "--bootstrap", str(DISTANCE_REPLICATES)],
+                  ["--criterion", "distance", "--start", "upgma"]):
+        run, wall, launches, peak = ml_route(
+            torch, ["infer", "--alignment", main_fasta, *flags], reset_counts, launch_counts)
+        out = run.out
+        if out.get("bootstrap_replicates", DISTANCE_REPLICATES) != DISTANCE_REPLICATES:
+            raise AssertionError(f"distance route: {list(out)}")
+        emit("distance_route", command="infer " + " ".join(flags) + " (512 x 2048)",
+             method=out["method"], tree_length=out["tree_length"],
+             mean_split_support=(float(np.mean(out["split_support"]))
+                                 if "split_support" in out else None),
+             seconds=run.seconds, wall_s=wall, launches=launches, peak_memory_bytes=peak,
+             rescored=rescore_ranking(torch, out["tree"], main_fasta))
+
+    # modeltest on the GTR+G alignment and the NNI model route's tree.
+    from trex_tpu_torch.cli.models import run_modeltest
+
+    args = build_parser().parse_args([
+        "modeltest", "--alignment", slice_2b["gtr_fasta"], "--tree", slice_2b["nni_tree"],
+        "--models", MODELTEST_MODELS])
+    fits: dict = {}
+    reset_counts()
+    clock = time.perf_counter()
+    out = run_modeltest(args, fits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - clock
+    if out["best"] != "gtr+g" or out["criterion"] != "bic":
+        raise AssertionError(f"modeltest picked {out['best']}: {out['table']}")
+    topo, tree_names = load_tree(slice_2b["nni_tree"])
+    from trex_tpu_torch.io import align_leaf_order
+
+    gtr_names = _load_alignment(slice_2b["gtr_fasta"], "dna")[0]
+    topo = align_leaf_order(topo, tree_names, gtr_names).to(dev)
+    emit("modeltest_route", command=f"modeltest --tree <NNI model route's tree> --models "
+         f"{MODELTEST_MODELS} (512 x 2048, 500 Adam steps a fit)", truth="gtr+g",
+         best=out["best"], table=out["table"], fit_s=fits,
+         wall_s=wall, launches=launch_counts(),
+         hky_g_fit_profile=fit_profile(torch, topo, slice_2b["gtr_patterns"],
+                                       slice_2b["gtr_weights"], 4, "hky+g"))
+
+    # partition --search on 128 x 1024: two genes, the second on twice the
+    # lengths.
+    fasta, parts = partition_alignment(workdir, ML_SCAN_SHAPE["n_taxa"],
+                                       ML_SCAN_SHAPE["n_sites"], SEED + 18)
+    tree_path = os.path.join(workdir, "partition.nwk")
+    args = build_parser().parse_args([
+        "partition", "--alignment", fasta, "--partitions", parts, "--models", "gtr,hky+g",
+        "--search", "--output-tree", tree_path])
+    timings: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    clock = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = run_partition(args, timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - clock
+    launches = launch_counts()
+    gene2 = out["partitions"][1]
+    if not np.isfinite(out["log_likelihood"]) or gene2["rate_multiplier"] <= 1.0:
+        raise AssertionError(f"partition: {out}")
+    with open(tree_path) as fh:
+        rescored = rescore_ranking(torch, fh.read(), fasta)
+    emit("partition_route", command="partition --search --models gtr,hky+g (128 x 1024, "
+         "two genes of 512 sites, 600 Adam steps a fit)", log_likelihood=out["log_likelihood"],
+         search_rounds=out["search_rounds"], gene2_rate_multiplier=gene2["rate_multiplier"],
+         gene2_truth=GENE2["multiplier"], gene2_gamma_shape=gene2.get("gamma_shape"),
+         gene2_gamma_truth=GENE2["gamma_shape"], tree_length=out["tree_length"],
+         seconds=dict(start=timings["start"], fits=timings["fits"], search=timings["search"]),
+         scan_round_s=timings["scan_rounds"], wall_s=wall, launches=launches,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), rescored=rescored)
+    return found
+
+
+def same_supported_json(card: dict, cpu: dict) -> bool:
+    """Card and CPU ``infer`` JSON alike: the keys in order, the topology,
+    every value but the lengths and likelihoods equal; likelihoods within
+    rtol 1e-5; lengths within 1e-5 for distance trees (fixed by the
+    matrix), 1e-3 for ML fits (the CPU tests' rule against JAX)."""
+    if list(card) != list(cpu) or strip_lengths(card["tree"]) != strip_lengths(cpu["tree"]):
+        return False
+    atol = 1e-3 if cpu["criterion"] == "ml" else 1e-5
+    lengths = [np.array(re.findall(r":([0-9.eE+-]+)", x["tree"]), float) for x in (card, cpu)]
+    if not np.allclose(lengths[0], lengths[1], rtol=0, atol=atol):
+        return False
+    for key, value in cpu.items():
+        if key in ("neg_log_likelihood", "ranking_score"):
+            if abs(card[key] - value) > 1e-5 * abs(value):
+                return False
+        elif key in ("tree_length", "mean_branch_length"):
+            if abs(card[key] - value) > atol:
+                return False
+        elif key != "tree" and card[key] != value:
+            return False
+    return True
+
+
+def slice_2c_reference(torch, workdir: str) -> list[dict]:
+    """Slice 2c on the card against the CPU at 24 x 300: every new
+    ``infer`` flag (the same keys, trees, rounds and supports under the same
+    draws; ``same_supported_json``), ``modeltest`` and
+    ``partition --search`` (REF_2C_STEPS Adam steps a fit on both devices:
+    the same ranking, rounds and tree; log-likelihoods within rtol 1e-4,
+    slice 2b's rule)."""
+    from trex_tpu_torch.cli._common import _load_alignment
+
+    fasta = os.path.join(workdir, "ref_2c.fasta")
+    simulate_fasta(fasta, REF_SHAPE["n_taxa"], REF_SHAPE["n_sites"], SEED + 16,
+                   branch=(0.2, 0.6))
+    names = _load_alignment(fasta, "dna")[0]
+    clade = os.path.join(workdir, "ref_2c_clade.nwk")
+    with open(clade, "w") as fh:
+        fh.write(f"(({names[0]},{names[1]}),({names[2]},({names[3]},{names[4]})));\n")
+    rows = []
+    for flags in (
+        ["--criterion", "distance", "--bootstrap", "5", "--outgroup", names[3]],
+        ["--criterion", "distance", "--start", "upgma"],
+        ["--start", "nj"],
+        ["--criterion", "ml", "--start", "nj", "--neighborhood", "nni", "--bootstrap", "3"],
+        ["--criterion", "ml", "--neighborhood", "nni", "--ratchet", "2"],
+        ["--criterion", "ml", "--start", "random", "--ratchet", "2"],
+        ["--criterion", "ml", "--neighborhood", "nni", "--constraint", clade],
+    ):
+        argv = ["infer", "--alignment", fasta, "--orders", "1", *flags]
+        on_card = run_cli(argv).out
+        on_cpu = run_cli(argv + ["--device", "cpu"]).out
+        if not same_supported_json(on_card, on_cpu):
+            raise AssertionError(f"{flags}: card {on_card} != cpu {on_cpu}")
+        shown = {k: on_card[k] for k in ("parsimony_score", "neg_log_likelihood", "tree_length",
+                                         "search_rounds", "ml_iterations", "split_support")
+                 if k in on_card}
+        rows.append(dict(flags=" ".join(flags).replace(clade, "<clade>"), **shown,
+                         same_json=True))
+    gtr = os.path.join(workdir, "ref_2c_gtr.fasta")
+    simulate_model_fasta(gtr, REF_SHAPE["n_taxa"], REF_SHAPE["n_sites"], SEED + 19,
+                         pair_matrix(TRUE_GTR["pair_rates"], 4), TRUE_GTR["freqs"],
+                         TRUE_GTR["gamma_shape"], branch=(0.1, 0.4))
+    argv = ["modeltest", "--alignment", gtr, "--models", MODELTEST_MODELS, "--iterations",
+            str(REF_2C_STEPS)]
+    tables = {d: run_cli(argv + ["--device", d]) for d in ("cuda", "cpu")}
+    rel = max(abs(a["log_likelihood"] - b["log_likelihood"]) / abs(b["log_likelihood"])
+              for a, b in zip(tables["cuda"]["table"], tables["cpu"]["table"], strict=True))
+    if ([r["model"] for r in tables["cuda"]["table"]]
+            != [r["model"] for r in tables["cpu"]["table"]] or rel > 1e-4):
+        raise AssertionError(f"modeltest: card {tables['cuda']} != cpu {tables['cpu']}")
+    rows.append(dict(command="modeltest", best=tables["cuda"]["best"], rel_err=rel))
+    fasta, parts = partition_alignment(workdir, REF_SHAPE["n_taxa"], REF_SHAPE["n_sites"],
+                                       SEED + 20, branch=(0.1, 0.4))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        tree = os.path.join(workdir, f"ref_partition_{device}.nwk")
+        outs[device] = run_cli([
+            "partition", "--alignment", fasta, "--partitions", parts, "--models", "gtr,hky+g",
+            "--search", "--iterations", str(REF_2C_STEPS), "--output-tree", tree,
+            "--device", device])
+        with open(tree) as fh:
+            outs[device]["tree"] = strip_lengths(fh.read())
+    rel = abs(outs["cuda"]["log_likelihood"] - outs["cpu"]["log_likelihood"]) / abs(
+        outs["cpu"]["log_likelihood"])
+    if (outs["cuda"]["tree"] != outs["cpu"]["tree"] or rel > 1e-4
+            or outs["cuda"]["search_rounds"] != outs["cpu"]["search_rounds"]):
+        raise AssertionError(f"partition: card {outs['cuda']} != cpu {outs['cpu']}")
+    rows.append(dict(command="partition --search", search_rounds=outs["cuda"]["search_rounds"],
+                     log_likelihood=outs["cuda"]["log_likelihood"], rel_err=rel, same_tree=True))
+    return rows
+
+
 @contextlib.contextmanager
 def short_fits(steps: int):
     """``ops.likelihood.optimize_model`` at ``steps`` Adam steps while the
@@ -1906,9 +2497,14 @@ def main(argv: list[str] | None = None) -> int:
             fn.launches = 0
             if hasattr(fn, "calls"):
                 fn.calls = 0
+        batched_log_likelihood_cuda.launches_by_mode = {"shared": 0, "per_branch": 0}
 
     def launch_counts() -> dict:
-        return {name: fn.launches for name, fn in wrappers.items()}
+        """Each wrapper's grids, and K3/K4's by mode: "k34_shared" (one
+        P, K3) and "k34_per_branch" (a P a branch, K4)."""
+        modes = batched_log_likelihood_cuda.launches_by_mode
+        return {**{name: fn.launches for name, fn in wrappers.items()},
+                "k34_shared": modes["shared"], "k34_per_branch": modes["per_branch"]}
 
     def call_counts() -> dict:
         """Calls that launched, of the wrappers that count them (K5, K3/K4)."""
@@ -1957,11 +2553,13 @@ def main(argv: list[str] | None = None) -> int:
     def k1_on(children, masks, weights, n_states=4, plain_reps=5) -> dict:
         plan = k1_plan(children.shape[0], masks.shape[0], masks.shape[1], n_states,
                        *device_limits(dev))
+        # The bound counts the sites of nonzero weight: the others add
+        # nothing to a score.
         return dict(plan=dataclasses.asdict(plan), **measure(
             torch,
             lambda: batched_fitch_score_cuda(children, masks, weights, n_states=n_states),
             lambda: k1_plain_in_slices(torch, children, masks, weights),
-            *k1_work(children.shape[0], masks.shape[0], masks.shape[1], n_states),
+            *k1_work(children.shape[0], masks.shape[0], int((weights != 0).sum()), n_states),
             ops_per_s=INT32_OPS_PER_S, plain_reps=plain_reps,
         ))
 
@@ -2678,9 +3276,19 @@ def main(argv: list[str] | None = None) -> int:
     if "reference_2b" in phases:
         for row in slice_2b_reference(torch, workdir):
             emit("reference", part="slice 2b", **row)
+    # 9. Slice 2c: the ML support, ratchet and constrained routes, the
+    # distance route, modeltest and partition, then slice 2c on the card
+    # against the CPU.
+    slice_2c = {}
+    if "slice_2c" in phases:
+        slice_2c = slice_2c_routes(torch, dev, workdir, main_fasta, nni_fasta, slice_2b,
+                                   reset_counts, launch_counts, device_times)
+    if "reference_2c" in phases:
+        for row in slice_2c_reference(torch, workdir):
+            emit("reference", part="slice 2c", **row)
     shutil.rmtree(workdir)
 
-    k3_model = k3_model_entry(slice_2b)
+    k3_model = k3_model_entry(slice_2b, slice_2c)
     if not EARLIER_PHASES <= phases:
         # A subset of the phases: the kernels its phases measured.
         kernels = [k3_model] if k3_model else []
@@ -2730,6 +3338,7 @@ def main(argv: list[str] | None = None) -> int:
                 "at_ml_nni_route": k34_route, "per_branch": k34_branch, "at_shapes": k34_deep,
                 "model_route_launches": slice_2b.get("launches"),
                 "at_model_routes": slice_2b.get("at_model_routes"),
+                **slice_2c_fields(slice_2c),
             },
             {
                 "name": "sankoff_batched", "route": "cuda",

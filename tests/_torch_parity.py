@@ -134,3 +134,36 @@ def jitted_jax_scores(monkeypatch) -> None:
 
     monkeypatch.setattr(dispatch, "batched_scores_fastest", scores)
     monkeypatch.setattr(jax_stepwise, "batched_scores_fastest", scores)
+
+
+def jax_replicate_draws(monkeypatch, seed: int) -> None:
+    """Make the port's bootstrap draw the JAX package's replicate weights:
+    ``search.bootstrap._replicate_weights`` returns
+    ``trex_tpu.search.bootstrap._replicate_weights(PRNGKey(seed), ...)``,
+    the draws of a JAX CLI that seeds its key with ``seed``."""
+    import jax
+    import jax.numpy as jnp
+
+    import trex_tpu.search.bootstrap as jax_bootstrap
+    import trex_tpu_torch.search.bootstrap as torch_bootstrap
+
+    def draws(length, n_replicates, site_weights, generator):
+        base = None if site_weights is None else jnp.asarray(
+            torch.as_tensor(site_weights).cpu().numpy(), jnp.float32)
+        return torch.as_tensor(np.array(jax_bootstrap._replicate_weights(
+            jax.random.PRNGKey(seed), length, n_replicates, base)))
+
+    monkeypatch.setattr(torch_bootstrap, "_replicate_weights", draws)
+
+
+def lengths_of(newick: str) -> list[float]:
+    """The branch lengths of a newick string, in writing order."""
+    import re
+
+    return [float(x) for x in re.findall(r":([0-9.eE+-]+)", newick)]
+
+
+def strip_lengths(newick: str) -> str:
+    import re
+
+    return re.sub(r":[0-9.eE+-]+", "", newick)

@@ -91,15 +91,15 @@ def test_cli_defaults_to_the_card(fasta):
     [
         (["--model", "gtr"], "accepted differences"),
         (["--model-rounds", "1"], "accepted differences"),
-        (["--criterion", "distance"], "slice 2c"),
+        (["--criterion", "distance", "--model", "gtr"], "accepted differences"),
         (["--criterion", "ml", "--alrt", "10"], "Supports"),
         (["--criterion", "ml", "--ufboot", "10"], "Supports"),
-        (["--criterion", "ml", "--ratchet", "2"], "slice 2c"),
-        (["--criterion", "ml", "--bootstrap", "5"], "slice 2c"),
-        (["--criterion", "ml", "--constraint", "c.nwk"], "slice 2c"),
         (["--mesh", "2,1"], "Multi-device"),
-        (["--start", "nj"], "slice 2c"),
-        (["--criterion", "ml", "--start", "random", "--ratchet", "1"], "slice 2c"),
+        # The JAX CLI's own refusals.
+        (["--criterion", "ml", "--neighborhood", "nni", "--constraint", "c.nwk",
+          "--ratchet", "2"], "does not combine with --ratchet"),
+        (["--criterion", "ml", "--neighborhood", "nni", "--constraint", "c.nwk",
+          "--model", "gtr"], "supports --model jc"),
     ],
 )
 def test_unported_flags_name_their_slice(fasta, flags, slice_name):

@@ -11,7 +11,14 @@ infer       File-based parsimony or ML tree inference: FASTA/PHYLIP/NEXUS
             hill climb (parsimony: also the ratchet, constraints, outgroup
             rooting, SPR-decay and bootstrap supports; ML: a fitted
             ``--model`` with +G/+I/+R rate mixtures and model <-> tree
-            ``--model-rounds``), newick and score out as one JSON line.
+            ``--model-rounds``, the iterated search (``--ratchet``),
+            constraints and bootstrap supports), or (``--criterion
+            distance``) an NJ/UPGMA tree with bootstrap supports; newick
+            and score out as one JSON line. ``--start nj|upgma`` starts
+            either criterion from the distance tree.
+partition   Partitioned ML fit (a model per partition, shared lengths with
+            rate multipliers), with ``--search`` a climb under it.
+modeltest   Model selection by AIC/AICc/BIC on a fixed tree.
 search      Multi-restart joint topology + sequence search on a generated
             mutation tree, against exact Sankoff on the true tree.
 asr         Gradient ancestral reconstruction against exact Sankoff.

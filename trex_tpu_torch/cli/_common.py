@@ -76,7 +76,8 @@ def _start_tree(
 
     ``random`` is ``topology.random_topologies(seed, n, 1)``, numpy's
     ``default_rng(seed)`` coalescent; ``balanced`` needs a power-of-two
-    taxon count.
+    taxon count; ``nj``/``upgma`` is the distance tree of JC distances
+    (``search.nj.nj_start_tree``) between the masks' lowest states.
     """
     from trex_tpu_torch.search.stepwise import stepwise_addition_multi
     from trex_tpu_torch.topology import balanced_topology, random_topologies
@@ -100,9 +101,12 @@ def _start_tree(
             )
         return balanced_topology(n_leaves, device)
     if kind in ("nj", "upgma"):
-        raise SystemExit(
-            f"--start {kind} is not ported yet: slice 2c of ROADMAP.md (NJ/UPGMA)"
-        )
+        from trex_tpu_torch.search.nj import nj_start_tree
+
+        # Distances want integer states: ambiguity resolves to the lowest
+        # allowed state (a heuristic; the search refines from there).
+        ints = torch.as_tensor(lowest_states(masks, n_states), device=device)
+        return nj_start_tree(ints, n_states, weights, method=kind, device=device)[0]
     raise SystemExit(f"unknown --start {kind!r}")
 
 

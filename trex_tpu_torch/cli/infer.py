@@ -1,5 +1,5 @@
-"""File-based tree inference: the ``infer`` command's parsimony and ML
-branches (counterpart of ``trex_tpu/cli/infer.py``)."""
+"""File-based tree inference: the ``infer`` command's parsimony, ML and
+distance branches (counterpart of ``trex_tpu/cli/infer.py``)."""
 
 from __future__ import annotations
 
@@ -24,14 +24,8 @@ _NOT_PORTED = (
     ("alrt", 0, "the Supports item"),
     ("ufboot", 0, "the Supports item"),
 )
-# Parsimony flags (slice 1b) whose ML counterparts are still queued.
-_ML_NOT_PORTED = (
-    ("ratchet", 0, "slice 2c (ml_iterated_search)"),
-    ("bootstrap", 0, "slice 2c (ml_bootstrap_analysis)"),
-    ("constraint", None, "slice 2c (the constrained ML climb)"),
-)
-# Model flags, which the JAX CLI ignores under parsimony and this port
-# refuses there (ROADMAP.md, accepted differences).
+# Model flags, which the JAX CLI ignores under parsimony and distance and
+# this port refuses there (ROADMAP.md, accepted differences).
 _MODEL_FLAGS = (("model", "jc"), ("model_file", None), ("model_rounds", 0))
 
 
@@ -39,39 +33,33 @@ _MODEL_FLAGS = (("model", "jc"), ("model_file", None), ("model_rounds", 0))
 class InferRun:
     out: dict
     """The printed JSON object."""
-    result: SearchResult
-    seconds: dict[str, float]
+    result: SearchResult | None
+    """The search's result (None under ``--criterion distance``)."""
+    seconds: dict
     """Wall seconds of the starting trees ("start"), the climbs or the
-    ratchet ("climb"), under parsimony the decay ("decay") and bootstrap
-    ("bootstrap") when asked for, an enumerating climb's host generation
-    ("generate") and batch scoring ("score"), and for ``--criterion ml``
-    the branch-length fits ("newton"), with ``--model`` the first model fit
-    ("fit") and the model <-> tree rounds ("rounds")."""
+    ratchet ("climb"), the decay ("decay") and bootstrap ("bootstrap")
+    when asked for, an enumerating climb's host generation ("generate")
+    and batch scoring ("score"), and for ``--criterion ml`` the
+    branch-length fits ("newton"), with ``--model`` the first model fit
+    ("fit") and the model <-> tree rounds ("rounds"), with ``--ratchet``
+    each reclimb ("reclimbs", a list). Under ``--criterion distance`` the
+    distance tree ("start") and with ``--bootstrap`` the replicates'
+    matrices ("distances") and their agglomeration ("agglomerate")."""
     lengths: torch.Tensor | None = None
-    """The fitted branch lengths (``--criterion ml``)."""
+    """The branch lengths (``--criterion ml``: fitted; distance: the NJ/UPGMA
+    ones, clipped at 0)."""
 
 
 def _check_ported(args) -> None:
-    if args.criterion == "distance":
-        raise SystemExit(
-            "--criterion distance is not ported yet: slice 2c of ROADMAP.md (NJ/UPGMA)"
-        )
     for name, unset, where in _NOT_PORTED:
         if getattr(args, name) != unset:
             raise SystemExit(f"--{name} is not ported yet: {where} of ROADMAP.md")
-    if args.criterion == "ml":
-        for name, unset, where in _ML_NOT_PORTED:
-            if getattr(args, name) != unset:
-                raise SystemExit(
-                    f"--{name} under --criterion ml is not ported yet: {where} of "
-                    "ROADMAP.md (slice 1b ported it for parsimony)"
-                )
-    else:
+    if args.criterion != "ml":
         for name, unset in _MODEL_FLAGS:
             if getattr(args, name) != unset:
                 raise SystemExit(
                     f"--{name} applies to --criterion ml only (ROADMAP.md, accepted "
-                    "differences: the JAX CLI ignores it under parsimony)"
+                    f"differences: the JAX CLI ignores it under {args.criterion})"
                 )
     if args.mesh not in (None, "1,1"):
         raise SystemExit(
@@ -88,7 +76,9 @@ def _sync(device: torch.device) -> None:
 def run_infer(args) -> InferRun:
     """FASTA in, inferred tree out: start trees, then a parsimony (with the
     ratchet, constraints, rooting and supports) or (``--criterion ml``)
-    likelihood climb."""
+    likelihood climb (with the iterated search, constraints, rooting, a
+    fitted model and bootstrap supports); or (``--criterion distance``)
+    the NJ/UPGMA tree itself."""
     import numpy as np
 
     from trex_tpu_torch.alignment import compress_alignment
@@ -107,6 +97,8 @@ def run_infer(args) -> InferRun:
         "n_sites": int(masks.shape[1]),
         "unique_patterns": int((counts > 0).sum()),
     }
+    if args.criterion == "distance":
+        return _run_distance(args, out, names, patterns, n_states, weights)
     t0 = time.perf_counter()
     constraint = None
     if args.constraint:
@@ -134,9 +126,54 @@ def run_infer(args) -> InferRun:
 
     leaves = torch.as_tensor(patterns, device=device)
     if args.criterion == "ml":
-        return _run_ml(args, out, names, leaves, n_states, weights, starts, t1 - t0)
+        return _run_ml(args, out, names, leaves, n_states, weights, starts, constraint,
+                       t1 - t0)
     return _run_parsimony(args, out, names, leaves, n_states, weights, starts, constraint,
                           t1 - t0)
+
+
+def _run_distance(args, out, names, patterns, n_states, weights) -> InferRun:
+    """``--criterion distance``: the NJ (or, with ``--start upgma``, UPGMA)
+    tree of JC distances between the patterns' lowest states, its lengths
+    clipped at 0; ``--bootstrap`` split supports (draws from a CPU
+    generator seeded ``--seed``, as the JAX CLI seeds its key), dropped
+    from the newick when ``--outgroup`` reroots it."""
+    import numpy as np
+
+    from trex_tpu_torch.cli._common import lowest_states
+    from trex_tpu_torch.io import reroot_on_outgroup, save_newick
+    from trex_tpu_torch.search.nj import nj_bootstrap, nj_start_tree
+
+    device = weights.device
+    method = args.start if args.start in ("nj", "upgma") else "nj"
+    ints = torch.as_tensor(lowest_states(patterns, n_states), device=device)
+    seconds: dict = {}
+    clock = time.perf_counter()
+    support = None
+    if args.bootstrap > 0:
+        topo, blens, support = nj_bootstrap(
+            ints, n_states, n_replicates=args.bootstrap, method=method, site_weights=weights,
+            generator=torch.Generator().manual_seed(args.seed), device=device, timings=seconds,
+        )
+        seconds["start"] = seconds.pop("reference")
+        out["bootstrap_replicates"] = args.bootstrap
+        out["split_support"] = [round(float(s), 3) for s in support]
+    else:
+        topo, blens = nj_start_tree(ints, n_states, weights, method=method, device=device)
+        seconds["start"] = time.perf_counter() - clock
+    blens = np.clip(np.asarray(blens, dtype=np.float64), 0.0, None)
+    if args.outgroup:
+        # Supports are indexed by the ancestors before the rerooting moves
+        # them: dropped from the newick.
+        support = None
+        topo, blens = reroot_on_outgroup(topo, _outgroup_indices(names, args.outgroup), blens)
+        out["outgroup"] = args.outgroup
+    newick = save_newick(topo, names, branch_lengths=blens, support=support)
+    out.update(method=method, tree=newick, tree_length=float(np.asarray(blens)[:-1].sum()))
+    if args.output_tree:
+        with open(args.output_tree, "w") as fh:
+            fh.write(newick + "\n")
+    return InferRun(out, None, seconds, torch.as_tensor(blens, dtype=torch.float32))
 
 
 def _constraint(args, names: list[str], out: dict):
@@ -153,6 +190,11 @@ def _constraint(args, names: list[str], out: dict):
         )
     if args.ratchet > 0:
         raise SystemExit("--constraint does not combine with --ratchet")
+    if args.criterion == "ml" and args.model != "jc":
+        raise SystemExit(
+            "--constraint currently supports --model jc (the model-aware refinement "
+            "rides the unfiltered scan)"
+        )
     with open(args.constraint) as fh:
         ctopo, _, cnames = load_newick(fh.read())
     unknown = [n for n in cnames if n not in names]
@@ -272,29 +314,50 @@ def _finish(args, out: dict, result: SearchResult, newick: str) -> None:
             fh.write(newick + "\n")
 
 
-def _run_ml(args, out, names, leaves, n_states, weights, starts, start_seconds) -> InferRun:
-    """The ML branch: a likelihood climb from each start, then the Newton
-    branch-length fit; the start with the lowest fitted NLL wins. With a
-    ``--model`` other than jc, the model fit and the model <-> tree rounds
-    (``_fit_model``)."""
-    from trex_tpu_torch.io import save_newick
-    from trex_tpu_torch.search.ml import ml_hill_climb
+def _run_ml(args, out, names, leaves, n_states, weights, starts, constraint,
+            start_seconds) -> InferRun:
+    """The ML branch: a likelihood climb (under ``constraint`` when given),
+    or with ``--ratchet`` the iterated search (kicks from numpy's
+    ``default_rng(--seed + 13)``, the JAX CLI's key), from each start,
+    then the Newton branch-length fit; the start with the lowest fitted
+    NLL wins. With a ``--model`` other than jc, the model fit and the
+    model <-> tree rounds (``_fit_model``); with ``--bootstrap``, the ML
+    bootstrap's split supports (draws from a CPU generator seeded
+    ``--seed`` + 1, as the JAX CLI seeds its key)."""
+    import numpy as np
 
-    seconds = {"start": start_seconds, "climb": 0.0, "newton": 0.0}
+    from trex_tpu_torch.io import save_newick
+    from trex_tpu_torch.search.ml import ml_hill_climb, ml_iterated_search
+
+    seconds: dict = {"start": start_seconds, "climb": 0.0, "newton": 0.0}
+    splits, taxa = constraint or (None, None)
     best = None
     for st in starts:
-        timings: dict[str, float] = {}
+        timings: dict = {}
         # Compressed patterns + weights are exact for ML too: the total
         # log-likelihood is a weighted per-site sum.
-        result, lengths, losses = ml_hill_climb(
-            st, leaves, n_states,
-            max_rounds=args.rounds,
-            neighborhood=args.neighborhood,
-            sequences_are_masks=True,
-            site_weights=weights,
-            timings=timings,
-        )
-        seconds["climb"] += timings["climb"]
+        if args.ratchet > 0:
+            result, lengths, losses = ml_iterated_search(
+                st, leaves, n_states, seed=args.seed + 13,
+                n_iterations=args.ratchet, max_rounds=args.rounds,
+                neighborhood=args.neighborhood, sequences_are_masks=True,
+                site_weights=weights, timings=timings,
+            )
+            out["ml_iterations"] = args.ratchet
+            seconds["climb"] += timings["climb"] + sum(timings["reclimbs"])
+            seconds.setdefault("reclimbs", []).extend(timings["reclimbs"])
+        else:
+            result, lengths, losses = ml_hill_climb(
+                st, leaves, n_states,
+                max_rounds=args.rounds,
+                neighborhood=args.neighborhood,
+                sequences_are_masks=True,
+                site_weights=weights,
+                constraint_splits=splits,
+                constraint_taxa=taxa,
+                timings=timings,
+            )
+            seconds["climb"] += timings["climb"]
         seconds["newton"] += timings["newton"]
         if best is None or float(losses[-1]) < float(best[2][-1]):
             best = (result, lengths, losses)
@@ -312,7 +375,26 @@ def _run_ml(args, out, names, leaves, n_states, weights, starts, start_seconds) 
                                      seconds)
     lengths_np = lengths.cpu().numpy()
     out["mean_branch_length"] = float(lengths_np.mean())
-    _finish(args, out, result, save_newick(result.topology, names, lengths_np))
+    # The ML newick carries no supports (the JAX CLI's labels are aLRT's).
+    newick = save_newick(result.topology, names, lengths_np)
+    if args.bootstrap > 0:
+        from trex_tpu_torch.search.bootstrap import ml_bootstrap_analysis
+
+        clock = time.perf_counter()
+        support, _ = ml_bootstrap_analysis(
+            result.topology, leaves, n_states,
+            n_replicates=args.bootstrap,
+            search_rounds=max(args.rounds // 4, 3),
+            site_weights=weights,
+            sequences_are_masks=True,
+            generator=torch.Generator().manual_seed(args.seed + 1),
+        )
+        _sync(leaves.device)
+        seconds["bootstrap"] = time.perf_counter() - clock
+        out["bootstrap_replicates"] = args.bootstrap
+        out["mean_split_support"] = float(np.mean(support))
+        out["split_support"] = [round(float(s), 3) for s in support]
+    _finish(args, out, result, newick)
     return InferRun(out, result, seconds, lengths)
 
 

@@ -1,6 +1,6 @@
 """Argument parser and entry point (counterpart of ``trex_tpu/cli/parser.py``;
-the ``score``, ``infer``, ``search``, ``asr``, ``search-run``, ``bench``,
-``ml``, ``nk-bench`` and ``trait`` commands)."""
+the ``score``, ``infer``, ``partition``, ``modeltest``, ``search``, ``asr``,
+``search-run``, ``bench``, ``ml``, ``nk-bench`` and ``trait`` commands)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 import trex_tpu_torch.cli as _cli_pkg
 from trex_tpu_torch.cli._common import _add_common, _add_device
 from trex_tpu_torch.cli.infer import cmd_infer
+from trex_tpu_torch.cli.models import cmd_modeltest, cmd_partition
 from trex_tpu_torch.cli.score import cmd_asr, cmd_score, cmd_trait
 from trex_tpu_torch.cli.search_cmds import (
     cmd_bench,
@@ -66,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--alphabet", choices=("dna", "protein"), default="dna")
     p.add_argument("--criterion", choices=("parsimony", "ml", "distance"),
                    default="parsimony",
-                   help="parsimony or ml (distance: a later slice)")
+                   help="parsimony, ml, or distance (the NJ/UPGMA tree of "
+                        "--start, default nj, with its own branch lengths)")
     p.add_argument("--model", default="jc",
                    help="substitution model fitted on the final ML tree: "
                         "jc|k80|hky|f81|tn93|gtr|empirical with optional "
@@ -90,12 +92,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "differentiable joint relaxation as a coarse "
                         "initializer (8 restarts of 600 steps as one batch, "
                         "projected to valid trees, best exact score by the "
-                        "Fitch kernel); nj/upgma: a later slice")
+                        "Fitch kernel); nj/upgma: the distance tree of JC "
+                        "distances (ambiguity resolved to the lowest state)")
     p.add_argument("--orders", type=int, default=4,
                    help="random addition orders for --start stepwise")
     p.add_argument("--constraint", type=str, default=None,
                    help="constraint newick: every visited tree keeps its "
-                        "splits (needs --neighborhood nni/spr/tbr; parsimony)")
+                        "splits (needs --neighborhood nni/spr/tbr; under ml "
+                        "--model jc only)")
     p.add_argument("--neighborhood",
                    choices=("spr-scan", "spr", "nni", "tbr"),
                    default="spr-scan",
@@ -108,13 +112,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rounds", type=int, default=100,
                    help="max hill-climb rounds")
     p.add_argument("--ratchet", type=int, default=0,
-                   help="parsimony-ratchet iterations (parsimony)")
+                   help="parsimony-ratchet iterations, or under ml the "
+                        "iterated ML search's (random kicks and reclimbs)")
     p.add_argument("--decay", action="store_true",
                    help="SPR-decay (approximate Bremer) support per split "
                         "(parsimony)")
     p.add_argument("--bootstrap", type=int, default=0,
-                   help="bootstrap replicates: split supports on the newick "
-                        "(parsimony)")
+                   help="bootstrap replicates: split supports (on the newick "
+                        "under parsimony and distance)")
     p.add_argument("--outgroup", type=str, default=None,
                    help="comma-separated outgroup taxa to root the tree on")
     p.add_argument("--alrt", type=int, default=0,
@@ -133,6 +138,47 @@ def build_parser() -> argparse.ArgumentParser:
                    help="only '1,1' (one device) is ported")
     _add_device(p, "the search")
     p.set_defaults(fn=cmd_infer)
+
+    p = sub.add_parser(
+        "partition", help="partitioned ML fit (per-gene models, shared tree)")
+    p.add_argument("--alignment", "--fasta", dest="fasta", type=str, required=True)
+    p.add_argument("--partitions", type=str, required=True,
+                   help="RAxML-style partition file (TYPE, name = ranges)")
+    p.add_argument("--alphabet", choices=("dna", "protein"), default="dna")
+    p.add_argument("--tree", type=str, default=None,
+                   help="fixed newick topology (default: stepwise start)")
+    p.add_argument("--model", type=str, default="gtr+g",
+                   help="model for every partition (unless --models)")
+    p.add_argument("--models", type=str, default=None,
+                   help="comma-separated per-partition model strings")
+    p.add_argument("--linked", choices=("proportional", "equal"), default="proportional",
+                   help="branch-length linking across partitions")
+    p.add_argument("--iterations", type=int, default=600)
+    p.add_argument("--search", action="store_true",
+                   help="search topology under the fitted partitioned model "
+                        "(summed per-partition analytic SPR scans), then refit")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--output-tree", type=str, default=None)
+    _add_device(p, "the fit")
+    p.set_defaults(fn=cmd_partition)
+
+    p = sub.add_parser("modeltest", help="model selection by AIC/AICc/BIC")
+    p.add_argument("--alignment", "--fasta", dest="fasta", type=str, required=True,
+                   help="FASTA/PHYLIP/NEXUS alignment (auto-detected)")
+    p.add_argument("--alphabet", choices=("dna", "protein"), default="dna")
+    p.add_argument("--tree", type=str, default=None,
+                   help="fixed newick topology (default: stepwise start)")
+    p.add_argument("--models", type=str,
+                   default="jc,jc+g,k80,hky,hky+g,tn93+g,gtr,gtr+g,gtr+g+i,gtr+r3",
+                   help="comma-separated candidates (jc|k80|hky|f81|tn93|gtr|"
+                        "empirical with +g/+g+i/+rK suffixes)")
+    p.add_argument("--criterion", choices=("aic", "aicc", "bic"), default="bic")
+    p.add_argument("--iterations", type=int, default=500)
+    p.add_argument("--model-file", type=str, default=None,
+                   help="PAML-format rate file for 'empirical' candidates")
+    p.add_argument("--seed", type=int, default=0)
+    _add_device(p, "the fits")
+    p.set_defaults(fn=cmd_modeltest)
 
     p = sub.add_parser("search", help="joint topology+sequence search")
     _add_common(p)

@@ -33,6 +33,7 @@ from trex_tpu_torch.io.formats import (
     mask_lookup,
     parse_nexus,
     parse_paml_rates,
+    parse_partitions,
     parse_phylip,
 )
 from trex_tpu_torch.topology import Topology, from_numpy
@@ -512,6 +513,7 @@ __all__ = [
     "parse_fasta_masks",
     "parse_nexus",
     "parse_paml_rates",
+    "parse_partitions",
     "parse_phylip",
     "prune_to_taxa",
     "relabel_leaves",

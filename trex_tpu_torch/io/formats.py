@@ -291,3 +291,60 @@ def parse_paml_rates(text: str, n_states: int = 20) -> tuple[np.ndarray, np.ndar
         raise ValueError("invalid frequencies in PAML rate file")
     freqs = freqs / freqs.sum()
     return rates.astype(np.float32), freqs.astype(np.float32)
+
+
+def parse_partitions(text: str, n_sites: int) -> tuple[np.ndarray, list[str], list[str]]:
+    """Parse a RAxML-style partition file into per-site partition ids.
+
+    Lines look like ``DNA, gene1 = 1-500`` with 1-based inclusive ranges;
+    several comma-separated segments (``501-800, 900-950``), single sites
+    (``77``) and codon-position strides (``1-900\\3``) are taken. Blank
+    lines and ``#``/``//`` comments are ignored.
+
+    Returns (ids (n_sites,) int32 partition index per site, names, types):
+    ``types`` is each line's leading model/datatype token, verbatim.
+
+    Raises ValueError on a malformed line, a range outside the alignment,
+    a site assigned twice or a site no partition covers.
+    """
+    ids = np.full((n_sites,), -1, dtype=np.int32)
+    names: list[str] = []
+    types: list[str] = []
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        line = raw.split("#")[0].split("//")[0].strip()
+        if not line:
+            continue
+        if "=" not in line or "," not in line.split("=")[0]:
+            raise ValueError(f"partition line {lineno}: expected 'TYPE, name = ranges'")
+        head, ranges = line.split("=", 1)
+        ptype, name = (s.strip() for s in head.split(",", 1))
+        part = len(names)
+        names.append(name)
+        types.append(ptype)
+        for segment in ranges.split(","):
+            segment = segment.strip()
+            if not segment:
+                continue
+            stride = 1
+            if "\\" in segment:
+                segment, stride_s = segment.split("\\", 1)
+                stride = int(stride_s)
+                segment = segment.strip()
+            if "-" in segment:
+                lo_s, hi_s = segment.split("-", 1)
+                lo, hi = int(lo_s), int(hi_s)
+            else:
+                lo = hi = int(segment)
+            if not (1 <= lo <= hi <= n_sites):
+                raise ValueError(
+                    f"partition line {lineno}: range {segment!r} outside 1..{n_sites}")
+            sel = np.arange(lo - 1, hi, stride)
+            clash = ids[sel] >= 0
+            if clash.any():
+                raise ValueError(
+                    f"partition line {lineno}: site {int(sel[clash][0]) + 1} assigned twice")
+            ids[sel] = part
+    uncovered = int((ids < 0).sum())
+    if uncovered:
+        raise ValueError(f"{uncovered} sites not covered by any partition")
+    return ids, names, types

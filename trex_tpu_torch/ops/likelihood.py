@@ -832,6 +832,123 @@ def optimize_model(
     return {k: v.detach() if torch.is_tensor(v) else v for k, v in built.items()}, losses
 
 
+def optimize_model_partitioned(
+    topology: Topology,
+    leaf_sequences,
+    n_states: int,
+    partition_ids,
+    *,
+    models: list[str] | tuple[str, ...],
+    linked: str = "proportional",
+    n_categories: int = 4,
+    init_length: float = 0.1,
+    learning_rate: float = 0.05,
+    n_iterations: int = 800,
+    sequences_are_masks: bool = False,
+    site_weights=None,
+    fixed_rates=None,
+    fixed_freqs=None,
+) -> tuple[dict, torch.Tensor]:
+    """Partitioned ML: a substitution model per partition over one shared
+    topology and one shared set of branch lengths.
+
+    The log-likelihood is the sum of the partitions', each under its own
+    model and over its own sites (``partition_ids`` (L,) maps each site
+    or pattern to its partition 0..P-1; ``site_weights`` are the base
+    counts). With ``linked="proportional"`` every partition p > 0 also
+    gets a positive rate multiplier m_p on the shared lengths (softplus;
+    partition 0 pinned to 1), ``"equal"`` pins every multiplier to 1.
+    Lengths (softplus), multipliers and every partition's model parameters
+    (``_init_model_params``/``_build_model_params``, one ``models`` string
+    a partition; ``empirical`` ones share ``fixed_rates``/``fixed_freqs``)
+    are fitted jointly by ``n_iterations`` steps of Adam (no clipping).
+
+    Returns (result, losses): ``result`` maps "branch_lengths" (n_all,),
+    "rate_multipliers" (P,) and "partitions", one dict a partition with
+    its fitted model parameters (``optimize_model``'s keys but the
+    lengths) and its "log_likelihood" at the final parameters; the loss
+    before each step.
+    """
+    from trex_tpu_torch.search.optimizers import make_optimizer
+
+    if linked not in ("proportional", "equal"):
+        raise ValueError(f"linked must be 'proportional' or 'equal', got {linked!r}")
+    pids = np.asarray(torch.as_tensor(partition_ids).cpu())
+    n_parts = int(pids.max()) + 1
+    if len(models) != n_parts:
+        raise ValueError(f"{n_parts} partitions but {len(models)} model strings")
+    specs = [_parse_model_string(m) for m in models]
+    if any(spec["use_fixed"] for spec in specs) and fixed_rates is None:
+        raise ValueError("'empirical' partitions need fixed_rates")
+    leaves = torch.as_tensor(leaf_sequences)
+    device = leaves.device
+    if fixed_rates is not None:
+        fixed_rates = _f32(fixed_rates, device=device)
+    if fixed_freqs is not None:
+        fixed_freqs = _f32(fixed_freqs, device=device)
+    q = n_states
+    base_weights = (
+        torch.ones((pids.shape[0],), dtype=torch.float32, device=device)
+        if site_weights is None else _f32(site_weights, device=device)
+    )
+    # Each partition is pruned over its own columns only (the JAX package
+    # prunes every site under a zeroed mask: the same sum in another order).
+    columns = [torch.as_tensor(np.flatnonzero(pids == p), device=device)
+               for p in range(n_parts)]
+    part_leaves = [leaves[:, c].contiguous() for c in columns]
+    part_weights = [base_weights[c] for c in columns]
+    proportional = linked == "proportional" and n_parts > 1
+    levels = Levels(topology.children, device)
+
+    def part_lls(params):
+        lengths = torch.nn.functional.softplus(params["theta_len"])
+        mult = torch.ones((n_parts,), dtype=torch.float32, device=device)
+        if proportional:
+            mult = torch.cat([mult[:1], torch.nn.functional.softplus(params["theta_mult"])])
+        parts, lls = [], []
+        for p, spec in enumerate(specs):
+            built, rates, freqs = _build_model_params(spec, params[f"part{p}"], q, fixed_rates,
+                                                      fixed_freqs)
+            parts.append(built)
+            lls.append(_model_log_likelihood(
+                spec, built, rates, freqs, topology, lengths * mult[p], part_leaves[p],
+                n_states, part_weights[p], n_categories, sequences_are_masks, levels,
+            ))
+        return lengths, mult, parts, lls
+
+    params: dict = {"theta_len": torch.full(
+        (topology.n_all,), float(_softplus_inverse(init_length)), device=device)}
+    if proportional:
+        params["theta_mult"] = torch.full(
+            (n_parts - 1,), float(_softplus_inverse(1.0)), device=device)
+    for p, spec in enumerate(specs):
+        params[f"part{p}"] = _init_model_params(spec, q, fixed_freqs, device)
+    leaves_of = [params["theta_len"]] + ([params["theta_mult"]] if proportional else []) + [
+        value for p in range(n_parts) for value in params[f"part{p}"].values()]
+    for value in leaves_of:
+        value.requires_grad_(True)
+    optimizer = make_optimizer("adam", learning_rate, leaves_of, clip_global_norm=None)
+    losses = torch.empty((n_iterations,), dtype=torch.float32, device=device)
+    for step in range(n_iterations):
+        optimizer.zero_grad()
+        loss = -sum(part_lls(params)[3])
+        loss.backward()
+        losses[step] = loss.detach()
+        optimizer.step()
+    with torch.no_grad():
+        lengths, mult, parts, lls = part_lls(params)
+    result = {
+        "branch_lengths": lengths,
+        "rate_multipliers": mult,
+        "partitions": [
+            {**{k: v.detach() if torch.is_tensor(v) else v for k, v in parts[p].items()},
+             "log_likelihood": lls[p]}
+            for p in range(n_parts)
+        ],
+    }
+    return result, losses
+
+
 def _param_keys(spec: dict) -> set[str]:
     """Names of a model's parameters: constrained (``optimize_model``'s
     output) and unconstrained (its pytree)."""

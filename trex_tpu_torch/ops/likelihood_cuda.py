@@ -8,7 +8,10 @@ CUDA tensors and runs ``batched_log_likelihood_plain`` for CPU tensors;
 there is no other fall back. Its ``launches`` attribute counts the grids a
 call launches on the card (its ``calls`` attribute the calls that launch):
 the tree-plan pass (``ops.tree_plan``), one
-pruning grid (one per 65535 trees), then one site-sum grid.
+pruning grid (one per 65535 trees), then one site-sum grid; its
+``launches_by_mode`` splits that total by the transition's mode,
+``"shared"`` (one (Q, Q) P, the K3 regime) and ``"per_branch"`` (a P per
+branch and tree, K4's).
 ``launch_plan`` picks the kernel's block width: its slots always sit in
 shared memory. Forward only, as the TPU kernel: branch-length derivatives
 come from ``ops.likelihood_asr``.
@@ -212,13 +215,23 @@ def batched_log_likelihood_cuda(
     if rc != 0:
         raise RuntimeError(f"likelihood_batched kernel launch failed: CUDA error {rc}")
     # Grids: the plan pass, the pruning chunks, the site sum.
-    batched_log_likelihood_cuda.launches += 1 + -(-batch // chunk) + 1
-    batched_log_likelihood_cuda.calls += 1
+    count_launch(1 + -(-batch // chunk) + 1, shared)
     return out
+
+
+def count_launch(grids: int, shared: bool) -> None:
+    """Add one launching call of ``grids`` grids to
+    ``batched_log_likelihood_cuda``'s counters: its total, its calls and
+    the total of its mode."""
+    fn = batched_log_likelihood_cuda
+    fn.launches += grids
+    fn.calls += 1
+    fn.launches_by_mode["shared" if shared else "per_branch"] += grids
 
 
 batched_log_likelihood_cuda.launches = 0
 batched_log_likelihood_cuda.calls = 0
+batched_log_likelihood_cuda.launches_by_mode = {"shared": 0, "per_branch": 0}
 
 
 @functools.cache

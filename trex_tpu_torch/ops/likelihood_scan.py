@@ -241,6 +241,57 @@ def likelihood_spr_scan(
     return mask_invalid(scores, parents, prune_nodes, siblings, full_scan), base_score
 
 
+def likelihood_spr_scan_segmented(
+    topology: Topology,
+    leaf_sequences,
+    n_states: int,
+    ranking_branch_length: float = 0.1,
+    site_weights=None,
+    *,
+    rates=None,
+    freqs=None,
+    gamma_shape=None,
+    n_categories: int = 4,
+    category_rates=None,
+    category_weights=None,
+    sequences_are_masks: bool = False,
+    prune_chunk: int | None = None,
+    max_cells: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``likelihood_spr_scan`` over every prune node, run in segments: the
+    full (n_all, n_all) table with the all-inf root row, and the base
+    score. A segment holds at most ``max_cells / n_all`` prune nodes
+    (default: as many as a fraction of the device's available memory
+    holds, as ``ops.spr_scan.spr_scan_segmented`` sizes them); rows are
+    computed whole in each segment, so the table is the one-call scan's."""
+    from trex_tpu_torch.ops.spr_scan import _BYTES_PER_CELL
+    from trex_tpu_torch.utils.chunking import scan_budget_bytes
+
+    n_all = topology.n_all
+    n_prune = n_all - 1
+    device = torch.as_tensor(leaf_sequences).device
+    if max_cells is None:
+        max_cells = scan_budget_bytes(device) // _BYTES_PER_CELL
+
+    def scan(pn):
+        return likelihood_spr_scan(
+            topology, leaf_sequences, n_states, ranking_branch_length, site_weights,
+            rates=rates, freqs=freqs, gamma_shape=gamma_shape, n_categories=n_categories,
+            category_rates=category_rates, category_weights=category_weights,
+            sequences_are_masks=sequences_are_masks, prune_nodes=pn, prune_chunk=prune_chunk,
+        )
+
+    if n_prune * n_all <= max_cells:
+        return scan(None)
+    seg = max(1, max_cells // n_all)
+    rows = []
+    for s0 in range(0, n_prune, seg):
+        scores, base = scan(torch.arange(s0, min(s0 + seg, n_prune), dtype=torch.int64))
+        rows.append(scores)
+    rows.append(torch.full((1, n_all), torch.inf, device=rows[0].device))
+    return torch.cat(rows), base
+
+
 def likelihood_spr_scan_best_segmented(
     topology: Topology,
     leaf_sequences,

@@ -1,5 +1,6 @@
-"""Tree search: stepwise addition, hill climbing, the ratchet, supports,
-likelihood climbs and the differentiable search loops."""
+"""Tree search: stepwise addition, distance trees, hill climbing, the
+ratchet, supports, likelihood climbs, model selection and the
+differentiable search loops."""
 
 from trex_tpu_torch.search.asr import (
     parental_logits,
@@ -8,8 +9,10 @@ from trex_tpu_torch.search.asr import (
 )
 from trex_tpu_torch.search.bootstrap import (
     bootstrap_analysis,
+    bootstrap_log_likelihoods,
     bootstrap_scores,
     bootstrap_site_weights,
+    ml_bootstrap_analysis,
     split_support,
     subtree_leaf_sets,
 )
@@ -29,7 +32,18 @@ from trex_tpu_torch.search.joint import (
     joint_optimize,
     joint_search,
 )
-from trex_tpu_torch.search.ml import ml_hill_climb
+from trex_tpu_torch.search.ml import (
+    ml_hill_climb,
+    ml_iterated_search,
+    ml_partitioned_scan_climb,
+)
+from trex_tpu_torch.search.model_select import ModelFit, compare_models, count_parameters
+from trex_tpu_torch.search.nj import (
+    neighbor_joining,
+    nj_bootstrap,
+    nj_start_tree,
+    upgma,
+)
 from trex_tpu_torch.search.optimizers import make_optimizer
 from trex_tpu_torch.search.ratchet import (
     parsimony_ratchet,
@@ -42,13 +56,17 @@ from trex_tpu_torch.search.stepwise import stepwise_addition, stepwise_addition_
 
 __all__ = [
     "JointConfig",
+    "ModelFit",
     "RunnerConfig",
     "SearchResult",
     "bootstrap_analysis",
+    "bootstrap_log_likelihoods",
     "bootstrap_scores",
     "bootstrap_site_weights",
+    "compare_models",
     "constrained_start",
     "constraint_mask",
+    "count_parameters",
     "evaluate_solution",
     "extract_solution",
     "fit_topology",
@@ -56,7 +74,13 @@ __all__ = [
     "joint_optimize",
     "joint_search",
     "make_optimizer",
+    "ml_bootstrap_analysis",
     "ml_hill_climb",
+    "ml_iterated_search",
+    "ml_partitioned_scan_climb",
+    "neighbor_joining",
+    "nj_bootstrap",
+    "nj_start_tree",
     "parental_logits",
     "parsimony_hill_climb",
     "parsimony_ratchet",
@@ -71,4 +95,5 @@ __all__ = [
     "stepwise_addition_multi",
     "subtree_leaf_sets",
     "unrooted_splits",
+    "upgma",
 ]

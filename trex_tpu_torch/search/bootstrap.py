@@ -1,11 +1,12 @@
-"""Bootstrap analysis under parsimony: site-resampled scoring and split
-support (counterpart of the parsimony half of ``trex_tpu/search/bootstrap.py``).
+"""Bootstrap analysis: site-resampled scoring and split support under
+parsimony and likelihood (counterpart of ``trex_tpu/search/bootstrap.py``).
 
-A replicate resamples alignment sites with replacement. Every parsimony
-score here is a weighted site sum, so a replicate is an integer
-site-weight vector: the replicates' trees are scored under their weights
-(K1 on the card), with no copy of the data. Split support is the share
-of replicate optima that hold each bipartition of a reference tree.
+A replicate resamples alignment sites with replacement. Every score here
+is a weighted site sum, so a replicate is an integer site-weight vector:
+the replicates' trees are scored under their weights (K1 on the card for
+parsimony, K4's per-branch mode for likelihood), with no copy of the
+data. Split support is the share of replicate optima that hold each
+bipartition of a reference tree.
 """
 
 from __future__ import annotations
@@ -47,6 +48,22 @@ def bootstrap_scores(
     return torch.stack([
         sankoff_score(topology, cost_matrix, leaf_sequences, site_mask=w) for w in weights
     ])
+
+
+def bootstrap_log_likelihoods(
+    topology: Topology,
+    branch_lengths,
+    leaf_sequences,
+    n_states: int,
+    weights,
+) -> torch.Tensor:
+    """(R,) JC69 log-likelihoods of one tree under R site-weight vectors
+    (R, L): the per-site log-likelihoods once, then one product with the
+    weights (the log-likelihood is a weighted site sum)."""
+    from trex_tpu_torch.ops.likelihood import _f32, per_site_log_likelihood
+
+    per_site = per_site_log_likelihood(topology, branch_lengths, leaf_sequences, n_states)
+    return _f32(weights, device=per_site.device) @ per_site
 
 
 def subtree_leaf_sets(topology: Topology) -> list[frozenset[int]]:
@@ -136,4 +153,77 @@ def bootstrap_analysis(
         ).topology
         for w in replicate_weights[:n_replicates]
     ]
+    return split_support(reference, best), best
+
+
+def ml_bootstrap_analysis(
+    reference: Topology,
+    leaf_sequences,
+    n_states: int,
+    n_replicates: int = 100,
+    search_rounds: int = 10,
+    neighborhood: str = "nni",
+    ranking_branch_length: float = 0.1,
+    site_weights=None,
+    sequences_are_masks: bool = False,
+    *,
+    replicate_weights=None,
+    generator: torch.Generator | None = None,
+    device=None,
+) -> tuple[np.ndarray, list[Topology]]:
+    """Bootstrap split support under the likelihood criterion.
+
+    Each replicate climbs from ``reference`` (``parsimony_hill_climb``,
+    ``search_rounds`` rounds of ``neighborhood``) with its candidates
+    ranked by JC69 log-likelihood under the replicate's weights, every
+    branch at ``ranking_branch_length``: one call of
+    ``ops.likelihood_cuda.batched_log_likelihood_cuda`` a batch with a
+    (B, n_all, Q, Q) matrix a branch and tree (K4's per-branch mode on the
+    card, as the JAX package's TPU route runs its slots kernel). The
+    weights come from ``replicate_weights`` ((R, L) counts, the JAX
+    package's draws replayed) or else ``_replicate_weights`` from
+    ``generator`` (pattern occurrences resampled when ``site_weights`` is
+    given). ``device``: default the device of a tensor ``leaf_sequences``,
+    else ``cuda``.
+
+    Returns (support (n_ancestors,), the replicates' best topologies).
+    """
+    from trex_tpu_torch._device import resolve_device
+    from trex_tpu_torch.ops.likelihood import jc69_transition
+    from trex_tpu_torch.ops.likelihood_cuda import batched_log_likelihood_cuda
+    from trex_tpu_torch.search.hillclimb import parsimony_hill_climb
+
+    if device is None and torch.is_tensor(leaf_sequences):
+        device = leaf_sequences.device
+    device = resolve_device("cuda" if device is None else device)
+    leaves = torch.as_tensor(leaf_sequences, device=device).to(torch.int32).contiguous()
+    if replicate_weights is None:
+        if generator is None:
+            raise ValueError("ml_bootstrap_analysis needs replicate_weights or a generator")
+        replicate_weights = _replicate_weights(leaves.shape[-1], n_replicates,
+                                               site_weights, generator)
+    replicate_weights = torch.as_tensor(replicate_weights, device=device).to(torch.float32)
+    n_all = reference.n_all
+    p_branch = jc69_transition(torch.tensor(float(ranking_branch_length), device=device),
+                               n_states)
+    prior = torch.full((n_states,), 1.0 / n_states, device=device)
+    dummy_cost = torch.zeros((n_states, n_states), device=device)
+    best: list[Topology] = []
+    for w in replicate_weights[:n_replicates]:
+        w = w.contiguous()
+
+        def score_batch(topos, _cost, _leaves, w=w):
+            children = topos.children.to(torch.int32).contiguous()
+            # Every branch of every candidate at the ranking length: the
+            # table is one broadcast of one matrix.
+            per_branch = p_branch.expand(children.shape[0], n_all, n_states, n_states)
+            return -batched_log_likelihood_cuda(
+                children, leaves, w, prior, per_branch.contiguous(),
+                sequences_are_masks=sequences_are_masks,
+            )
+
+        best.append(parsimony_hill_climb(
+            reference, dummy_cost, leaves, max_rounds=search_rounds,
+            score_batch_fn=score_batch, neighborhood=neighborhood, device=device,
+        ).topology)
     return split_support(reference, best), best
