@@ -108,6 +108,19 @@ launch count set to 0 just before it and read just after:
   beside 2.0); each printed tree's JC ranking log-likelihood rescored by
   K3 and on the CPU; and every new flag and command card against CPU at
   24 x 300.
+- Slice 4a (``--phases supports,reference_supports``): K3 held at the
+  first round of the ML TBR climb on 512 x 2048 (its first 2048 of up to
+  16,384 trees; the whole round timed); ``infer --criterion ml
+  --neighborhood nni --alrt 1000 --ufboot 1000`` on the main path's
+  alignment, with its walls by part (start, climb, Newton, each support's
+  batched fit, RELL, host bookkeeping), candidates, chunks, peak memory,
+  K4's per-site mode held (rows and sums, rtol 1e-5) and timed at its
+  first aLRT and UFBoot chunk, and a profiled window of two batched Newton
+  sweeps (launches a sweep, idle share); ``topotest --replicates 10000``
+  on 8 of its trees; ``bootstrap`` at 128 x 1024 with 50 replicates and
+  ``consensus``, ``treedist``, ``treeprune``, ``concord``, ``treedraw``
+  and ``stats`` on the outputs; and each new flag and command card
+  against CPU at 24 x 300 under the same draws.
 
 K1 is also captured in a CUDA graph, larger calls run, and the graph
 replayed (each call's scratch is its own: bit-equal to the plain version);
@@ -692,18 +705,27 @@ def strip_lengths(newick: str) -> str:
 
 def run_cli(argv: list[str]):
     """A command in this process; returns what its ``run_*`` function
-    returns (``infer``: InferRun; ``bench``, ``search-run``, ``ml``: the
-    JSON object and the scores, params or inputs; else the JSON object,
-    ``partition`` and ``modeltest`` too)."""
+    returns (``infer``: InferRun; ``bench``, ``search-run``, ``ml``,
+    ``bootstrap``, ``topotest``: the JSON object and the scores, params,
+    inputs, replicate trees or test result; ``treedraw``: its text; else
+    the JSON object, ``partition`` and ``modeltest`` too)."""
     from trex_tpu_torch.cli import build_parser
     from trex_tpu_torch.cli.infer import run_infer
-    from trex_tpu_torch.cli.score import run_asr, run_score, run_trait
+    from trex_tpu_torch.cli.bayes import run_concord
+    from trex_tpu_torch.cli.score import run_asr, run_score, run_stats, run_trait, run_treedraw
     from trex_tpu_torch.cli.search_cmds import (
         run_bench,
+        run_bootstrap,
         run_ml,
         run_nk_bench,
         run_search,
         run_search_run,
+    )
+    from trex_tpu_torch.cli.trees import (
+        run_consensus,
+        run_topotest,
+        run_treedist,
+        run_treeprune,
     )
 
     from trex_tpu_torch.cli.models import run_modeltest, run_partition
@@ -711,7 +733,9 @@ def run_cli(argv: list[str]):
     run = {"infer": run_infer, "score": run_score, "bench": run_bench, "search": run_search,
            "asr": run_asr, "nk-bench": run_nk_bench, "search-run": run_search_run,
            "ml": run_ml, "trait": run_trait, "partition": run_partition,
-           "modeltest": run_modeltest}[argv[0]]
+           "modeltest": run_modeltest, "bootstrap": run_bootstrap, "topotest": run_topotest,
+           "treedist": run_treedist, "consensus": run_consensus, "treeprune": run_treeprune,
+           "treedraw": run_treedraw, "stats": run_stats, "concord": run_concord}[argv[0]]
     with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
         return run(build_parser().parse_args(argv))
 
@@ -1359,7 +1383,7 @@ def slice_1b_reference(torch, workdir: str, ref_fasta: str) -> list[dict]:
 # A phase named here runs the phases it needs first (REQUIRES).
 PHASES = ("card", "build", "native", "kernels", "routes", "differentiable", "slice_1b",
           "reference", "ml_models", "score_ml", "trait", "ml", "protein", "reference_2b",
-          "slice_2c", "reference_2c")
+          "slice_2c", "reference_2c", "supports", "reference_supports")
 REQUIRES = {"routes": ("kernels",), "slice_1b": ("kernels", "routes"),
             "score_ml": ("ml_models",), "trait": ("ml_models",), "slice_2c": ("ml_models",)}
 SLICE_2B_PHASES = ("ml_models", "score_ml", "trait", "ml", "protein")
@@ -1409,6 +1433,27 @@ def k3_model_entry(slice_2b: dict, slice_2c: dict) -> dict | None:
         **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "at_model_routes": batches,
         **slice_2c_fields(slice_2c),
+    }
+
+
+def per_site_entry(supports: dict) -> dict | None:
+    """K4's per-site mode's kernels-line entry (the same kernel as K3/K4,
+    its rows without the site-sum grid) from the supports phase: held and
+    timed at the supports route's first aLRT chunk, launches of the route
+    (its per-site grids) and of topotest; or None when the phase did not
+    run."""
+    if not supports:
+        return None
+    first = supports["k4_per_site"]["alrt"]
+    return {
+        "name": "likelihood_batched_per_site", "route": "cuda",
+        "source": "trex_tpu_torch/csrc/likelihood_batched.cu",
+        "replaces": "trex_tpu/ops/likelihood_pallas.py:135",
+        "launches": supports["route"]["launches"]["k34_per_site"],
+        "topotest_launches": supports["topotest_launches"]["k34_per_site"],
+        **{k: first[k] for k in ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "device_ms")},
+        "library_ms": None, "at_first_chunks": supports["k4_per_site"],
     }
 
 
@@ -2412,6 +2457,398 @@ def slice_2c_reference(torch, workdir: str) -> list[dict]:
     return rows
 
 
+# Slice 4a: likelihood supports and tree tools. The full-width route runs
+# ``infer --criterion ml --alrt 1000 --ufboot 1000`` on the main path's
+# alignment (the ML NNI route's flags), then ``topotest`` on 8 of its
+# trees, ``bootstrap`` at 128 x 1024 and the tree tools on the outputs.
+SUPPORT_ARGS_4A = ["--criterion", "ml", "--neighborhood", "nni", "--rounds", "10",
+                   "--alrt", "1000", "--ufboot", "1000"]
+TOPOTEST_REPLICATES = 10_000
+BOOTSTRAP_ARGS_4A = ["bootstrap", "--leaves", "128", "--sites", "1024", "--replicates", "50"]
+K3_TBR_TREES = 2048  # K3's plain version at the TBR batch: its first 2048 trees
+NEWTON_WINDOW_SWEEPS = 2
+
+
+def k4_per_site_at(torch, dev, children, leaves, weights, lengths, timer) -> dict:
+    """K4's per-site mode (rows and weighted sums, one (C, 1 + P) tensor)
+    held within rtol K34_RTOL of its plain version on a chunk of candidates
+    at their fitted lengths (JC, a P a branch and tree), timed, beside its
+    bound (the rows are its output)."""
+    from trex_tpu_torch.ops.likelihood import jc69_transition
+    from trex_tpu_torch.ops.likelihood_cuda import (
+        batched_log_likelihood_cuda,
+        batched_log_likelihood_plain,
+    )
+
+    pmats = jc69_transition(lengths, 4).contiguous()
+    prior = torch.full((4,), 0.25, device=dev)
+
+    def run(fn):
+        def call():
+            sums, rows = fn(children, leaves, weights, prior, pmats, sequences_are_masks=True,
+                            per_site=True)
+            return torch.cat([sums[:, None], rows], dim=1)
+        return call
+
+    batch, n_taxa, n_sites = children.shape[0], leaves.shape[0], leaves.shape[1]
+    n_bytes, n_ops = k34_work(batch, n_taxa, n_sites, 4, True)
+    got = measure(torch, run(batched_log_likelihood_cuda), run(batched_log_likelihood_plain),
+                  n_bytes + 4.0 * batch * (n_sites - 1), n_ops, rtol=K34_RTOL, plain_reps=1)
+    return dict(trees=batch, n_taxa=n_taxa, patterns=n_sites, **got,
+                **timer(run(batched_log_likelihood_cuda), got["ms"]))
+
+
+def supports_routes(torch, dev, workdir: str, main_fasta: str, reset_counts, launch_counts,
+                    timer) -> dict:
+    """Slice 4a on the card: K3 at the first batch of the ML TBR climb on
+    512 x 2048; the supports route (``infer --criterion ml --alrt 1000
+    --ufboot 1000``, every count set to 0 just before it and read just
+    after) with its walls by part, candidates, chunk, peak memory; K4's
+    per-site mode held at the route's first aLRT and UFBoot chunks; a
+    profiled window of NEWTON_WINDOW_SWEEPS batched Newton sweeps
+    (launches a sweep, idle share); ``topotest`` on 8 of the route's
+    trees; ``bootstrap`` at 128 x 1024 and ``consensus``, ``treedist``,
+    ``treeprune``, ``concord``, ``treedraw`` and ``stats`` on the outputs.
+    Returns what the kernels line reads."""
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli._common import _load_alignment, _start_tree, lowest_states
+    from trex_tpu_torch.io import (
+        nni_neighbors_host,
+        save_newick,
+        tbr_neighborhood_host,
+    )
+    from trex_tpu_torch.ops.likelihood import jc69_transition
+    from trex_tpu_torch.ops.likelihood_asr import newton_lengths_batched
+    from trex_tpu_torch.ops.likelihood_cuda import (
+        batched_log_likelihood_cuda,
+        batched_log_likelihood_plain,
+    )
+    from trex_tpu_torch.search import alrt, ufboot
+    from trex_tpu_torch.search.nj import nj_start_tree
+    from trex_tpu_torch.topology import from_numpy
+
+    found: dict = {}
+    names, masks, _ = _load_alignment(main_fasta, "dna")
+    patterns, counts = compress_alignment(masks)
+    pat_t = torch.as_tensor(patterns.astype(np.int32), device=dev)
+    w_t = torch.as_tensor(counts.astype(np.float32), device=dev)
+    uniform = torch.full((4,), 0.25, device=dev)
+
+    # K3 at the first batch of ``infer --criterion ml --neighborhood tbr``:
+    # the stepwise start's TBR neighbourhood, sampled as the climber's first
+    # round samples it.
+    start = _start_tree("stepwise", patterns.astype(np.int32), 4, SEED, w_t, 4, dev)
+    first_seed = int(np.random.default_rng(0).integers(0, 2**63 - 1))
+    tbr = tbr_neighborhood_host(start, max_trees=16384, seed=first_seed)[0].copy()
+    batch = torch.as_tensor(tbr, device=dev)
+    shared_p = jc69_transition(torch.tensor(RANKING_LENGTH, device=dev), 4).contiguous()
+    part = batch[:K3_TBR_TREES].contiguous()
+
+    def k3_call(fn, trees):
+        return lambda: fn(trees, pat_t, w_t, uniform, shared_p, sequences_are_masks=True)
+
+    k3 = measure(torch, k3_call(batched_log_likelihood_cuda, part),
+                 k3_call(batched_log_likelihood_plain, part),
+                 *k34_work(part.shape[0], len(names), pat_t.shape[1], 4, False),
+                 rtol=K34_RTOL, plain_reps=1)
+    full_ms = time_ms(torch, k3_call(batched_log_likelihood_cuda, batch), 5)
+    found["k3_at_ml_tbr"] = dict(
+        batch="first round of infer --criterion ml --neighborhood tbr (512 x 2048)",
+        trees_in_round=int(batch.shape[0]), trees_held=int(part.shape[0]), **k3,
+        **timer(k3_call(batched_log_likelihood_cuda, part), k3["ms"]),
+        full_round_ms=full_ms,
+        full_round_bound_ms=bound_ms(*k34_work(batch.shape[0], len(names), pat_t.shape[1], 4,
+                                               False))[0])
+    emit("k3_at_ml_tbr", **found["k3_at_ml_tbr"])
+    del batch, part
+
+    # The supports route.
+    argv = ["infer", "--alignment", main_fasta, *SUPPORT_ARGS_4A]
+    run, wall, launches, peak = ml_route(torch, argv, reset_counts, launch_counts)
+    out, seconds = run.out, run.seconds
+    n_anc = len(names) - 1
+    if (launches["k34_per_site"] <= 0 or launches["k34_per_branch"] <= launches["k34_per_site"]
+            or len(out["sh_alrt_support"]) != n_anc or len(out["ufboot_support"]) != n_anc
+            or not all(0.0 <= x <= 1.0 for x in out["ufboot_support"] + out["rell_support"])):
+        raise AssertionError(f"supports route: launches {launches}, {list(out)}")
+    rescored = rescore_ranking(torch, out["tree"], main_fasta)
+    tree = run.result.topology
+    alrt_parts, ub_parts = seconds["alrt_parts"], seconds["ufboot_parts"]
+    parts = dict(
+        start=seconds["start"], climb=seconds["climb"], newton=seconds["newton"],
+        alrt_fit=alrt_parts["fit"], ufboot_fit=ub_parts["fit"],
+        rell=alrt_parts["rell"] + ub_parts["rell"],
+        host_bookkeeping=alrt_parts["enumerate"] + ub_parts["candidates"] + ub_parts["splits"],
+        alrt=seconds["alrt"], ufboot=seconds["ufboot"])
+
+    # K4's per-site mode at the first aLRT and the first UFBoot chunk, each
+    # at its Newton-fitted lengths.
+    children, _, by_edge = alrt._nni_alternatives_by_edge(tree)
+    used = sorted({m for rows in by_edge for m in rows})
+    ref_children = tree.children.cpu().numpy()
+    alrt_batch = np.concatenate([ref_children[None], children[used]])
+    ub_batch = ufboot.default_candidates(tree, extra_tbr=64, seed=SEED + 11).children.numpy()
+    per_site_checks = {}
+    for name, cands, chunk in (("alrt", alrt_batch, alrt_parts["per_site"]["chunk"]),
+                               ("ufboot", ub_batch, ub_parts["per_site"]["chunk"])):
+        first = torch.as_tensor(cands[:chunk], device=dev)
+        lengths = newton_lengths_batched(first, pat_t, 4, weights=w_t, sequences_are_masks=True)
+        per_site_checks[name] = dict(candidates=int(cands.shape[0]), chunk=int(chunk),
+                                     **k4_per_site_at(torch, dev, first, pat_t, w_t, lengths,
+                                                      timer))
+        del first, lengths
+    found["k4_per_site"] = per_site_checks
+
+    # A profiled window of NEWTON_WINDOW_SWEEPS batched sweeps on the first
+    # aLRT chunk (the first call of a fit scores its start too).
+    window_children = torch.as_tensor(alrt_batch[:alrt_parts["per_site"]["chunk"]], device=dev)
+
+    def sweeps():
+        newton_lengths_batched(window_children, pat_t, 4, weights=w_t, sequences_are_masks=True,
+                               n_sweeps=NEWTON_WINDOW_SWEEPS)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweeps()
+    torch.cuda.synchronize()
+    window = profile_phase(torch, sweeps, time.perf_counter() - t0)
+    window.update(sweeps=NEWTON_WINDOW_SWEEPS, trees=int(window_children.shape[0]),
+                  launches_per_sweep=window["device_launches"] / NEWTON_WINDOW_SWEEPS)
+    del window_children
+    found["route"] = dict(wall_s=wall, launches=launches, parts=parts,
+                          newton_window=window)
+    emit("supports_route", command="infer " + " ".join(SUPPORT_ARGS_4A) + " (512 x 2048)",
+         n_taxa=out["n_taxa"], unique_patterns=out["unique_patterns"],
+         neg_log_likelihood=out["neg_log_likelihood"], ranking_score=out["ranking_score"],
+         search_rounds=out["search_rounds"],
+         mean_sh_alrt=float(np.mean(out["sh_alrt_support"])),
+         mean_rell=float(np.mean(out["rell_support"])),
+         mean_ufboot=float(np.mean(out["ufboot_support"])),
+         alrt_candidates=int(alrt_batch.shape[0]), ufboot_candidates=out["ufboot_candidates"],
+         ufboot_reference_wins=out["ufboot_reference_wins"],
+         chunks={"alrt": alrt_parts["per_site"], "ufboot": ub_parts["per_site"]},
+         seconds=parts, alrt_parts=alrt_parts, ufboot_parts=ub_parts, wall_s=wall,
+         launches=launches, peak_memory_bytes=peak, rescored=rescored,
+         newton_window=window, k4_per_site=per_site_checks)
+
+    # topotest on 8 trees: the supports route's ML tree, the parsimony main
+    # path's tree, the NJ tree and 5 NNI neighbours of the ML tree (distinct
+    # unrooted trees), 10,000 replicates and the AU test's 10 scales.
+    parsimony = run_cli(["infer", "--alignment", main_fasta]).out["tree"]
+    nj_topo, nj_lengths = nj_start_tree(lowest_states(patterns, 4), 4, counts, device="cpu")
+    seen = {frozenset(ufboot._unrooted_split_masks(tree.children.cpu().numpy()))}
+    neighbours = []
+    # Copies: the native library reuses its output buffers.
+    nni_children, nni_parents = (x.copy() for x in nni_neighbors_host(tree))
+    for c, p in zip(nni_children, nni_parents):
+        sig = frozenset(ufboot._unrooted_split_masks(c))
+        if sig not in seen and len(neighbours) < 5:
+            seen.add(sig)
+            neighbours.append(save_newick(from_numpy(c, p), names))
+    trees_path = os.path.join(workdir, "topotest.nwk")
+    nj_path = os.path.join(workdir, "nj.nwk")
+    ml_path = os.path.join(workdir, "ml_supports.nwk")
+    with open(nj_path, "w") as fh:
+        fh.write(save_newick(nj_topo, names, np.clip(nj_lengths, 0.0, None)) + "\n")
+    with open(ml_path, "w") as fh:
+        fh.write(out["tree"] + "\n")
+    with open(trees_path, "w") as fh:
+        fh.write("\n".join([strip_supports(out["tree"]), parsimony,
+                            save_newick(nj_topo, names), *neighbours]) + "\n")
+    timings: dict = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    topo_out, res = run_topotest_timed(trees_path, main_fasta, timings)
+    torch.cuda.synchronize()
+    topo_wall = time.perf_counter() - t0
+    topo_launches = launch_counts()
+    values = [row[k] for row in topo_out["table"] for k in ("p_kh", "p_sh", "p_au", "bp")]
+    if (topo_out["n_trees"] != 8 or res.p_au is None or topo_launches["k34_per_site"] <= 0
+            or not np.isfinite(res.log_likelihoods).all()
+            or not all(0.0 <= v <= 1.0 for v in values)):
+        raise AssertionError(f"topotest: {topo_out}, launches {topo_launches}")
+    found["topotest_launches"] = topo_launches
+    emit("topotest_route", command=f"topotest --replicates {TOPOTEST_REPLICATES} (8 trees, "
+         "512 x 2048)", best=topo_out["best"], table=topo_out["table"], seconds=timings,
+         wall_s=topo_wall, launches=topo_launches)
+
+    # bootstrap at 128 x 1024, then the tree tools on the outputs.
+    reset_counts()
+    (boot_out, best), boot_wall = timed_cli(torch, BOOTSTRAP_ARGS_4A)
+    boot_launches = launch_counts()
+    if boot_launches["k1"] <= 0 or len(best) != 50:
+        raise AssertionError(f"bootstrap: launches {boot_launches}")
+    reps_path = os.path.join(workdir, "bootstrap_reps.nwk")
+    with open(reps_path, "w") as fh:
+        fh.write("".join(save_newick(t) + "\n" for t in best))
+    balanced_path = os.path.join(workdir, "balanced.nwk")
+    from trex_tpu_torch.topology import balanced_topology
+
+    with open(balanced_path, "w") as fh:
+        fh.write(save_newick(balanced_topology(int(BOOTSTRAP_ARGS_4A[2]), "cpu")) + "\n")
+    tools = {}
+    for name, argv in (
+        ("consensus", ["consensus", reps_path]),
+        ("treedist", ["treedist", ml_path, nj_path]),
+        ("treeprune", ["treeprune", "--tree", ml_path, "--taxa", ",".join(names[:100]),
+                       "--output-tree", os.path.join(workdir, "pruned.nwk")]),
+        ("concord_gcf", ["concord", "--tree", balanced_path, "--gene-trees", reps_path]),
+        ("concord_scf", ["concord", "--tree", ml_path, "--fasta", main_fasta, "--quartets",
+                         "100"]),
+        ("treedraw", ["treedraw", "--tree", ml_path]),
+        ("stats", ["stats", "--alignment", main_fasta]),
+    ):
+        result, tool_wall = timed_cli(torch, argv)
+        if name == "treedraw":
+            result = {"lines": result.count("\n") + 1}
+        elif name.startswith("concord"):
+            values = [b["gcf" if name.endswith("gcf") else "scf"] for b in result["branches"]]
+            result = {"branches": len(values), "defined": sum(v is not None for v in values),
+                      "mean": float(np.mean([v for v in values if v is not None]))}
+        elif name == "consensus":
+            result = {k: result[k] for k in ("n_trees", "n_splits")}
+        elif name == "treeprune":
+            result = {k: result[k] for k in ("kept", "dropped")}
+        tools[name] = dict(result, wall_s=tool_wall)
+    emit("tree_tools_route", command=" ".join(BOOTSTRAP_ARGS_4A) + " (128 x 1024), then the "
+         "tree tools", mean_support=boot_out["mean_support"], bootstrap_wall_s=boot_wall,
+         bootstrap_launches=boot_launches, tools=tools)
+    found["bootstrap_launches"] = boot_launches
+    return found
+
+
+def strip_supports(newick: str) -> str:
+    """A newick without its internal-node labels and lengths."""
+    return re.sub(r"\)[^,();]+", ")", strip_lengths(newick))
+
+
+def run_topotest_timed(trees_path: str, fasta: str, timings: dict):
+    """``topotest --replicates TOPOTEST_REPLICATES`` on the card, with its
+    parts in ``timings``: (JSON, TopologyTestResult)."""
+    from trex_tpu_torch.cli import build_parser
+    from trex_tpu_torch.cli.trees import run_topotest
+
+    args = build_parser().parse_args(["topotest", "--alignment", fasta, "--trees", trees_path,
+                                      "--replicates", str(TOPOTEST_REPLICATES)])
+    with contextlib.redirect_stdout(io.StringIO()):
+        return run_topotest(args, timings)
+
+
+# Card against CPU, the supports' and tests' shares: the two devices'
+# float32 per-site rows differ by about 1e-7 relative, so a replicate whose
+# statistic lies that close to its threshold (SH-aLRT's null against the
+# observed statistic, a near-tied RELL argmax) may count the other way. At
+# 24 x 300 a branch of small aLRT had 4 such replicates of 200 on an H100
+# (PERF.md). The AU p-value is a fit to each scale's win share, which a
+# vote moves further.
+SHARE_TOL, AU_TOL = 0.05, 0.1
+
+
+def close_supports(card: dict, cpu: dict) -> dict:
+    """Card against CPU of one support command's JSON: the same keys and
+    non-float values; likelihoods within rtol K34_RTOL; ``alrt`` and
+    ``delta`` within 1e-2; every support, share or p-value within
+    SHARE_TOL (``p_au`` AU_TOL); counts within 2. Returns the largest
+    differences seen; raises past a limit."""
+    worst = {"likelihood_rel": 0.0, "share": 0.0, "p_au": 0.0, "count": 0, "alrt": 0.0}
+    if list(card) != list(cpu):
+        raise AssertionError(f"keys differ: {list(card)} != {list(cpu)}")
+
+    def walk(a, b, key):
+        if isinstance(b, dict):
+            if list(a) != list(b):
+                raise AssertionError(f"{key}: keys differ")
+            for k in b:
+                walk(a[k], b[k], k)
+        elif isinstance(b, list):
+            if len(a) != len(b):
+                raise AssertionError(f"{key}: lengths differ")
+            for x, y in zip(a, b):
+                walk(x, y, key)
+        elif key == "tree" and isinstance(b, str):
+            if strip_supports(a) != strip_supports(b):
+                raise AssertionError("trees differ")
+        elif b is None or isinstance(b, (str, bool)):
+            if a != b:
+                raise AssertionError(f"{key}: {a} != {b}")
+        elif key in ("log_likelihood", "neg_log_likelihood", "ranking_score"):
+            worst["likelihood_rel"] = max(worst["likelihood_rel"], abs(a - b) / abs(b))
+        elif key in ("alrt", "delta", "mean_branch_length"):
+            worst["alrt"] = max(worst["alrt"], abs(a - b))
+        elif isinstance(b, int):
+            worst["count"] = max(worst["count"], abs(a - b))
+        elif key == "p_au":
+            worst["p_au"] = max(worst["p_au"], abs(a - b))
+        else:
+            worst["share"] = max(worst["share"], abs(a - b))
+
+    walk(card, cpu, "")
+    if (worst["likelihood_rel"] > K34_RTOL or worst["alrt"] > 1e-2 or worst["count"] > 2
+            or worst["share"] > SHARE_TOL or worst["p_au"] > AU_TOL):
+        raise AssertionError(f"card {card} != cpu {cpu}: {worst}")
+    return worst
+
+
+def supports_reference(torch, workdir: str) -> list[dict]:
+    """Slice 4a on the card against the CPU at 24 x 300, both devices under
+    the same draws: ``infer --criterion ml`` with ``--alrt``, ``--ufboot``,
+    both, and ``--model gtr --alrt``; ``topotest`` (JC and GTR, the AU
+    test on); ``bootstrap`` (32 x 300); the host tree tools once."""
+    fasta = os.path.join(workdir, "ref_4a.fasta")
+    simulate_fasta(fasta, REF_SHAPE["n_taxa"], REF_SHAPE["n_sites"], SEED + 21,
+                   branch=(0.1, 0.4))
+    rows = []
+    tree_path = os.path.join(workdir, "ref_4a_ml.nwk")
+    with short_fits(REF_FIT_STEPS):
+        for flags in (["--alrt", "200"], ["--ufboot", "200"], ["--alrt", "200", "--ufboot", "200"],
+                      ["--model", "gtr", "--alrt", "200"]):
+            argv = ["infer", "--alignment", fasta, "--criterion", "ml", "--neighborhood", "nni",
+                    *flags]
+            card = run_cli(argv).out
+            cpu = run_cli(argv + ["--device", "cpu", "--output-tree", tree_path]).out
+            worst = close_supports(card, cpu)
+            rows.append(dict(command="infer --criterion ml " + " ".join(flags), worst=worst,
+                             mean_support=float(np.mean(cpu.get("ufboot_support")
+                                                        or cpu["sh_alrt_support"]))))
+        from trex_tpu_torch.cli._common import _load_alignment
+
+        names = _load_alignment(fasta, "dna")[0]
+        trees = os.path.join(workdir, "ref_4a_trees.nwk")
+        from trex_tpu_torch.io import save_newick
+        from trex_tpu_torch.topology import random_topologies
+
+        randoms = random_topologies(SEED + 22, REF_SHAPE["n_taxa"], 3, "cpu")
+        others = [save_newick(type(randoms)(randoms.children[i], randoms.parents[i]), names)
+                  for i in range(3)]
+        with open(trees, "w") as fh:
+            fh.write(strip_supports(open(tree_path).read()) + "\n" + "\n".join(others) + "\n")
+        other_path = os.path.join(workdir, "ref_4a_other.nwk")
+        with open(other_path, "w") as fh:
+            fh.write(others[0] + "\n")
+        for model in ("jc", "gtr"):
+            argv = ["topotest", "--alignment", fasta, "--trees", trees, "--replicates", "1000",
+                    "--model", model]
+            card = run_cli(argv)[0]
+            cpu = run_cli(argv + ["--device", "cpu"])[0]
+            worst = close_supports(card, cpu)
+            rows.append(dict(command=f"topotest --model {model}", worst=worst,
+                             best=cpu["best"]))
+    argv = ["bootstrap", "--leaves", "32", "--sites", "300", "--replicates", "10"]
+    card = run_cli(argv)[0]
+    cpu = run_cli(argv + ["--device", "cpu"])[0]
+    if card != cpu:
+        raise AssertionError(f"bootstrap: card {card} != cpu {cpu}")
+    rows.append(dict(command=" ".join(argv), same_json=True))
+    for argv in (["consensus", trees], ["treedist", tree_path, other_path],
+                 ["stats", "--alignment", fasta], ["treedraw", "--tree", tree_path],
+                 ["concord", "--tree", tree_path, "--gene-trees", trees, "--fasta", fasta]):
+        out = run_cli(argv)
+        rows.append(dict(command=argv[0], ran=True,
+                         keys=list(out) if isinstance(out, dict) else None))
+    return rows
+
+
 @contextlib.contextmanager
 def short_fits(steps: int):
     """``ops.likelihood.optimize_model`` at ``steps`` Adam steps while the
@@ -2497,14 +2934,17 @@ def main(argv: list[str] | None = None) -> int:
             fn.launches = 0
             if hasattr(fn, "calls"):
                 fn.calls = 0
-        batched_log_likelihood_cuda.launches_by_mode = {"shared": 0, "per_branch": 0}
+        batched_log_likelihood_cuda.launches_by_mode = {"shared": 0, "per_branch": 0,
+                                                         "per_site": 0}
 
     def launch_counts() -> dict:
         """Each wrapper's grids, and K3/K4's by mode: "k34_shared" (one
-        P, K3) and "k34_per_branch" (a P a branch, K4)."""
+        P, K3) and "k34_per_branch" (a P a branch, K4), and of those the
+        per-site calls' ("k34_per_site")."""
         modes = batched_log_likelihood_cuda.launches_by_mode
         return {**{name: fn.launches for name, fn in wrappers.items()},
-                "k34_shared": modes["shared"], "k34_per_branch": modes["per_branch"]}
+                "k34_shared": modes["shared"], "k34_per_branch": modes["per_branch"],
+                "k34_per_site": modes.get("per_site", 0)}
 
     def call_counts() -> dict:
         """Calls that launched, of the wrappers that count them (K5, K3/K4)."""
@@ -2680,14 +3120,25 @@ def main(argv: list[str] | None = None) -> int:
              k5_launches=main_counts["k5"], rescored=rescored,
              k1_at_this_shape=k1_main)
 
-        # 5b. Where the main path's time goes: its two calls, profiled one by one.
-        starts = []
-        emit("profile", part="stepwise (4 orders)", **profile_phase(
-            torch,
-            lambda: starts.append(stepwise.stepwise_addition_multi(
-                patterns, n_states, n_orders=4, seed=0, sequences_are_masks=True,
-                site_weights=w_t, device=dev)[0]),
-            run.seconds["start"]))
+        # 5b. Where the main path's time goes: its two calls, profiled one by
+        # one. The stepwise start (4 orders, the ML route's start too) runs
+        # unprofiled; one order of it is profiled (a window of 4 orders took
+        # 53 s of tracing, more than the script's time allows).
+        starts = [stepwise.stepwise_addition_multi(
+            patterns, n_states, n_orders=4, seed=0, sequences_are_masks=True,
+            site_weights=w_t, device=dev)[0]]
+
+        def one_order():
+            stepwise.stepwise_addition_multi(patterns, n_states, n_orders=1, seed=0,
+                                             sequences_are_masks=True, site_weights=w_t,
+                                             device=dev)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_order()
+        torch.cuda.synchronize()
+        emit("profile", part="stepwise (1 of 4 orders)",
+             **profile_phase(torch, one_order, time.perf_counter() - t0))
         emit("profile", part="spr-scan climb", **profile_phase(
             torch,
             lambda: parsimony_hill_climb(
@@ -2887,12 +3338,19 @@ def main(argv: list[str] | None = None) -> int:
             ml.seconds["climb"]))
         if not torch.equal(climbed[0].topology.children, ml.result.topology.children):
             raise AssertionError("the profiled ML climb returned another tree")
-        emit("profile", part="ML Newton fit (12 sweeps)", **profile_phase(
-            torch,
-            lambda: optimize_branch_lengths_newton(
+        # 3 of the fit's 12 sweeps profiled (all 12 took 26 s of tracing),
+        # against their own unprofiled wall.
+        def newton_window():
+            optimize_branch_lengths_newton(
                 climbed[0].topology, pat_t, n_states, site_weights=w_t,
-                sequences_are_masks=True, init_length=RANKING_LENGTH),
-            ml.seconds["newton"]))
+                sequences_are_masks=True, init_length=RANKING_LENGTH, n_sweeps=3)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        newton_window()
+        torch.cuda.synchronize()
+        emit("profile", part="ML Newton fit (3 of 12 sweeps)",
+             **profile_phase(torch, newton_window, time.perf_counter() - t0))
         del starts, climbed
 
         # 6d. The default ML route (analytic SPR scan, plain torch) at a reduced
@@ -3286,12 +3744,26 @@ def main(argv: list[str] | None = None) -> int:
     if "reference_2c" in phases:
         for row in slice_2c_reference(torch, workdir):
             emit("reference", part="slice 2c", **row)
+    # 10. Slice 4a: the supports route, topotest, bootstrap and the tree
+    # tools at full width, then slice 4a on the card against the CPU.
+    supports = {}
+    if "supports" in phases:
+        t0 = time.perf_counter()
+        supports = supports_routes(torch, dev, workdir, main_fasta, reset_counts,
+                                   launch_counts, device_times)
+        emit("supports", seconds=time.perf_counter() - t0)
+    if "reference_supports" in phases:
+        t0 = time.perf_counter()
+        for row in supports_reference(torch, workdir):
+            emit("reference", part="slice 4a", **row)
+        emit("reference_supports", seconds=time.perf_counter() - t0)
     shutil.rmtree(workdir)
 
     k3_model = k3_model_entry(slice_2b, slice_2c)
+    per_site = per_site_entry(supports)
     if not EARLIER_PHASES <= phases:
         # A subset of the phases: the kernels its phases measured.
-        kernels = [k3_model] if k3_model else []
+        kernels = [k for k in (k3_model, per_site) if k]
     else:
         kernels = [
             {
@@ -3339,6 +3811,7 @@ def main(argv: list[str] | None = None) -> int:
                 "model_route_launches": slice_2b.get("launches"),
                 "at_model_routes": slice_2b.get("at_model_routes"),
                 **slice_2c_fields(slice_2c),
+                **({"at_ml_tbr": supports["k3_at_ml_tbr"]} if supports else {}),
             },
             {
                 "name": "sankoff_batched", "route": "cuda",
@@ -3376,6 +3849,8 @@ def main(argv: list[str] | None = None) -> int:
                 **k6_shapes["a"], "library_ms": None, "at_shapes": k6_shapes,
             },
         ]
+        if per_site:
+            kernels.append(per_site)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

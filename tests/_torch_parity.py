@@ -167,3 +167,74 @@ def strip_lengths(newick: str) -> str:
     import re
 
     return re.sub(r":[0-9.eE+-]+", "", newick)
+
+
+def jax_draws_by_seed(monkeypatch) -> None:
+    """Make the port's replicate draws the JAX package's for the same seed:
+    ``search.bootstrap._replicate_weights(length, R, base, generator)``
+    returns ``trex_tpu.search.bootstrap._replicate_weights(PRNGKey(s), ...)``
+    with ``s = generator.initial_seed()``, so each command's generator
+    (``--seed`` + 7 for aLRT, + 11 for UFBoot, ``--seed`` for topotest)
+    draws what the JAX CLI's key of that seed draws."""
+    import jax
+    import jax.numpy as jnp
+
+    import trex_tpu.search.bootstrap as jax_bootstrap
+    import trex_tpu_torch.search.bootstrap as torch_bootstrap
+
+    def draws(length, n_replicates, site_weights, generator):
+        base = None if site_weights is None else jnp.asarray(
+            torch.as_tensor(site_weights).cpu().numpy(), jnp.float32)
+        return torch.as_tensor(np.array(jax_bootstrap._replicate_weights(
+            jax.random.PRNGKey(generator.initial_seed()), length, n_replicates, base)))
+
+    monkeypatch.setattr(torch_bootstrap, "_replicate_weights", draws)
+
+
+def jax_au_draws(seed: int, weights, n_replicates: int, scales) -> list[np.ndarray]:
+    """The AU test's multiscale counts as ``trex_tpu.search.topotest.
+    _au_test`` draws them under ``topology_tests(PRNGKey(seed), ...)``: one
+    (R, P) count matrix a scale."""
+    import jax
+    import jax.numpy as jnp
+
+    base = jnp.asarray(np.asarray(weights), jnp.float32)
+    probs = base / jnp.sum(base)
+    length = base.shape[0]
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 7)
+    out = []
+    for s_idx, r in enumerate(scales):
+        n_r = max(1, int(round(float(jnp.sum(base)) * r)))
+
+        def one(kk, n_r=n_r):
+            picks = jax.random.choice(kk, length, (n_r,), p=probs)
+            return jnp.zeros((length,), jnp.float32).at[picks].add(1.0)
+
+        keys = jax.random.split(jax.random.fold_in(key, s_idx), n_replicates)
+        out.append(np.array(jax.vmap(one)(keys)))
+    return out
+
+
+def near_tie_replicates(totals: np.ndarray, rtol: float = 1e-5) -> int:
+    """Replicates (rows of (R, K) RELL totals) whose two highest totals lie
+    within ``rtol`` of each other, relative: the votes float32 rounding may
+    flip between two implementations."""
+    top = np.sort(np.asarray(totals, np.float64), axis=1)[:, -2:]
+    return int(np.sum(np.abs(top[:, 1] - top[:, 0]) <= rtol * np.abs(top[:, 1])))
+
+
+def share_native_library(monkeypatch) -> bool:
+    """Load the JAX package's native binding from the port's build of the
+    byte-identical source, so both packages' seeded TBR samples are the
+    same trees; False when no compiler can build it. The caller clears
+    ``trex_tpu.io.native.load_library``'s cache after the test."""
+    from trex_tpu.io import native as jax_native
+    from trex_tpu_torch.io import native
+
+    try:
+        path = str(native.build())
+    except RuntimeError:
+        return False
+    monkeypatch.setattr(jax_native, "_LIB_PATH", path)
+    jax_native.load_library.cache_clear()
+    return True

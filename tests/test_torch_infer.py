@@ -1,6 +1,7 @@
 """End to end: ``trex_tpu_torch.cli infer --device cpu`` prints the same tree
 and score as ``trex_tpu.cli infer`` on the same FASTA, plus the port's
-guards (no JAX imports, no silent CPU fall back, unported flags refused)."""
+guards (no JAX imports, no silent CPU fall back, unported flags refused, the
+likelihood supports' flags run)."""
 
 import contextlib
 import io
@@ -92,8 +93,6 @@ def test_cli_defaults_to_the_card(fasta):
         (["--model", "gtr"], "accepted differences"),
         (["--model-rounds", "1"], "accepted differences"),
         (["--criterion", "distance", "--model", "gtr"], "accepted differences"),
-        (["--criterion", "ml", "--alrt", "10"], "Supports"),
-        (["--criterion", "ml", "--ufboot", "10"], "Supports"),
         (["--mesh", "2,1"], "Multi-device"),
         # The JAX CLI's own refusals.
         (["--criterion", "ml", "--neighborhood", "nni", "--constraint", "c.nwk",
@@ -105,3 +104,17 @@ def test_cli_defaults_to_the_card(fasta):
 def test_unported_flags_name_their_slice(fasta, flags, slice_name):
     with pytest.raises(SystemExit, match=slice_name):
         torch_cli.main(["infer", "--alignment", fasta, "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flag, keys", [
+    ("--alrt", ["alrt", "sh_alrt_support", "rell_support"]),
+    ("--ufboot", ["ufboot_support", "ufboot_candidates", "ufboot_reference_wins"]),
+])
+def test_support_flags_run(fasta, flag, keys):
+    out = _run(torch_cli, ["infer", "--alignment", fasta, "--device", "cpu", "--criterion",
+                           "ml", "--neighborhood", "nni", flag, "20"])
+    assert [k for k in out if k in keys] == keys
+    values = out[keys[0]]
+    assert len(values) == out["n_taxa"] - 1
+    # The newick carries the supports as internal labels.
+    assert re.search(r"\)[0-9.]+:", out["tree"])

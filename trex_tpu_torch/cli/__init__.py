@@ -12,7 +12,8 @@ infer       File-based parsimony or ML tree inference: FASTA/PHYLIP/NEXUS
             rooting, SPR-decay and bootstrap supports; ML: a fitted
             ``--model`` with +G/+I/+R rate mixtures and model <-> tree
             ``--model-rounds``, the iterated search (``--ratchet``),
-            constraints and bootstrap supports), or (``--criterion
+            constraints, bootstrap, aLRT / SH-aLRT (``--alrt``) and
+            ultrafast bootstrap (``--ufboot``) supports), or (``--criterion
             distance``) an NJ/UPGMA tree with bootstrap supports; newick
             and score out as one JSON line. ``--start nj|upgma`` starts
             either criterion from the distance tree.
@@ -28,14 +29,27 @@ bench       Batched candidate-scoring throughput on random trees (the Fitch
 ml          ML climb (JC69, SPR neighbourhoods) on a generated alignment.
 nk-bench    Sankoff vs plain and landscape-aware gradient ASR on trees
             evolved over NK fitness landscapes.
+bootstrap   Parsimony bootstrap supports and their majority-rule consensus
+            on a generated balanced mutation tree.
 trait       Mk-model marginal ancestral states of a discrete trait on a
             given tree with branch lengths.
+treedist    Robinson-Foulds (and, with lengths, branch-score, weighted RF
+            and path-difference) distances between two newick trees.
+consensus   Majority-rule consensus of a multi-newick file.
+treedraw    ASCII rendering of a newick tree.
+stats       Alignment summary: site classes, composition, missing data.
+treeprune   The induced subtree (and alignment rows) of a taxa subset.
+topotest    KH / SH / BP / ELW / AU tests of candidate trees on one
+            alignment, each at its own Newton-fitted lengths.
+concord     Gene and site concordance factors of a reference tree.
 
 Each prints the same JSON keys as ``python -m trex_tpu.cli <command>``, and
 ``score``/``infer`` the same trees and scores (``infer --start diff``,
 ``--ratchet``, ``--bootstrap`` and the generated-data commands draw from
-the port's own generators). Each runs on the card
-(``--device cuda``, default) or the CPU.
+the port's own generators). The commands that compute on a device run
+on the card (``--device cuda``, default) or the CPU; the tree-file tools
+(``treedist``, ``consensus``, ``treedraw``, ``stats``, ``treeprune``,
+``concord``) are host numpy.
 """
 
 from trex_tpu_torch.cli.parser import build_parser, main

@@ -18,15 +18,11 @@ from trex_tpu_torch.search.hillclimb import (
 )
 from trex_tpu_torch.search.ratchet import parsimony_ratchet
 
-# Flags of the JAX ``infer`` that this port does not cover yet, with the
-# value that means "not requested" and the ROADMAP.md item that queues them.
-_NOT_PORTED = (
-    ("alrt", 0, "the Supports item"),
-    ("ufboot", 0, "the Supports item"),
-)
-# Model flags, which the JAX CLI ignores under parsimony and distance and
-# this port refuses there (ROADMAP.md, accepted differences).
-_MODEL_FLAGS = (("model", "jc"), ("model_file", None), ("model_rounds", 0))
+# Model and likelihood-support flags, which the JAX CLI ignores under
+# parsimony and distance and this port refuses there (ROADMAP.md, accepted
+# differences).
+_MODEL_FLAGS = (("model", "jc"), ("model_file", None), ("model_rounds", 0), ("alrt", 0),
+                ("ufboot", 0))
 
 
 @dataclasses.dataclass
@@ -42,7 +38,9 @@ class InferRun:
     and batch scoring ("score"), and for ``--criterion ml`` the
     branch-length fits ("newton"), with ``--model`` the first model fit
     ("fit") and the model <-> tree rounds ("rounds"), with ``--ratchet``
-    each reclimb ("reclimbs", a list). Under ``--criterion distance`` the
+    each reclimb ("reclimbs", a list), with ``--alrt`` and ``--ufboot``
+    their walls ("alrt", "ufboot") and parts ("alrt_parts",
+    "ufboot_parts": the functions' ``timings``). Under ``--criterion distance`` the
     distance tree ("start") and with ``--bootstrap`` the replicates'
     matrices ("distances") and their agglomeration ("agglomerate")."""
     lengths: torch.Tensor | None = None
@@ -51,9 +49,6 @@ class InferRun:
 
 
 def _check_ported(args) -> None:
-    for name, unset, where in _NOT_PORTED:
-        if getattr(args, name) != unset:
-            raise SystemExit(f"--{name} is not ported yet: {where} of ROADMAP.md")
     if args.criterion != "ml":
         for name, unset in _MODEL_FLAGS:
             if getattr(args, name) != unset:
@@ -321,8 +316,9 @@ def _run_ml(args, out, names, leaves, n_states, weights, starts, constraint,
     ``default_rng(--seed + 13)``, the JAX CLI's key), from each start,
     then the Newton branch-length fit; the start with the lowest fitted
     NLL wins. With a ``--model`` other than jc, the model fit and the
-    model <-> tree rounds (``_fit_model``); with ``--bootstrap``, the ML
-    bootstrap's split supports (draws from a CPU generator seeded
+    model <-> tree rounds (``_fit_model``); then ``--alrt`` and
+    ``--ufboot`` supports (``_likelihood_supports``); with ``--bootstrap``,
+    the ML bootstrap's split supports (draws from a CPU generator seeded
     ``--seed`` + 1, as the JAX CLI seeds its key)."""
     import numpy as np
 
@@ -370,13 +366,15 @@ def _run_ml(args, out, names, leaves, n_states, weights, starts, constraint,
         ranking_score=result.score,
         model=args.model,
     )
+    params: dict = {}
     if args.model != "jc":
-        result, lengths = _fit_model(args, out, names, leaves, n_states, weights, result,
-                                     seconds)
+        result, lengths, params = _fit_model(args, out, names, leaves, n_states, weights,
+                                             result, seconds)
+    support = _likelihood_supports(args, out, leaves, n_states, weights, result, params,
+                                   seconds)
     lengths_np = lengths.cpu().numpy()
+    newick = save_newick(result.topology, names, lengths_np, support=support)
     out["mean_branch_length"] = float(lengths_np.mean())
-    # The ML newick carries no supports (the JAX CLI's labels are aLRT's).
-    newick = save_newick(result.topology, names, lengths_np)
     if args.bootstrap > 0:
         from trex_tpu_torch.search.bootstrap import ml_bootstrap_analysis
 
@@ -396,6 +394,56 @@ def _run_ml(args, out, names, leaves, n_states, weights, starts, constraint,
         out["split_support"] = [round(float(s), 3) for s in support]
     _finish(args, out, result, newick)
     return InferRun(out, result, seconds, lengths)
+
+
+def _likelihood_supports(args, out, leaves, n_states, weights, result, params, seconds):
+    """``--alrt`` (``search.alrt.branch_supports``, draws from a CPU
+    generator seeded ``--seed`` + 7) and ``--ufboot``
+    (``search.ufboot.ultrafast_bootstrap``, ``--seed`` + 11, also its TBR
+    sample's seed), as the JAX CLI seeds its keys, under the fitted
+    exchangeabilities and frequencies when ``--model`` is not jc (a rate
+    mixture is not passed, as in the JAX CLI). Records them in ``out``;
+    returns the newick's support labels (UFBoot's when both ran) or
+    None."""
+    import numpy as np
+
+    rates = params.get("rates")
+    freqs = params.get("freqs")
+    support = None
+    if args.alrt > 0:
+        from trex_tpu_torch.search.alrt import branch_supports
+
+        parts: dict = {}
+        clock = time.perf_counter()
+        sup = branch_supports(
+            result.topology, leaves, n_states, rates=rates, freqs=freqs,
+            site_weights=weights, n_replicates=args.alrt, sequences_are_masks=True,
+            generator=torch.Generator().manual_seed(args.seed + 7), timings=parts,
+        )
+        _sync(leaves.device)
+        seconds.update(alrt=time.perf_counter() - clock, alrt_parts=parts)
+        support = sup.sh_alrt
+        out["alrt"] = [None if np.isnan(v) else round(float(v), 3) for v in sup.alrt]
+        out["sh_alrt_support"] = [round(float(s), 3) for s in sup.sh_alrt]
+        out["rell_support"] = [round(float(s), 3) for s in sup.rell]
+    if args.ufboot > 0:
+        from trex_tpu_torch.search.ufboot import ultrafast_bootstrap
+
+        parts = {}
+        clock = time.perf_counter()
+        ub = ultrafast_bootstrap(
+            result.topology, leaves, n_states, rates=rates, freqs=freqs,
+            site_weights=weights, n_replicates=args.ufboot, sequences_are_masks=True,
+            seed=args.seed + 11, generator=torch.Generator().manual_seed(args.seed + 11),
+            timings=parts,
+        )
+        _sync(leaves.device)
+        seconds.update(ufboot=time.perf_counter() - clock, ufboot_parts=parts)
+        out["ufboot_support"] = [round(float(s), 3) for s in ub.support]
+        out["ufboot_candidates"] = ub.n_candidates
+        out["ufboot_reference_wins"] = int(ub.winner_counts[ub.reference_index])
+        support = ub.support  # UFBoot's labels win when both ran
+    return support
 
 
 def _reroot(args, names, result: SearchResult, lengths: torch.Tensor):
@@ -442,8 +490,8 @@ def _fit_model(args, out, names, leaves, n_states, weights, result, seconds):
     ``--model-rounds`` rounds of climbing under the fitted model (rate
     mixture aware on the scan) and refitting, stopping when the topology
     holds. Records the fitted parameters in ``out``; returns the final
-    (result, branch lengths). ``seconds`` gains "fit" (the first fit) and
-    "rounds" (the model rounds)."""
+    (result, branch lengths, fitted parameters). ``seconds`` gains "fit"
+    (the first fit) and "rounds" (the model rounds)."""
     import numpy as np
 
     from trex_tpu_torch.io import parse_paml_rates
@@ -506,7 +554,7 @@ def _fit_model(args, out, names, leaves, n_states, weights, result, seconds):
     if "category_rates" in params:
         out["category_rates"] = rounded(params["category_rates"], 4)
         out["category_weights"] = rounded(params["category_weights"], 4)
-    return result, lengths
+    return result, lengths, params
 
 
 def cmd_infer(args) -> None:

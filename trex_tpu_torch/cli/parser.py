@@ -1,6 +1,8 @@
 """Argument parser and entry point (counterpart of ``trex_tpu/cli/parser.py``;
 the ``score``, ``infer``, ``partition``, ``modeltest``, ``search``, ``asr``,
-``search-run``, ``bench``, ``ml``, ``nk-bench`` and ``trait`` commands)."""
+``search-run``, ``bench``, ``ml``, ``bootstrap``, ``nk-bench``, ``trait``,
+``treedist``, ``consensus``, ``treedraw``, ``stats``, ``treeprune``,
+``topotest`` and ``concord`` commands)."""
 
 from __future__ import annotations
 
@@ -10,16 +12,19 @@ import torch
 
 import trex_tpu_torch.cli as _cli_pkg
 from trex_tpu_torch.cli._common import _add_common, _add_device
+from trex_tpu_torch.cli.bayes import cmd_concord
 from trex_tpu_torch.cli.infer import cmd_infer
 from trex_tpu_torch.cli.models import cmd_modeltest, cmd_partition
-from trex_tpu_torch.cli.score import cmd_asr, cmd_score, cmd_trait
+from trex_tpu_torch.cli.score import cmd_asr, cmd_score, cmd_stats, cmd_trait, cmd_treedraw
 from trex_tpu_torch.cli.search_cmds import (
     cmd_bench,
+    cmd_bootstrap,
     cmd_ml,
     cmd_nk_bench,
     cmd_search,
     cmd_search_run,
 )
+from trex_tpu_torch.cli.trees import cmd_consensus, cmd_topotest, cmd_treedist, cmd_treeprune
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -123,10 +128,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--outgroup", type=str, default=None,
                    help="comma-separated outgroup taxa to root the tree on")
     p.add_argument("--alrt", type=int, default=0,
-                   help="SH-aLRT supports (not ported: the Supports item)")
+                   help="SH-aLRT / aLRT / RELL branch supports with this many "
+                        "RELL replicates (ml): each NNI alternative's lengths "
+                        "Newton-fitted in one batch, its per-site rows from the "
+                        "likelihood kernel")
     p.add_argument("--ufboot", type=int, default=0,
-                   help="ultrafast bootstrap supports (not ported: the "
-                        "Supports item)")
+                   help="ultrafast bootstrap supports (ml): RELL over the NNI "
+                        "neighbourhood plus 64 sampled TBR trees, this many "
+                        "replicates; its values label the newick")
     p.add_argument("--restarts", type=int, default=1,
                    help="independent searches: the --start tree plus N-1 "
                         "more (random-addition stepwise starts, or random "
@@ -237,6 +246,67 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(p, "the benchmark")
     p.set_defaults(fn=cmd_nk_bench)
 
+    p = sub.add_parser("bootstrap", help="bootstrap support + consensus")
+    _add_common(p)
+    p.add_argument("--mutations", type=int, default=3)
+    p.add_argument("--replicates", type=int, default=50)
+    p.add_argument("--search-rounds", type=int, default=10)
+    _add_device(p, "the replicates' climbs")
+    p.set_defaults(fn=cmd_bootstrap)
+
+    p = sub.add_parser("treedist", help="Robinson-Foulds distance between two newick trees")
+    p.add_argument("trees", nargs=2, help="two newick files")
+    p.set_defaults(fn=cmd_treedist)
+
+    p = sub.add_parser("consensus", help="majority-rule consensus of a multi-newick file")
+    p.add_argument("trees", help="file with one newick per line")
+    p.add_argument("--threshold", type=float, default=0.5)
+    p.add_argument("--output-tree", type=str, default=None)
+    p.set_defaults(fn=cmd_consensus)
+
+    p = sub.add_parser("treedraw", help="ASCII rendering of a newick tree")
+    p.add_argument("--tree", type=str, required=True)
+    p.set_defaults(fn=cmd_treedraw)
+
+    p = sub.add_parser(
+        "stats", help="alignment summary: site classes, composition, missing data")
+    p.add_argument("--alignment", "--fasta", dest="fasta", type=str, required=True)
+    p.add_argument("--alphabet", choices=("dna", "protein"), default="dna")
+    p.set_defaults(fn=cmd_stats)
+
+    p = sub.add_parser(
+        "treeprune", help="extract the induced subtree (+ alignment rows) for a taxa set")
+    p.add_argument("--tree", type=str, required=True)
+    p.add_argument("--taxa", type=str, required=True, help="comma-separated taxa to keep")
+    p.add_argument("--invert", action="store_true",
+                   help="drop the listed taxa instead of keeping them")
+    p.add_argument("--alignment", type=str, default=None,
+                   help="also subset this FASTA to the kept taxa")
+    p.add_argument("--output-tree", type=str, default=None)
+    p.add_argument("--output-alignment", type=str, default=None)
+    p.set_defaults(fn=cmd_treeprune)
+
+    p = sub.add_parser(
+        "topotest", help="KH/SH/ELW topology tests of candidate trees on one alignment")
+    p.add_argument("--alignment", "--fasta", dest="fasta", type=str, required=True,
+                   help="FASTA/PHYLIP/NEXUS alignment (auto-detected)")
+    p.add_argument("--trees", type=str, required=True, help="multi-newick candidate file")
+    p.add_argument("--alphabet", choices=("dna", "protein"), default="dna")
+    p.add_argument("--model", type=str, default="jc",
+                   help="substitution model, fixed at its ML estimates on "
+                        "the first tree (jc|k80|hky|f81|tn93|gtr|empirical)")
+    p.add_argument("--model-file", type=str, default=None)
+    p.add_argument("--replicates", type=int, default=10000)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--site-lnl", type=str, default=None,
+                   help="write per-tree per-site log-likelihoods here "
+                        "(CONSEL/puzzle site-lnL format) for external "
+                        "AU-test tools")
+    p.add_argument("--mesh", type=str, default=None, metavar="T,S",
+                   help="only '1,1' (one device) is ported")
+    _add_device(p, "the fits and the tests")
+    p.set_defaults(fn=cmd_topotest)
+
     p = sub.add_parser(
         "trait", help="Mk ancestral states for a discrete trait on a fixed tree")
     p.add_argument("--tree", required=True, help="branch-length-bearing newick")
@@ -246,6 +316,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="newick with MAP-state node labels")
     _add_device(p, "the fit")
     p.set_defaults(fn=cmd_trait)
+
+    p = sub.add_parser("concord", help="gene/site concordance factors on a reference tree")
+    p.add_argument("--tree", required=True, help="reference newick file")
+    p.add_argument("--gene-trees", default=None, help="newick file of per-locus trees (gCF)")
+    p.add_argument("--fasta", default=None, help="alignment for sCF")
+    p.add_argument("--alphabet", choices=["dna", "protein"], default="dna")
+    p.add_argument("--quartets", type=int, default=100,
+                   help="random quartets per branch for sCF")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--output-tree", default=None,
+                   help="write the gCF/sCF-labelled newick here")
+    p.set_defaults(fn=cmd_concord)
     return parser
 
 

@@ -23,6 +23,10 @@ ancestors with their marginal posteriors.
 generated balanced mutation tree by exact Sankoff and by gradient descent
 (``search.asr.reconstruct_ancestors``, initial logits from a generator
 seeded with ``--seed``) and prints each one's identity with the truth.
+
+``treedraw`` renders a newick tree in ASCII (``io.format_tree``) and
+``stats`` summarises an alignment (site classes, composition, missing
+data); both are host numpy, as their JAX counterparts.
 """
 
 from __future__ import annotations
@@ -294,3 +298,74 @@ def run_trait(args) -> dict:
 
 def cmd_trait(args) -> None:
     print(json.dumps(run_trait(args)))
+
+
+def run_treedraw(args) -> str:
+    """The ASCII rendering ``treedraw`` prints: lengths as annotations
+    when the tree carries positive ones."""
+    import numpy as np
+
+    from trex_tpu_torch.io import format_tree, load_newick
+
+    with open(args.tree) as fh:
+        topo, blens, names = load_newick(fh.read())
+    annotations = None
+    blens = np.asarray(blens)
+    if np.isfinite(blens[:-1]).all() and (blens[:-1] > 0).any():
+        annotations = {i: f":{blens[i]:.4g}" for i in range(topo.n_all - 1)}
+    return format_tree(topo, names, annotations)
+
+
+def cmd_treedraw(args) -> None:
+    print(run_treedraw(args))
+
+
+def run_stats(args) -> dict:
+    """The printed JSON object of ``stats``: site classes over unambiguous
+    cells (constant, variable, parsimony-informative), pattern count,
+    missing and ambiguous shares and the state composition."""
+    import numpy as np
+
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.io import DNA, PROTEIN
+
+    _, masks, n_states = _load_alignment(args.fasta, args.alphabet)
+    alphabet = {"dna": DNA, "protein": PROTEIN}[args.alphabet]
+    n, length = masks.shape
+    full = (1 << n_states) - 1
+    is_single = (masks & (masks - 1)) == 0  # one-bit masks are unambiguous
+    is_missing = masks == full
+    constant = np.zeros(length, bool)
+    informative = np.zeros(length, bool)
+    variable = np.zeros(length, bool)
+    counts_total = np.zeros(n_states, np.int64)
+    for col in range(length):
+        cells = masks[:, col][is_single[:, col]]
+        if cells.size == 0:
+            continue
+        states, counts = np.unique(cells, return_counts=True)
+        counts_total[np.log2(states).astype(int)] += counts
+        if states.size == 1:
+            constant[col] = True
+        else:
+            variable[col] = True
+            # Parsimony-informative: at least 2 states each seen twice.
+            informative[col] = int((counts >= 2).sum()) >= 2
+    patterns, _ = compress_alignment(masks)
+    comp = counts_total / max(counts_total.sum(), 1)
+    return {
+        "n_taxa": n,
+        "n_sites": int(length),
+        "unique_patterns": int(patterns.shape[1]),
+        "constant_sites": int(constant.sum()),
+        "variable_sites": int(variable.sum()),
+        "parsimony_informative_sites": int(informative.sum()),
+        "missing_fraction": round(float(is_missing.mean()), 4),
+        "ambiguous_fraction": round(float((~is_single & ~is_missing).mean()), 4),
+        "composition": {alphabet[i]: round(float(comp[i]), 4)
+                        for i in range(n_states) if comp[i] > 0},
+    }
+
+
+def cmd_stats(args) -> None:
+    print(json.dumps(run_stats(args)))

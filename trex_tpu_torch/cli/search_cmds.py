@@ -12,7 +12,12 @@
   plain and landscape-aware, on trees evolved over NK landscapes;
 - ``ml``: the ML climb (JC69, enumerated SPR neighbourhoods ranked by the
   likelihood kernel, then the Newton fit) from a random tree on a
-  generated balanced mutation tree's leaves.
+  generated balanced mutation tree's leaves;
+- ``bootstrap``: parsimony bootstrap split supports of the balanced tree
+  on a generated mutation tree's leaves (``search.bootstrap.
+  bootstrap_analysis``: each replicate an NNI climb scored through
+  ``ops.dispatch``, K1 for Hamming), and the replicates' majority-rule
+  consensus.
 
 Each prints the JAX command's JSON keys. Generated data comes from the
 port's own generators (``torch.Generator``s seeded with ``--seed``), so the
@@ -109,6 +114,33 @@ def run_ml(args) -> tuple[dict, tuple]:
 
 def cmd_ml(args) -> None:
     print(json.dumps(run_ml(args)[0]))
+
+
+def run_bootstrap(args) -> tuple[dict, list]:
+    """The printed JSON object of ``bootstrap`` and the replicates' best
+    topologies; the replicates are drawn from a CPU generator seeded
+    ``--seed`` (the JAX command's key)."""
+    from trex_tpu_torch.search.bootstrap import bootstrap_analysis
+    from trex_tpu_torch.search.consensus import majority_rule_consensus
+    from trex_tpu_torch.topology import balanced_topology
+
+    device = resolve_device(args.device)
+    _, leaf, _, cost = _generated(args, device)
+    support, best = bootstrap_analysis(
+        balanced_topology(args.leaves, device), cost, leaf,
+        n_replicates=args.replicates, search_rounds=args.search_rounds,
+        generator=torch.Generator().manual_seed(args.seed), device=device,
+    )
+    newick, _ = majority_rule_consensus(best)
+    return {
+        "mean_support": float(support.mean()),
+        "per_clade_support": [round(float(x), 3) for x in support],
+        "consensus_newick": newick,
+    }, best
+
+
+def cmd_bootstrap(args) -> None:
+    print(json.dumps(run_bootstrap(args)[0]))
 
 
 def run_search(args) -> dict:

@@ -390,7 +390,9 @@ int dispatch(const Args& a, bool shared, bool masks) {
 // leaves (n_leaves, L) int32 states (negative = missing) or state-set
 // masks (`masks` != 0), n_leaves x L < 2^31; pmats (Q, Q) f32 when
 // `shared` != 0, else (B, n_all, Q, Q) f32, 16-byte aligned; prior (Q,)
-// f32; weights (L,) f32; per_site (B, L) f32 scratch; out (B,) f32. Blocks
+// f32; weights (L,) f32; per_site (B, L) f32, each site's log-likelihood
+// times its weight; out (B,) f32 their sums, or null to launch no site sum
+// (the rows alone). Blocks
 // of 128 threads, one a site, with `smem` bytes of dynamic shared memory (a
 // shared P, the leaf-message table, then the slot columns: the wrapper's
 // launch plan). Trees are walked
@@ -416,7 +418,7 @@ extern "C" int trex_likelihood_batched(const void* plan, const void* children,
   } else {
     return -1;
   }
-  if (rc != 0) return rc;
+  if (rc != 0 || out == nullptr) return rc;
   sum_sites_kernel<<<batch, kSumThreads, 0, a.stream>>>(
       static_cast<const float*>(per_site), static_cast<float*>(out), length);
   return static_cast<int>(cudaGetLastError());

@@ -134,6 +134,37 @@ def write_fasta(names: list[str], sequences, alphabet: str = DNA) -> str:
     return "\n".join(rows) + "\n"
 
 
+def format_tree(
+    topology: Topology,
+    leaf_names: list[str] | None = None,
+    annotations: dict[int, str] | None = None,
+) -> str:
+    """ASCII rendering of a topology; ``annotations`` maps a node index to
+    extra text (branch lengths, supports, states)."""
+    children, _ = topology.to_numpy()
+    n_leaves = topology.n_leaves
+    names = leaf_names or [f"L{i}" for i in range(n_leaves)]
+    ann = annotations or {}
+    root = topology.n_all - 1
+    lines = [f"[{root}]" + (f"  {ann[root]}" if root in ann else "")]
+    # An explicit stack: deep (caterpillar) trees stay within Python's
+    # recursion limit.
+    a, b = children[root - n_leaves]
+    stack = [(int(b), "", True), (int(a), "", False)]
+    while stack:
+        node, prefix, is_last = stack.pop()
+        branch = "`-- " if is_last else "|-- "
+        label = names[node] if node < n_leaves else f"[{node}]"
+        extra = f"  {ann[node]}" if node in ann else ""
+        lines.append(prefix + branch + label + extra)
+        if node >= n_leaves:
+            child_prefix = prefix + ("    " if is_last else "|   ")
+            a2, b2 = children[node - n_leaves]
+            stack.append((int(b2), child_prefix, True))
+            stack.append((int(a2), child_prefix, False))
+    return "\n".join(lines)
+
+
 def _quote_names(names: list[str] | None) -> list[str] | None:
     """Single-quote labels containing newick metacharacters ('' escape)."""
     if names is None:
@@ -507,6 +538,7 @@ __all__ = [
     "IUPAC_DNA_MASKS",
     "align_leaf_order",
     "canonicalize_topology",
+    "format_tree",
     "encode_alignment_masks",
     "load_newick",
     "nni_neighbors_host",

@@ -8,10 +8,12 @@ CUDA tensors and runs ``batched_log_likelihood_plain`` for CPU tensors;
 there is no other fall back. Its ``launches`` attribute counts the grids a
 call launches on the card (its ``calls`` attribute the calls that launch):
 the tree-plan pass (``ops.tree_plan``), one
-pruning grid (one per 65535 trees), then one site-sum grid; its
+pruning grid (one per 65535 trees), then one site-sum grid (none with
+``per_site=True``, whose sums are one torch product); its
 ``launches_by_mode`` splits that total by the transition's mode,
 ``"shared"`` (one (Q, Q) P, the K3 regime) and ``"per_branch"`` (a P per
-branch and tree, K4's).
+branch and tree, K4's), and ``"per_site"`` counts again the grids of the
+calls that returned per-site rows.
 ``launch_plan`` picks the kernel's block width: its slots always sit in
 shared memory. Forward only, as the TPU kernel: branch-length derivatives
 come from ``ops.likelihood_asr``.
@@ -49,8 +51,11 @@ def batched_log_likelihood_plain(
     transition: torch.Tensor,
     *,
     sequences_are_masks: bool = False,
-) -> torch.Tensor:
-    """(B,) f32 log-likelihoods of B trees, in plain PyTorch.
+    per_site: bool = False,
+):
+    """(B,) f32 log-likelihoods of B trees, in plain PyTorch; with
+    ``per_site=True`` also their (B, L) unweighted per-site rows, as
+    ``(sums, rows)``.
 
     Args:
         children: (B, n_anc, 2) int32 children of each ancestor.
@@ -75,6 +80,8 @@ def batched_log_likelihood_plain(
     tips = tip_partials(leaves, q, sequences_are_masks)
     children = children.to(torch.int64)
     out = torch.empty((batch,), dtype=torch.float32, device=device)
+    rows_out = (torch.empty((batch, length), dtype=torch.float32, device=device)
+                if per_site else None)
     step = _chunk_trees(batch, 4 * n_all * q * length, scan_budget_bytes(device))
     for b0 in range(0, batch, step):
         ch = children[b0 : b0 + step]
@@ -98,9 +105,11 @@ def batched_log_likelihood_plain(
             partials[:, n_leaves + a] = combined * inv[:, None, :]
             exp_sum += e - 127
         site_lik = (root_prior[None, :, None] * partials[:, -1]).sum(dim=1)
-        per_site = torch.log(torch.clamp(site_lik, min=1e-30)) + exp_sum.to(torch.float32) * _LN2
-        out[b0 : b0 + trees] = (per_site * weights).sum(dim=-1)
-    return out
+        site_ll = torch.log(torch.clamp(site_lik, min=1e-30)) + exp_sum.to(torch.float32) * _LN2
+        out[b0 : b0 + trees] = (site_ll * weights).sum(dim=-1)
+        if per_site:
+            rows_out[b0 : b0 + trees] = site_ll
+    return (out, rows_out) if per_site else out
 
 
 def leaf_codes(q: int, shared_p: bool, masks: bool) -> int:
@@ -167,16 +176,19 @@ def batched_log_likelihood_cuda(
     transition: torch.Tensor,
     *,
     sequences_are_masks: bool = False,
-) -> torch.Tensor:
+    per_site: bool = False,
+):
     """(B,) f32 log-likelihoods: K3/K4 on CUDA tensors, the plain version on
     CPU tensors. Arguments as ``batched_log_likelihood_plain``; Q must be 4
-    or 20."""
+    or 20. With ``per_site=True``, ``(sums, rows)``: the kernel's (B, L)
+    per-site rows under unit weights, without its site-sum grid, and their
+    weighted sums as ``batched_log_likelihood_plain`` sums them."""
     _check(children, leaves, weights, root_prior, transition, sequences_are_masks)
     device = children.device
     if device.type == "cpu":
         return batched_log_likelihood_plain(
             children, leaves, weights, root_prior, transition,
-            sequences_are_masks=sequences_are_masks,
+            sequences_are_masks=sequences_are_masks, per_site=per_site,
         )
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
@@ -184,7 +196,7 @@ def batched_log_likelihood_cuda(
         with torch.cuda.device(device):
             return batched_log_likelihood_cuda(
                 children, leaves, weights, root_prior, transition,
-                sequences_are_masks=sequences_are_masks)
+                sequences_are_masks=sequences_are_masks, per_site=per_site)
     batch, n_anc, _ = children.shape
     length = leaves.shape[1]
     q = root_prior.shape[0]
@@ -192,7 +204,9 @@ def batched_log_likelihood_cuda(
     plan = launch_plan(n_anc + 1, q, shared, sequences_are_masks,
                        device_limits(device).smem_optin)
     if batch == 0 or length == 0:
-        return torch.zeros((batch,), dtype=torch.float32, device=device)
+        out = torch.zeros((batch,), dtype=torch.float32, device=device)
+        return (out, torch.zeros((batch, length), dtype=torch.float32, device=device)) \
+            if per_site else out
     if (n_anc + 1) * length >= 2**31:
         raise ValueError(f"likelihood kernel: {n_anc + 1} x {length} leaf states exceed 2^31")
     children = children.contiguous()
@@ -204,34 +218,42 @@ def batched_log_likelihood_cuda(
     leaves, weights, root_prior = (x.contiguous() for x in (leaves, weights, root_prior))
     steps = tree_plan(children)
     chunk = min(batch, _MAX_CHUNK)
-    per_site = torch.empty((batch, length), dtype=torch.float32, device=device)
-    out = torch.empty((batch,), dtype=torch.float32, device=device)
+    rows = torch.empty((batch, length), dtype=torch.float32, device=device)
+    out = None if per_site else torch.empty((batch,), dtype=torch.float32, device=device)
+    # Rows under unit weights; the kernel writes no sum when out is null.
+    row_weights = torch.ones_like(weights) if per_site else weights
     rc = _library().trex_likelihood_batched(
         steps.data_ptr(), children.data_ptr(), leaves.data_ptr(), transition.data_ptr(),
-        root_prior.data_ptr(), weights.data_ptr(), per_site.data_ptr(), out.data_ptr(),
+        root_prior.data_ptr(), row_weights.data_ptr(), rows.data_ptr(),
+        None if per_site else out.data_ptr(),
         batch, n_anc + 1, length, q, int(shared), int(sequences_are_masks),
         chunk, plan.smem_bytes, torch.cuda.current_stream().cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"likelihood_batched kernel launch failed: CUDA error {rc}")
-    # Grids: the plan pass, the pruning chunks, the site sum.
-    count_launch(1 + -(-batch // chunk) + 1, shared)
+    # Grids: the plan pass, the pruning chunks, the site sum (none for rows).
+    count_launch(1 + -(-batch // chunk) + (0 if per_site else 1), shared, per_site)
+    if per_site:
+        return (rows * weights).sum(dim=-1), rows
     return out
 
 
-def count_launch(grids: int, shared: bool) -> None:
+def count_launch(grids: int, shared: bool, per_site: bool = False) -> None:
     """Add one launching call of ``grids`` grids to
-    ``batched_log_likelihood_cuda``'s counters: its total, its calls and
-    the total of its mode."""
+    ``batched_log_likelihood_cuda``'s counters: its total, its calls, the
+    total of its mode and, for a call of per-site rows, ``"per_site"``."""
     fn = batched_log_likelihood_cuda
     fn.launches += grids
     fn.calls += 1
-    fn.launches_by_mode["shared" if shared else "per_branch"] += grids
+    modes = fn.launches_by_mode
+    modes["shared" if shared else "per_branch"] += grids
+    if per_site:
+        modes["per_site"] = modes.get("per_site", 0) + grids
 
 
 batched_log_likelihood_cuda.launches = 0
 batched_log_likelihood_cuda.calls = 0
-batched_log_likelihood_cuda.launches_by_mode = {"shared": 0, "per_branch": 0}
+batched_log_likelihood_cuda.launches_by_mode = {"shared": 0, "per_branch": 0, "per_site": 0}
 
 
 @functools.cache

@@ -76,6 +76,18 @@ def subtree_leaf_sets(topology: Topology) -> list[frozenset[int]]:
     return [sets[n_leaves + a] for a in range(n_leaves - 1)]
 
 
+def subtree_leaf_masks(children: np.ndarray) -> list[int]:
+    """Leaf set below each ancestor of one host (n_anc, 2) children array,
+    as a Python int bitmask (bit i: leaf i); the clades of
+    ``subtree_leaf_sets`` in a form whose unions and complements are cheap
+    at hundreds of taxa."""
+    n_leaves = children.shape[0] + 1
+    masks = [1 << i for i in range(n_leaves)]
+    for c1, c2 in children.tolist():
+        masks.append(masks[c1] | masks[c2])
+    return masks[n_leaves:]
+
+
 def split_support(reference: Topology, replicate_best: list[Topology]) -> np.ndarray:
     """(n_ancestors,) share of the replicate trees holding each ancestor's
     clade of ``reference``, indexed like ``reference.children`` (the root's
