@@ -122,6 +122,25 @@ launch count set to 0 just before it and read just after:
   and ``stats`` on the outputs; and each new flag and command card
   against CPU at 24 x 300 under the same draws.
 
+- Slice 5 (``--phases bayes,reference_bayes``): on a 64 x 2048 alignment
+  simulated down a Kingman tree, ``mcmc --runs 2 --chains 4 --proposal
+  informed --informed-power 0.1 --branch-moves 2`` (the JAX package's MCMC
+  benchmark point, generations cut to MCMC_GENERATIONS) with gen/s, K4's
+  launches and a steady-state window (runs of 2N generations less runs
+  of N, N = MCMC_WINDOW timed and PROFILED_GENERATIONS profiled: ms and
+  launches a generation, idle share, top kernels); one sample block of the
+  fixed-model sampler under ``torch.cuda.set_sync_debug_mode("error")``;
+  short ``--proposal nni`` and ``--full-bayes`` runs (the eigensystems'
+  syncs counted); a ``--checkpoint-dir``/``--stop-after`` resume, bit for
+  bit against the uninterrupted run; ``date`` on the true tree, strict at
+  4,000 generations and relaxed under a coalescent prior with a calibrated
+  clade (walls by part, gen/s, steady windows of SAMPLER_WINDOW
+  generations); ``bayesfactor --models jc,gtr`` at 32 rungs (the same);
+  K4 held within rtol 1e-5 at the samplers' batches
+  (8 chains, 32 rungs, 8 x 4 +G categories per site) and at the informed
+  neighbourhood's 992 trees beside ``nni_scan``; and each sampler on the
+  card against the CPU under one draw source at 10 x 300.
+
 K1 is also captured in a CUDA graph, larger calls run, and the graph
 replayed (each call's scratch is its own: bit-equal to the plain version);
 shape (b) is timed with a kept buffer and with the per-call one.
@@ -151,6 +170,7 @@ import dataclasses
 import io
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -703,15 +723,16 @@ def strip_lengths(newick: str) -> str:
     return re.sub(r":[0-9.eE+-]+", "", newick)
 
 
-def run_cli(argv: list[str]):
-    """A command in this process; returns what its ``run_*`` function
-    returns (``infer``: InferRun; ``bench``, ``search-run``, ``ml``,
-    ``bootstrap``, ``topotest``: the JSON object and the scores, params,
-    inputs, replicate trees or test result; ``treedraw``: its text; else
-    the JSON object, ``partition`` and ``modeltest`` too)."""
+def run_cli(argv: list[str], **kwargs):
+    """A command in this process, ``kwargs`` passed to its ``run_*``
+    function; returns what that function returns (``infer``: InferRun;
+    ``bench``, ``search-run``, ``ml``, ``bootstrap``, ``topotest``: the
+    JSON object and the scores, params, inputs, replicate trees or test
+    result; ``treedraw``: its text; else the JSON object, ``partition``
+    and ``modeltest`` too)."""
     from trex_tpu_torch.cli import build_parser
     from trex_tpu_torch.cli.infer import run_infer
-    from trex_tpu_torch.cli.bayes import run_concord
+    from trex_tpu_torch.cli.bayes import run_bayesfactor, run_concord, run_date, run_mcmc
     from trex_tpu_torch.cli.score import run_asr, run_score, run_stats, run_trait, run_treedraw
     from trex_tpu_torch.cli.search_cmds import (
         run_bench,
@@ -735,9 +756,10 @@ def run_cli(argv: list[str]):
            "ml": run_ml, "trait": run_trait, "partition": run_partition,
            "modeltest": run_modeltest, "bootstrap": run_bootstrap, "topotest": run_topotest,
            "treedist": run_treedist, "consensus": run_consensus, "treeprune": run_treeprune,
-           "treedraw": run_treedraw, "stats": run_stats, "concord": run_concord}[argv[0]]
+           "treedraw": run_treedraw, "stats": run_stats, "concord": run_concord,
+           "mcmc": run_mcmc, "date": run_date, "bayesfactor": run_bayesfactor}[argv[0]]
     with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
-        return run(build_parser().parse_args(argv))
+        return run(build_parser().parse_args(argv), **kwargs)
 
 
 def dna_states(fasta: str) -> np.ndarray:
@@ -758,6 +780,21 @@ def profile_phase(torch, fn, unprofiled_wall: float | None) -> dict:
     time without the profiler (``unprofiled_wall``), since tracing
     ~10^5 launches slows the host — or, for ``None``, against the
     profiled call's own wall time (a call of few launches)."""
+    events, wall = device_events(torch, fn)
+    if unprofiled_wall is None:
+        unprofiled_wall = wall
+    busy = sum(seconds for _, seconds in events.values())
+    return {
+        "profiled_wall_s": wall, "unprofiled_wall_s": unprofiled_wall,
+        "device_busy_s": busy, "idle_share": 1.0 - busy / unprofiled_wall,
+        "device_launches": sum(count for count, _ in events.values()),
+        "top": top_events(events),
+    }
+
+
+def device_events(torch, fn) -> tuple[dict, float]:
+    """({kernel or copy name: (launches, device seconds)}, wall seconds)
+    of ``fn()`` under ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -767,18 +804,16 @@ def profile_phase(torch, fn, unprofiled_wall: float | None) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    if unprofiled_wall is None:
-        unprofiled_wall = wall
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-    return {
-        "profiled_wall_s": wall, "unprofiled_wall_s": unprofiled_wall,
-        "device_busy_s": busy, "idle_share": 1.0 - busy / unprofiled_wall,
-        "device_launches": int(sum(e.count for e in events)),
-        "top": [{"name": e.key[:80], "count": e.count,
-                 "device_s": e.self_device_time_total / 1e6} for e in top],
-    }
+    return ({e.key: (int(e.count), e.self_device_time_total / 1e6)
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}, wall)
+
+
+def top_events(events: dict, n: int = 8) -> list[dict]:
+    """The ``n`` names of ``events`` ({name: (launches, device seconds)})
+    with the most device time."""
+    top = sorted(events.items(), key=lambda kv: kv[1][1], reverse=True)[:n]
+    return [{"name": name[:80], "count": count, "device_s": seconds}
+            for name, (count, seconds) in top]
 
 
 # The differentiable core's routes at full width: ``infer --start diff`` on
@@ -808,11 +843,12 @@ def descent_window(torch, fn, steps: int) -> dict:
     return dict(prof, steps=steps, launches_per_step=prof["device_launches"] / steps)
 
 
-def timed_cli(torch, argv: list[str]):
-    """(result, wall seconds) of a command run on the card."""
+def timed_cli(torch, argv: list[str], **kwargs):
+    """(result, wall seconds) of a command run on the card (``kwargs`` to
+    its ``run_*`` function)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = run_cli(argv)
+    out = run_cli(argv, **kwargs)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
@@ -1053,7 +1089,7 @@ def random_canonical_tree(n_taxa: int, seed: int) -> np.ndarray:
     move generators take and emit)."""
     from trex_tpu_torch.io import canonicalize_topology
 
-    return canonicalize_topology(random_trees(np.random.default_rng(seed), n_taxa, 1)[0])
+    return canonicalize_topology(random_trees(np.random.default_rng(seed), n_taxa, 1)[0])[0]
 
 
 def timed(fn):
@@ -1383,7 +1419,8 @@ def slice_1b_reference(torch, workdir: str, ref_fasta: str) -> list[dict]:
 # A phase named here runs the phases it needs first (REQUIRES).
 PHASES = ("card", "build", "native", "kernels", "routes", "differentiable", "slice_1b",
           "reference", "ml_models", "score_ml", "trait", "ml", "protein", "reference_2b",
-          "slice_2c", "reference_2c", "supports", "reference_supports")
+          "slice_2c", "reference_2c", "supports", "reference_supports", "bayes",
+          "reference_bayes")
 REQUIRES = {"routes": ("kernels",), "slice_1b": ("kernels", "routes"),
             "score_ml": ("ml_models",), "trait": ("ml_models",), "slice_2c": ("ml_models",)}
 SLICE_2B_PHASES = ("ml_models", "score_ml", "trait", "ml", "protein")
@@ -1500,6 +1537,9 @@ DEEP_FIT_STEPS = 3
 # alike; the full-width routes run the CLI's 800): a fit is launch-bound,
 # about 15 ms a step on either device at 24 taxa.
 REF_FIT_STEPS = 50
+# partition --search's fits cut from the command's 600 Adam steps (about 60 s of
+# its 67 s on an H100) to make room for the Bayesian phases.
+PARTITION_FIT_STEPS = 300
 MODEL_REF_CASES = (
     ("gtr+g", "spr-scan"), ("gtr+g", "nni"), ("hky+i", "spr-scan"), ("hky+i", "nni"),
     ("jc+r3", "spr-scan"), ("jc+r3", "nni"), ("empirical", "spr-scan"), ("empirical", "nni"),
@@ -2338,7 +2378,7 @@ def slice_2c_routes(torch, dev, workdir: str, main_fasta: str, nni_fasta: str, s
     tree_path = os.path.join(workdir, "partition.nwk")
     args = build_parser().parse_args([
         "partition", "--alignment", fasta, "--partitions", parts, "--models", "gtr,hky+g",
-        "--search", "--output-tree", tree_path])
+        "--search", "--iterations", str(PARTITION_FIT_STEPS), "--output-tree", tree_path])
     timings: dict = {}
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2354,7 +2394,8 @@ def slice_2c_routes(torch, dev, workdir: str, main_fasta: str, nni_fasta: str, s
     with open(tree_path) as fh:
         rescored = rescore_ranking(torch, fh.read(), fasta)
     emit("partition_route", command="partition --search --models gtr,hky+g (128 x 1024, "
-         "two genes of 512 sites, 600 Adam steps a fit)", log_likelihood=out["log_likelihood"],
+         f"two genes of 512 sites, {PARTITION_FIT_STEPS} Adam steps a fit)",
+         log_likelihood=out["log_likelihood"],
          search_rounds=out["search_rounds"], gene2_rate_multiplier=gene2["rate_multiplier"],
          gene2_truth=GENE2["multiplier"], gene2_gamma_shape=gene2.get("gamma_shape"),
          gene2_gamma_truth=GENE2["gamma_shape"], tree_length=out["tree_length"],
@@ -2846,6 +2887,565 @@ def supports_reference(torch, workdir: str) -> list[dict]:
         out = run_cli(argv)
         rows.append(dict(command=argv[0], ran=True,
                          keys=list(out) if isinstance(out, dict) else None))
+    return rows
+
+
+# Slice 5 (Bayesian): ``mcmc``, ``date`` and ``bayesfactor`` on a 64 x 2048
+# alignment simulated down a Kingman tree (JC69, root near 0.3), the JAX
+# package's MCMC benchmark width; every chain batch goes through K4.
+BAYES_SHAPE = dict(n_taxa=64, n_sites=2048)
+MCMC_ARGS = ["--runs", "2", "--chains", "4", "--proposal", "informed", "--informed-power",
+             "0.1", "--branch-moves", "2"]
+MCMC_GENERATIONS = 2000  # the JAX benchmark's 10,000, cut to fit the call
+MCMC_SHORT = 100  # the --proposal nni and --full-bayes runs, and the resume
+# Steady-state windows (``steady_window``): generations timed, and
+# generations profiled (tracing costs about 0.2 ms an event, and mcmc
+# launches about 2,000 a generation).
+MCMC_WINDOW = 20  # one sample block of mcmc
+SAMPLER_WINDOW = 30  # date and bayesfactor
+PROFILED_GENERATIONS = 10
+DATE_STRICT_GENERATIONS = 4000  # the command's default
+DATE_RELAXED_GENERATIONS = 1000
+# The clock fits of date (clock_lrt's two, 600 Adam steps each, and the
+# sampler's start fit, 500) cut to this many steps: at 64 x 2048 they take
+# about 28 ms a step on an H100 (47 s of a 59 s strict run at full length).
+CLOCK_FIT_STEPS = 150
+BAYESFACTOR_GENERATIONS = 300
+BAYES_REF_SHAPE = dict(n_taxa=10, n_sites=300)
+BAYES_REF_GENERATIONS = 60
+
+
+def simulate_ultrametric(fasta: str, tree_path: str, n_taxa: int, n_sites: int, seed: int,
+                         theta: float = 0.15) -> None:
+    """A JC69 alignment down a Kingman coalescent tree (coalescence rate
+    k (k - 1) / 2 / theta, so the root lies near 2 theta), and the tree
+    with its ultrametric lengths as newick."""
+    from trex_tpu_torch.io import save_newick
+    from trex_tpu_torch.topology import from_numpy
+
+    rng = np.random.default_rng(seed)
+    active = list(range(n_taxa))
+    ages = np.zeros(2 * n_taxa - 1)
+    children = np.zeros((n_taxa - 1, 2), np.int32)
+    t = 0.0
+    for a in range(n_taxa - 1):
+        k = len(active)
+        t += rng.exponential(theta / (k * (k - 1) / 2))
+        i, j = sorted(rng.choice(k, size=2, replace=False), reverse=True)
+        x, y = active.pop(i), active.pop(j)
+        children[a] = (min(x, y), max(x, y))
+        ages[n_taxa + a] = t
+        active.append(n_taxa + a)
+    parents = np.full(2 * n_taxa - 1, 2 * n_taxa - 2, np.int32)
+    for a, (x, y) in enumerate(children):
+        parents[x] = parents[y] = n_taxa + a
+    lengths = ages[parents] - ages
+    lengths[-1] = 0.0
+    seqs = np.empty((2 * n_taxa - 1, n_sites), np.int64)
+    seqs[-1] = rng.integers(0, 4, n_sites)
+    for a in range(n_taxa - 2, -1, -1):
+        for c in children[a]:
+            p_change = 0.75 * (1.0 - np.exp(-4.0 / 3.0 * lengths[c]))
+            s = seqs[n_taxa + a].copy()
+            hit = rng.random(n_sites) < p_change
+            s[hit] = rng.integers(0, 4, int(hit.sum()))
+            seqs[c] = s
+    names = [f"taxon{i}" for i in range(n_taxa)]
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    with open(fasta, "w") as fh:
+        for i in range(n_taxa):
+            fh.write(f">{names[i]}\n{letters[seqs[i]].tobytes().decode()}\n")
+    with open(tree_path, "w") as fh:
+        fh.write(save_newick(from_numpy(children, parents), names, branch_lengths=lengths)
+                 + "\n")
+
+
+def steady_window(torch, run, generations: int, profiled: int, repeats: int = 2) -> dict:
+    """A sampler's steady state, its setup and summaries taken out.
+    ``run(n, timings)`` samples ``n`` generations and puts the sampler's
+    wall in ``timings["sampler"]``. Walls: the least of ``repeats``
+    unprofiled runs of ``generations`` and of twice as many; launches and
+    device-busy seconds: a run of ``profiled`` generations and one of
+    twice as many under ``torch.profiler``. In each pair the second less
+    the first is the steady state: ms, launches and busy seconds a
+    generation, the idle share, the top kernels of ``profiled``
+    generations."""
+    walls = []
+    for n in (generations, 2 * generations):
+        best = math.inf
+        for _ in range(repeats):
+            timings: dict = {}
+            run(n, timings)
+            best = min(best, timings["sampler"])
+        walls.append(best)
+    profiles = []
+    for n in (profiled, 2 * profiled):
+        profiles.append(device_events(torch, lambda: run(n, {}))[0])
+    short, long_ = profiles
+    diff = {name: (count - short.get(name, (0, 0.0))[0], seconds - short.get(name, (0, 0.0))[1])
+            for name, (count, seconds) in long_.items()}
+    ms = 1e3 * (walls[1] - walls[0]) / generations
+    busy_ms = 1e3 * sum(seconds for _, seconds in diff.values()) / profiled
+    launches = sum(count for count, _ in diff.values())
+    return dict(generations=generations, sampler_walls_s=walls, ms_per_generation=ms,
+                profiled_generations=profiled, launches_per_generation=launches / profiled,
+                device_busy_ms_per_generation=busy_ms, idle_share=1.0 - busy_ms / ms,
+                top=top_events(diff))
+
+
+def k4_bayes_at(torch, dev, children, leaves, weights, prior, pmats, timer,
+                per_site: bool = False) -> dict:
+    """K4 (a P a branch and tree) held within rtol K34_RTOL of its plain
+    version at one of the samplers' batches, timed (ms, back to back, the
+    plain version, device ms of a CUDA graph), beside its bound."""
+    from trex_tpu_torch.ops.likelihood_cuda import (
+        batched_log_likelihood_cuda,
+        batched_log_likelihood_plain,
+    )
+
+    def run(fn):
+        if not per_site:
+            return lambda: fn(children, leaves, weights, prior, pmats, sequences_are_masks=True)
+
+        def call():
+            sums, rows = fn(children, leaves, weights, prior, pmats, sequences_are_masks=True,
+                            per_site=True)
+            return torch.cat([sums[:, None], rows], dim=1)
+        return call
+
+    batch, n_taxa, n_sites = children.shape[0], leaves.shape[0], int((weights != 0).sum())
+    n_bytes, n_ops = k34_work(batch, n_taxa, n_sites, 4, True)
+    if per_site:
+        n_bytes += 4.0 * batch * (n_sites - 1)
+    got = measure(torch, run(batched_log_likelihood_cuda), run(batched_log_likelihood_plain),
+                  n_bytes, n_ops, rtol=K34_RTOL, plain_reps=2)
+    return dict(trees=batch, n_taxa=n_taxa, patterns=n_sites, per_site=per_site, **got,
+                **timer(run(batched_log_likelihood_cuda), got["ms"]))
+
+
+def bayes_routes(torch, dev, workdir: str, reset_counts, launch_counts, timer) -> dict:
+    """Slice 5 on the card at 64 x 2048 (every launch count set to 0 just
+    before each route and read just after): ``mcmc`` informed (2 runs x 4
+    chains, 2 branch moves) for MCMC_GENERATIONS, a steady-state window
+    (``steady_window``) of MCMC_WINDOW generations, one whole sample
+    block of the fixed-model sampler under ``torch.cuda.set_sync_debug_mode("error")``, short
+    ``--proposal nni`` and ``--full-bayes`` runs (the latter counting the
+    syncs of its eigensystems), a ``--checkpoint-dir``/``--stop-after``
+    resume held bit for bit against the uninterrupted run; ``date`` strict
+    at its default 4,000 generations and relaxed under a coalescent prior
+    (Ne sampled) with one calibrated clade; ``bayesfactor --models jc,gtr``
+    at 32 rungs; K4 at the samplers' batches (the branch moves' 8 trees,
+    the stepping-stone's 32, the +G per-site 8 x 4) and the informed
+    neighbourhood scored directly by K4 beside ``nni_scan``; the renumber
+    pass's cost. Returns what the kernels line reads."""
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli._common import _load_alignment
+    from trex_tpu_torch.io import load_newick, sample_topologies
+    from trex_tpu_torch.ops.likelihood import discrete_gamma_rates, jc69_transition
+    from trex_tpu_torch.ops.likelihood_cuda import batched_log_likelihood_cuda
+    from trex_tpu_torch.ops.nni_scan import nni_neighborhood_lnl
+    from trex_tpu_torch.ops.tree_moves import nni_neighborhood_device, renumber_topological
+    from trex_tpu_torch.search import dating, mcmc
+    from trex_tpu_torch.search.marginal import stepping_stone
+
+    found: dict = {"launches": {}}
+    fasta = os.path.join(workdir, "bayes.fasta")
+    tree_path = os.path.join(workdir, "bayes_true.nwk")
+    simulate_ultrametric(fasta, tree_path, BAYES_SHAPE["n_taxa"], BAYES_SHAPE["n_sites"],
+                         SEED + 31)
+    names, masks, _ = _load_alignment(fasta, "dna")
+    patterns, counts = compress_alignment(masks)
+    pat_t = torch.as_tensor(patterns.astype(np.int32), device=dev)
+    w_t = torch.as_tensor(counts.astype(np.float32), device=dev)
+    n_taxa = len(names)
+
+    def route(argv, **kwargs):
+        reset_counts()
+        out, wall = timed_cli(torch, argv, **kwargs)
+        launches = launch_counts()
+        if launches["k34_per_branch"] <= 0:
+            raise AssertionError(f"{argv[0]}: K4 never launched ({launches})")
+        return out, wall, launches
+
+    # mcmc, informed: the JAX package's benchmark point, generations cut.
+    mcmc_argv = ["mcmc", "--fasta", fasta, *MCMC_ARGS]
+    seconds: dict = {}
+    out, wall, launches = route(mcmc_argv + ["--generations", str(MCMC_GENERATIONS)],
+                                timings=seconds)
+    if not (out["n_samples"] > 0 and np.isfinite(out["mean_lnl"])
+            and out["consensus_tree"].endswith(";") and 0 < out["acceptance"]["branch"] <= 1):
+        raise AssertionError(f"mcmc route: {out}")
+    found["launches"]["mcmc"] = launches
+    mcmc_kw = dict(n_runs=2, n_chains=4, topo_proposal="informed", topo_informed_power=0.1,
+                   branch_moves_per_gen=2, site_weights=w_t, sequences_are_masks=True,
+                   device=dev)
+    window = steady_window(torch, lambda n, timings: mcmc.mcmc_sample(
+        pat_t, 4, seed=SEED, n_generations=n, sample_every=MCMC_WINDOW, timings=timings,
+        **mcmc_kw), MCMC_WINDOW, PROFILED_GENERATIONS)
+    found["mcmc"] = dict(generations=MCMC_GENERATIONS, wall_s=wall,
+                         generations_per_s=MCMC_GENERATIONS / wall,
+                         sampler_s=seconds["sampler"],
+                         sampler_generations_per_s=MCMC_GENERATIONS / seconds["sampler"],
+                         launches=launches,
+                         k4_launches_per_generation=launches["k34"] / MCMC_GENERATIONS,
+                         window=window)
+    emit("bayes_mcmc", command="mcmc " + " ".join(MCMC_ARGS)
+         + f" --generations {MCMC_GENERATIONS} (64 x 2048)", unique_patterns=out[
+             "unique_patterns"], mean_lnl=out["mean_lnl"], acceptance=out["acceptance"],
+         asdsf=out["asdsf"], ess_lnl=out["ess_lnl"], n_samples=out["n_samples"],
+         **found["mcmc"])
+
+    # One whole sample block of the fixed-model sampler (the informed
+    # proposal, JC) under the sync debugger: a host sync inside a
+    # generation raises.
+    blocks = mcmc.run_blocks
+    guarded = {"blocks": 0}
+
+    def checked(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return blocks(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            guarded["blocks"] += args[1]
+
+    mcmc.run_blocks = checked
+    try:
+        mcmc.mcmc_sample(pat_t, 4, seed=SEED + 1, n_generations=40, sample_every=20, **mcmc_kw)
+    finally:
+        mcmc.run_blocks = blocks
+    emit("bayes_sync_free_block", sampler="mcmc informed JC (64 x 2048, 8 chains)",
+         blocks_under_sync_debug_error=guarded["blocks"], generations_a_block=20)
+
+    # The uniform proposal and full Bayes, short; full Bayes syncs where
+    # each chain's eigensystem (torch.linalg.eigh) does: counted.
+    short = {}
+    for name, extra in (("nni", ["--proposal", "nni"]), ("full_bayes", ["--full-bayes"])):
+        argv = ["mcmc", "--fasta", fasta, *MCMC_ARGS, *extra, "--generations", str(MCMC_SHORT)]
+        with short_fits(REF_FIT_STEPS):
+            out, wall, launches = route(argv)
+        short[name] = dict(wall_s=wall, generations_per_s=MCMC_SHORT / wall, launches=launches,
+                           mean_lnl=out["mean_lnl"], acceptance=out["acceptance"])
+        found["launches"][f"mcmc_{name}"] = launches
+    import warnings
+
+    # A first call builds cuSOLVER's handle and workspace; the second's
+    # syncs are counted.
+    eig = mcmc.gtr_eigensystem_batched(
+        torch.as_tensor(np.full((8, 4, 4), 1.0, np.float32), device=dev),
+        torch.full((8, 4), 0.25, device=dev))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eig = mcmc.gtr_eigensystem_batched(
+                torch.as_tensor(np.full((8, 4, 4), 1.0, np.float32), device=dev),
+                torch.full((8, 4), 0.25, device=dev))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    eig_syncs = sum("synchroniz" in str(w.message) for w in caught)
+    del eig
+    short["full_bayes"].update(syncs_a_batched_eigensystem=eig_syncs,
+                               eigensystems_a_generation=2 + 2 * 2)
+    emit("bayes_mcmc_short", generations=MCMC_SHORT, **short)
+
+    # Resume: stopped halfway and resumed, against the
+    # uninterrupted run, bit for bit (K4 has no float atomics).
+    resume = {}
+    stop = MCMC_SHORT // 2
+    for name, extra in (("whole", []), ("stopped", ["--stop-after", str(stop)]), ("resumed", [])):
+        ck_dir = os.path.join(workdir, "mcmc_ck_" + ("whole" if name == "whole" else "legs"))
+        out, _ = timed_cli(torch, ["mcmc", "--fasta", fasta, *MCMC_ARGS, "--generations",
+                                   str(MCMC_SHORT), "--checkpoint-dir", ck_dir,
+                                   "--checkpoint-every", str(stop), *extra])
+        resume[name] = (out, dict(np.load(os.path.join(ck_dir, "mcmc_checkpoint.npz"))))
+    whole, legs = resume["whole"], resume["resumed"]
+    for key in whole[1]:
+        if not np.array_equal(whole[1][key], legs[1][key]):
+            raise AssertionError(f"mcmc resume: {key} differs from the uninterrupted run")
+    if whole[0] != legs[0]:
+        raise AssertionError("mcmc resume: JSON differs from the uninterrupted run")
+    emit("bayes_mcmc_resume", generations=MCMC_SHORT, stopped_at=stop, bit_identical=True,
+         mean_lnl=whole[0]["mean_lnl"])
+
+    # date: strict at its default 4,000 generations, then relaxed under a
+    # coalescent prior (Ne sampled) with one calibrated clade; the command's
+    # walls by part from its timings.
+    topo, true_lengths, tree_names = load_newick(open(tree_path).read())
+    clade = sorted(dating_clade(topo))
+    true_topo = topo.to(dev)
+    ages = true_ages(topo, true_lengths)
+    date_runs = {}
+    for name, extra, gens, kw in (
+            ("strict", [], DATE_STRICT_GENERATIONS, {}),
+            ("relaxed_coalescent_calibrated",
+             ["--clock", "relaxed", "--tree-prior", "coalescent", "--calibrate",
+              ",".join(tree_names[i] for i in clade) + ":0.05:0.5"],
+             DATE_RELAXED_GENERATIONS,
+             dict(clock="relaxed", tree_prior="coalescent",
+                  calibrations={frozenset(clade): (0.05, 0.5)}))):
+        seconds = {}
+        out, wall, launches = route(["date", "--fasta", fasta, "--tree", tree_path,
+                                     "--generations", str(gens), *extra], timings=seconds,
+                                    clock_iterations=CLOCK_FIT_STEPS)
+        if not (np.isfinite(out["root_age"]["mean"]) and out["tree"].endswith(";")):
+            raise AssertionError(f"date {name}: {out}")
+        window = steady_window(torch, lambda n, timings: dating.mcmc_date(
+            true_topo, pat_t, 4, seed=SEED, n_generations=n, start_ages=ages,
+            site_weights=w_t, sequences_are_masks=True, device=dev, timings=timings, **kw),
+            SAMPLER_WINDOW, PROFILED_GENERATIONS)
+        date_runs[name] = dict(generations=gens, clock_fit_steps=CLOCK_FIT_STEPS, wall_s=wall,
+                               clock_lrt_s=seconds["clock_lrt"],
+                               start_fit_s=seconds["start_fit"], sampler_s=seconds["sampler"],
+                               generations_per_s=gens / seconds["sampler"], launches=launches,
+                               k4_launches_per_generation=launches["k34"] / gens,
+                               window=window, root_age=out["root_age"],
+                               true_root_age=float(ages[-1]), acceptance=out["acceptance"],
+                               clock_lrt=out["clock_lrt"])
+        found["launches"][f"date_{name}"] = launches
+    found["date"] = date_runs
+    emit("bayes_date", n_taxa=n_taxa, calibrated_clade_size=len(clade), **date_runs)
+
+    # bayesfactor: jc and gtr at 32 rungs.
+    seconds = {}
+    out, wall, launches = route(["bayesfactor", "--fasta", fasta, "--tree", tree_path,
+                                 "--models", "jc,gtr", "--rungs", "32", "--generations",
+                                 str(BAYESFACTOR_GENERATIONS)], timings=seconds)
+    if not all(np.isfinite(v["log_marginal"]) for v in out["models"].values()):
+        raise AssertionError(f"bayesfactor: {out}")
+    bf_window = {}
+    for model in ("jc", "gtr"):
+        bf_window[model] = steady_window(torch, lambda n, timings: stepping_stone(
+            true_topo, pat_t, 4, seed=SEED, n_rungs=32, n_generations=n,
+            sample_model=model == "gtr", site_weights=w_t, sequences_are_masks=True,
+            device=dev, timings=timings), SAMPLER_WINDOW, PROFILED_GENERATIONS)
+    sampler_s = {model: seconds[model]["sampler"] for model in ("jc", "gtr")}
+    found["bayesfactor"] = dict(generations=BAYESFACTOR_GENERATIONS, wall_s=wall,
+                                sampler_s=sampler_s,
+                                generations_per_s={m: BAYESFACTOR_GENERATIONS / x
+                                                   for m, x in sampler_s.items()},
+                                launches=launches,
+                                window=bf_window, models=out["models"], best=out["best"])
+    found["launches"]["bayesfactor"] = launches
+    emit("bayes_bayesfactor", **found["bayesfactor"])
+
+    # K4 at the samplers' batches: the chains' start trees (8), the rungs'
+    # copies of the true tree (32), the +G chains x categories (32).
+    rng = np.random.default_rng(SEED + 32)
+    starts = sample_topologies(int(rng.integers(2**31)), n_taxa, 8, device=dev).children
+    lengths = torch.as_tensor(rng.exponential(0.1, (8, 2 * n_taxa - 1)).astype(np.float32),
+                              device=dev)
+    uniform = torch.full((4,), 0.25, device=dev)
+    at = {}
+    at["branch_moves"] = k4_bayes_at(torch, dev, starts, pat_t, w_t, uniform,
+                                     jc69_transition(lengths, 4).contiguous(), timer)
+    rungs = true_topo.children[None].expand(32, -1, -1).contiguous()
+    rung_lengths = torch.as_tensor(rng.exponential(0.1, (32, 2 * n_taxa - 1)).astype(
+        np.float32), device=dev)
+    at["stepping_stone"] = k4_bayes_at(torch, dev, rungs, pat_t, w_t, uniform,
+                                       jc69_transition(rung_lengths, 4).contiguous(), timer)
+    cats = discrete_gamma_rates(torch.tensor(0.5, device=dev), 4)
+    scaled = (lengths[:, None, :] * cats[None, :, None]).reshape(32, -1)
+    at["gamma_per_site"] = k4_bayes_at(
+        torch, dev, starts.repeat_interleave(4, dim=0), pat_t, w_t, uniform,
+        jc69_transition(scaled, 4).contiguous(), timer, per_site=True)
+    nbr_c, nbr_l = nni_neighborhood_device(starts, lengths, n_taxa)
+    flat_c = nbr_c.reshape(-1, n_taxa - 1, 2).contiguous()
+    flat_p = jc69_transition(nbr_l.reshape(-1, 2 * n_taxa - 1), 4).contiguous()
+    direct = k4_bayes_at(torch, dev, flat_c, pat_t, w_t, uniform, flat_p, timer)
+    scan = lambda: nni_neighborhood_lnl(starts, lengths, pat_t, 4, site_weights=w_t,  # noqa
+                                        sequences_are_masks=True)
+    scan_vals = scan()
+    direct_vals = batched_log_likelihood_cuda(flat_c, pat_t, w_t, uniform, flat_p,
+                                              sequences_are_masks=True).view(8, -1)
+    scan_rel = float(((scan_vals - direct_vals).abs() / direct_vals.abs()).max())
+    if scan_rel > 1e-5:
+        raise AssertionError(f"nni_scan differs from K4 on the neighbourhood: {scan_rel}")
+    build = lambda: jc69_transition(  # noqa: E731
+        nni_neighborhood_device(starts, lengths, n_taxa)[1].reshape(-1, 2 * n_taxa - 1), 4)
+    at["informed_neighbourhood_direct"] = dict(
+        direct, nni_scan_ms=time_ms(torch, scan, 10), nni_scan_max_rel_diff=scan_rel,
+        neighbourhood_build_ms=time_ms(torch, build, 10),
+        note="the neighbourhood scored as 992 trees by K4 (the JAX fallback), for the record")
+    renumber_ms = time_ms(torch, lambda: renumber_topological(nbr_c[:, 0].contiguous(), n_taxa),
+                          10)
+    found["k4"] = at
+    found["renumber_ms"] = renumber_ms
+    emit("bayes_k4", renumber_topological_ms_8_chains=renumber_ms, **at)
+    return found
+
+
+def dating_clade(topo) -> frozenset:
+    """A clade of 4 to 16 leaves of the tree (the calibrated one): the
+    first ancestor in index order of that size."""
+    from trex_tpu_torch.search.bootstrap import subtree_leaf_sets
+
+    return next(s for s in subtree_leaf_sets(topo) if 4 <= len(s) <= 16)
+
+
+def true_ages(topo, lengths) -> np.ndarray:
+    """(n_all,) float32 node ages of an ultrametric tree from its lengths
+    (leaves at 0; an ancestor's age its first child's plus that child's
+    length)."""
+    children = topo.children.cpu().numpy()
+    n_leaves = children.shape[0] + 1
+    ages = np.zeros(2 * n_leaves - 1)
+    for a, (c, _) in enumerate(children):
+        ages[n_leaves + a] = ages[c] + lengths[c]
+    return ages.astype(np.float32)
+
+
+def bayes_fields(bayes: dict) -> dict:
+    """The K3/K4 entry's fields from the bayes phase: K4's grids on each
+    Bayesian route by mode, and K4 held at the samplers' batches."""
+    if not bayes:
+        return {}
+    return {
+        "bayes_route_launches": {
+            route: {k: v[k] for k in ("k34", "k34_per_branch", "k34_per_site", "k34_shared")}
+            for route, v in bayes["launches"].items()},
+        "at_bayes_batches": bayes["k4"],
+    }
+
+
+def bayes_entry(bayes: dict) -> dict | None:
+    """K3/K4's kernels-line entry from the bayes phase alone (a run of a
+    subset of the phases): held and timed at the branch moves' batch,
+    launches on the mcmc route."""
+    if not bayes:
+        return None
+    first = bayes["k4"]["branch_moves"]
+    return {
+        "name": "likelihood_batched", "route": "cuda",
+        "source": "trex_tpu_torch/csrc/likelihood_batched.cu",
+        "replaces": "trex_tpu/ops/likelihood_pallas.py:135",
+        "launches": bayes["launches"]["mcmc"]["k34"],
+        **{k: first[k] for k in ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "device_ms")},
+        "library_ms": None, **bayes_fields(bayes),
+    }
+
+
+def same_chains(name: str, card, cpu, scale: float) -> None:
+    """Card against CPU of one sampler's outputs: arrays of integers (and
+    the accept counts) equal, floats within rtol K34_RTOL of ``scale``
+    (the chains' |lnL|) or of themselves."""
+    for key in card:
+        a, b = np.asarray(card[key]), np.asarray(cpu[key])
+        if a.dtype.kind in "iub":
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: {key} differs between card and CPU")
+        elif not np.allclose(a, b, rtol=K34_RTOL, atol=K34_RTOL * (scale if key.endswith(
+                "lnl") else 1e-2)):
+            raise AssertionError(f"{name}: {key} differs between card and CPU: "
+                                 f"{np.abs(a - b).max()}")
+
+
+def bayes_reference(torch, workdir: str) -> list[dict]:
+    """Slice 5 on the card against the CPU at BAYES_REF_SHAPE, each sampler
+    from one draw source (a CPU generator's draws, moved to the run's
+    device): the same accepts, children and samples, lnL and lengths within
+    rtol K34_RTOL; accepts whose log u lies within 1e-5 of log alpha (and
+    within 1e-6 |lnL|) counted."""
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli._common import _load_alignment
+    from trex_tpu_torch.io import load_newick
+    from trex_tpu_torch.search import dating, mcmc
+    from trex_tpu_torch.search.marginal import stepping_stone
+
+    fasta = os.path.join(workdir, "bayes_ref.fasta")
+    tree_path = os.path.join(workdir, "bayes_ref.nwk")
+    simulate_ultrametric(fasta, tree_path, BAYES_REF_SHAPE["n_taxa"], BAYES_REF_SHAPE["n_sites"],
+                         SEED + 33)
+    _, masks, _ = _load_alignment(fasta, "dna")
+    patterns, counts = compress_alignment(masks)
+    topo, lengths, _ = load_newick(open(tree_path).read())
+    ages = true_ages(topo, lengths)
+    gens = BAYES_REF_GENERATIONS
+    gtr = (np.array([[0, 1.2, 4.0, 0.6], [1.2, 0, 0.9, 3.3], [4.0, 0.9, 0, 1.0],
+                     [0.6, 3.3, 1.0, 0]], np.float32), np.array([0.3, 0.2, 0.22, 0.28],
+                                                                np.float32))
+    clade = frozenset(sorted(dating_clade(topo)) if topo.n_leaves > 8 else [0, 1])
+    runs = {
+        "mcmc informed jc": ("mcmc", dict(n_runs=2, n_chains=2, branch_moves_per_gen=2)),
+        "mcmc nni gtr+g": ("mcmc", dict(n_runs=1, n_chains=3, topo_proposal="nni",
+                                        rates=gtr[0], freqs=gtr[1], gamma_shape=0.6)),
+        "mcmc informed gtr+g": ("mcmc", dict(n_runs=1, n_chains=2, rates=gtr[0],
+                                             freqs=gtr[1], gamma_shape=0.6)),
+        "mcmc informed full bayes": ("mcmc", dict(n_runs=1, n_chains=2, sample_model=True)),
+        "date strict": ("date", {}),
+        "date relaxed coalescent calibrated": ("date", dict(
+            clock="relaxed", tree_prior="coalescent", calibrations={clade: (0.01, 1.0)})),
+        "date tip-dated": ("date", dict(tip_ages=np.linspace(0.0, 0.02, topo.n_leaves,
+                                                             dtype=np.float32))),
+        "bayesfactor jc": ("ss", {}),
+        "bayesfactor gtr": ("ss", dict(sample_model=True)),
+    }
+    rows = []
+    for name, (kind, kw) in runs.items():
+        outs, margins = {}, {"cuda": [], "cpu": []}
+        accept = mcmc.metropolis_accept
+        try:
+            for device in ("cuda", "cpu"):
+                def recording(u, log_alpha, seen=margins[device]):
+                    seen.append((torch.log(u) - log_alpha).cpu().numpy().ravel())
+                    return accept(u, log_alpha)
+
+                mcmc.metropolis_accept = recording
+                draws = mcmc.TorchDraws(torch.Generator("cpu").manual_seed(SEED + 34),
+                                        device=device)
+                common = dict(seed=SEED + 35, draws=draws, device=device, site_weights=counts,
+                              sequences_are_masks=True)
+                if kind == "mcmc":
+                    ck = os.path.join(workdir, f"bayes_ref_{device}")
+                    shutil.rmtree(ck, ignore_errors=True)
+                    res = mcmc.mcmc_sample(patterns.astype(np.int32), 4, n_generations=gens,
+                                           sample_every=10, checkpoint_dir=ck, **common, **kw)
+                    state = dict(np.load(os.path.join(ck, "mcmc_checkpoint.npz")))
+                    state.pop("draws_state")
+                    outs[device] = dict(state, sample_children=res.sample_children,
+                                        acceptance=np.array(list(res.acceptance.values())))
+                elif kind == "date":
+                    res = dating.mcmc_date(topo, patterns.astype(np.int32), 4, n_generations=gens,
+                                           start_ages=ages, **common, **kw)
+                    outs[device] = dict(sample_ages=res.sample_ages, sample_lnl=res.sample_lnl,
+                                        acceptance=np.array(list(res.acceptance.values())))
+                else:
+                    res = stepping_stone(topo, patterns.astype(np.int32), 4, n_rungs=8,
+                                         n_generations=gens // 2, **common, **kw)
+                    outs[device] = dict(log_ratios=res["log_ratios"],
+                                        acceptance=np.array([res["acceptance"]]))
+        finally:
+            mcmc.metropolis_accept = accept
+        card, cpu = (np.concatenate(margins[d]) for d in ("cuda", "cpu"))
+        scale = float(np.abs(outs["cpu"].get("lnl", outs["cpu"].get("sample_lnl",
+                                                                    [1.0]))).max())
+        finite = np.abs(card[np.isfinite(card)])
+        row = dict(sampler=name, generations=gens, decisions=int(card.size),
+                   near_ties_within_1e_5=int((finite <= 1e-5).sum()),
+                   near_ties_within_1e_6_lnl=int((finite <= 1e-6 * scale).sum()))
+        # The first decision the devices took apart: none, or one whose log u
+        # lies within 1e-6 |lnL| of log alpha on both (the devices' lnL differ
+        # by about 1e-7 relative; ROADMAP.md, accepted differences), after
+        # which the chains part.
+        n = min(card.size, cpu.size)
+        apart = np.nonzero((card[:n] < 0) != (cpu[:n] < 0))[0]
+        if apart.size == 0 and card.size == cpu.size:
+            same_chains(name, outs["cuda"], outs["cpu"], scale)
+            rows.append(dict(row, same_accepts_and_children=True))
+            continue
+        first = int(apart[0]) if apart.size else n
+        tied = (first < n and abs(card[first]) <= 1e-6 * scale
+                and abs(cpu[first]) <= 1e-6 * scale)
+        if not tied:
+            raise AssertionError(
+                f"{name}: card and CPU part at decision {first} of {n}, margins "
+                f"{card[first] if first < n else None} and {cpu[first] if first < n else None}, "
+                f"not a near tie (|lnL| {scale})")
+        rows.append(dict(row, same_accepts_and_children=False, parted_at_near_tie=first,
+                         margins=[float(card[first]), float(cpu[first])]))
     return rows
 
 
@@ -3757,13 +4357,25 @@ def main(argv: list[str] | None = None) -> int:
         for row in supports_reference(torch, workdir):
             emit("reference", part="slice 4a", **row)
         emit("reference_supports", seconds=time.perf_counter() - t0)
+    # 11. Slice 5 (Bayesian): mcmc, date and bayesfactor at 64 x 2048 with K4
+    # at their batches, then the samplers on the card against the CPU.
+    bayes = {}
+    if "bayes" in phases:
+        t0 = time.perf_counter()
+        bayes = bayes_routes(torch, dev, workdir, reset_counts, launch_counts, device_times)
+        emit("bayes", seconds=time.perf_counter() - t0)
+    if "reference_bayes" in phases:
+        t0 = time.perf_counter()
+        for row in bayes_reference(torch, workdir):
+            emit("reference", part="slice 5", **row)
+        emit("reference_bayes", seconds=time.perf_counter() - t0)
     shutil.rmtree(workdir)
 
     k3_model = k3_model_entry(slice_2b, slice_2c)
     per_site = per_site_entry(supports)
     if not EARLIER_PHASES <= phases:
         # A subset of the phases: the kernels its phases measured.
-        kernels = [k for k in (k3_model, per_site) if k]
+        kernels = [k for k in (k3_model, per_site, bayes_entry(bayes)) if k]
     else:
         kernels = [
             {
@@ -3812,6 +4424,7 @@ def main(argv: list[str] | None = None) -> int:
                 "at_model_routes": slice_2b.get("at_model_routes"),
                 **slice_2c_fields(slice_2c),
                 **({"at_ml_tbr": supports["k3_at_ml_tbr"]} if supports else {}),
+                **bayes_fields(bayes),
             },
             {
                 "name": "sankoff_batched", "route": "cuda",

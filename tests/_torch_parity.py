@@ -238,3 +238,178 @@ def share_native_library(monkeypatch) -> bool:
     monkeypatch.setattr(jax_native, "_LIB_PATH", path)
     jax_native.load_library.cache_clear()
     return True
+
+
+class JaxDraws:
+    """A draw source for the port's samplers (``search/mcmc.py``'s
+    ``TorchDraws`` protocol) that replays a JAX sampler's key schedule:
+    ``step(state) -> (state, [(kind, key), ...])`` gives one generation's
+    keys in the order the step uses them, and each call draws what the JAX
+    step draws with its key (a Dirichlet or gamma at the port's
+    concentration). ``get_state``/``set_state`` carry ``state`` as key data
+    (the JAX checkpoint's ``jax_key``) between generations."""
+
+    def __init__(self, state, step, device="cpu") -> None:
+        self.state, self.step, self.device = state, step, torch.device(device)
+        self.queue: list = []
+
+    def _key(self, kind: str):
+        if not self.queue:
+            self.state, self.queue = self.step(self.state)
+            self.queue = list(self.queue)
+        got, key = self.queue.pop(0)
+        assert got == kind, f"the port drew a {kind} where the JAX step draws a {got}"
+        return key
+
+    def _out(self, x, dtype=None):
+        return torch.as_tensor(np.array(x), device=self.device, dtype=dtype)
+
+    def uniform(self, shape):
+        import jax
+
+        return self._out(jax.random.uniform(self._key("uniform"), tuple(shape)))
+
+    def normal(self, shape):
+        import jax
+
+        return self._out(jax.random.normal(self._key("normal"), tuple(shape)))
+
+    def randint(self, shape, low, high):
+        import jax
+
+        return self._out(jax.random.randint(self._key("randint"), tuple(shape), low, high),
+                         torch.int64)
+
+    def gumbel(self, shape):
+        import jax
+
+        return self._out(jax.random.gumbel(self._key("gumbel"), tuple(shape)))
+
+    def dirichlet(self, alpha):
+        import jax
+        import jax.numpy as jnp
+
+        return self._out(jax.random.dirichlet(
+            self._key("dirichlet"), jnp.asarray(alpha.cpu().numpy())))
+
+    def gamma(self, concentration, shape):
+        import jax
+
+        return self._out(jax.random.gamma(self._key("gamma"), concentration, tuple(shape)))
+
+    def get_state(self):
+        import jax
+
+        assert not self.queue, "state read inside a generation"
+        return np.asarray(jax.random.key_data(self.state))
+
+    def set_state(self, state) -> None:
+        import jax.numpy as jnp
+
+        self.state, self.queue = jnp.asarray(np.asarray(state, np.uint32)), []
+
+
+def jax_mcmc_step(branch_moves: int, sample_model: bool, proposal: str | None, swap: bool):
+    """``trex_tpu.search.mcmc.mcmc_sample``'s per-generation key schedule
+    (its ``gen_step``; ``proposal`` None without topology moves)."""
+    import jax
+
+    split = jax.random.split
+
+    def step(k):
+        out = []
+        if branch_moves > 0:
+            k, sub = split(k)
+            for kk in split(sub, branch_moves):
+                k_node, k_mult, k_acc = split(kk, 3)
+                out += [("randint", k_node), ("uniform", k_mult), ("uniform", k_acc)]
+        if sample_model:
+            k, k_r, k_f = split(k, 3)
+            for kk in (k_r, k_f):
+                k_prop, k_acc = split(kk)
+                out += [("dirichlet", k_prop), ("uniform", k_acc)]
+        if proposal == "informed":
+            k, k_pick, k_acc = split(k, 3)
+            out += [("gumbel", k_pick), ("uniform", k_acc)]
+        elif proposal == "nni":
+            k, k_edge, k_var, k_acc = split(k, 4)
+            out += [("randint", k_edge), ("randint", k_var), ("uniform", k_acc)]
+        if swap:
+            k, k_pick, k_acc = split(k, 3)
+            out += [("randint", k_pick), ("uniform", k_acc)]
+        return k, out
+
+    return step
+
+
+def jax_dating_step(key, n_generations: int, interior: bool, relaxed: bool, calibrated: bool,
+                    heterochronous: bool, sample_ne: bool):
+    """(state, step) of ``trex_tpu.search.dating.mcmc_date``'s schedule:
+    ``split(key, n_generations)``, then 11 keys a generation used in the
+    order of its ``gen``."""
+    import jax
+
+    keys = jax.random.split(key, n_generations)
+
+    def step(g):
+        (k_node, k_u, k_acc1, k_mult, k_acc2, k_rnode, k_rstep, k_acc3, k_cr, k_acc4,
+         k_ne) = jax.random.split(keys[g], 11)
+        out = []
+        if interior:
+            out += [("randint", k_node), ("uniform", k_u), ("uniform", k_acc1)]
+        if relaxed:
+            out += [("randint", k_rnode), ("normal", k_rstep), ("uniform", k_acc3)]
+        out += [("uniform", k_mult), ("uniform", k_acc2)]
+        if calibrated:
+            k_s, k_acc5 = jax.random.split(k_cr)
+            out += [("normal", k_cr), ("uniform", k_acc4), ("uniform", k_s), ("uniform", k_acc5)]
+        if sample_ne:
+            out += [("gamma", k_ne)]
+        return g + 1, out
+
+    return 0, step
+
+
+def jax_marginal_step(key, total_steps: int, sample_model: bool):
+    """(state, step) of ``trex_tpu.search.marginal.stepping_stone``'s
+    schedule: ``split(key, total_steps)``, 5 keys a step."""
+    import jax
+
+    keys = jax.random.split(key, total_steps)
+
+    def step(g):
+        k_node, k_mult, k_acc, k_r, k_f = jax.random.split(keys[g], 5)
+        out = [("randint", k_node), ("uniform", k_mult), ("uniform", k_acc)]
+        if sample_model:
+            for kk in (k_r, k_f):
+                k_prop, k_acc2 = jax.random.split(kk)
+                out += [("dirichlet", k_prop), ("uniform", k_acc2)]
+        return g + 1, out
+
+    return 0, step
+
+
+def record_accepts(monkeypatch) -> list:
+    """Record every Metropolis decision of the port's samplers as the
+    margin log u - log alpha (a list of arrays, filled as they run)."""
+    import trex_tpu_torch.search.mcmc as torch_mcmc
+
+    margins: list = []
+    accept = torch_mcmc.metropolis_accept
+
+    def recording(u, log_alpha):
+        margins.append((torch.log(u) - log_alpha).detach().cpu().numpy().ravel())
+        return accept(u, log_alpha)
+
+    monkeypatch.setattr(torch_mcmc, "metropolis_accept", recording)
+    return margins
+
+
+def near_tie_accepts(margins: list, scale: float, rtol: float = 1e-6) -> int:
+    """Decisions whose log u lies within ``rtol`` x ``scale`` (the chains'
+    |lnL|) of log alpha: the ones that the two packages' pruning arithmetics
+    (K4's power-of-two rescaling against lax, about 1e-7 of lnL apart) may
+    decide differently. At |lnL| >= 10 the window holds the absolute 1e-5
+    around each threshold."""
+    flat = np.concatenate(margins) if margins else np.zeros(0)
+    return int(np.sum(np.abs(flat[np.isfinite(flat)]) <= rtol * scale))

@@ -73,7 +73,7 @@ def test_canonicalize_matches_jax_and_survives_deep_trees():
         else:
             np.testing.assert_array_equal(x, y)
     np.testing.assert_array_equal(
-        tio.canonicalize_topology(children), jio.canonicalize_topology(children)[0]
+        tio.canonicalize_topology(children)[0], jio.canonicalize_topology(children)[0]
     )
     # A 5000-taxon caterpillar is far deeper than Python's recursion limit.
     n = 5000

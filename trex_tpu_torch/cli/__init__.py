@@ -42,11 +42,17 @@ treeprune   The induced subtree (and alignment rows) of a taxa subset.
 topotest    KH / SH / BP / ELW / AU tests of candidate trees on one
             alignment, each at its own Newton-fitted lengths.
 concord     Gene and site concordance factors of a reference tree.
+mcmc        Bayesian tree sampling by Metropolis-coupled chains (MC^3):
+            split posteriors, consensus, ASDSF, ESS; a fixed (ML-fitted)
+            or sampled (``--full-bayes``) GTR model.
+bayesfactor Stepping-stone log marginal likelihoods of models on a tree.
+date        The strict-clock LRT and Bayesian node ages of a tree (strict
+            or relaxed clock, calibrations, tip dates, coalescent prior).
 
 Each prints the same JSON keys as ``python -m trex_tpu.cli <command>``, and
 ``score``/``infer`` the same trees and scores (``infer --start diff``,
-``--ratchet``, ``--bootstrap`` and the generated-data commands draw from
-the port's own generators). The commands that compute on a device run
+``--ratchet``, ``--bootstrap``, the samplers' chains and the
+generated-data commands draw from the port's own generators). The commands that compute on a device run
 on the card (``--device cuda``, default) or the CPU; the tree-file tools
 (``treedist``, ``consensus``, ``treedraw``, ``stats``, ``treeprune``,
 ``concord``) are host numpy.

@@ -2,7 +2,8 @@
 the ``score``, ``infer``, ``partition``, ``modeltest``, ``search``, ``asr``,
 ``search-run``, ``bench``, ``ml``, ``bootstrap``, ``nk-bench``, ``trait``,
 ``treedist``, ``consensus``, ``treedraw``, ``stats``, ``treeprune``,
-``topotest`` and ``concord`` commands)."""
+``topotest``, ``concord``, ``mcmc``, ``bayesfactor`` and ``date``
+commands)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 
 import trex_tpu_torch.cli as _cli_pkg
 from trex_tpu_torch.cli._common import _add_common, _add_device
-from trex_tpu_torch.cli.bayes import cmd_concord
+from trex_tpu_torch.cli.bayes import cmd_bayesfactor, cmd_concord, cmd_date, cmd_mcmc
 from trex_tpu_torch.cli.infer import cmd_infer
 from trex_tpu_torch.cli.models import cmd_modeltest, cmd_partition
 from trex_tpu_torch.cli.score import cmd_asr, cmd_score, cmd_stats, cmd_trait, cmd_treedraw
@@ -328,6 +329,93 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output-tree", default=None,
                    help="write the gCF/sCF-labelled newick here")
     p.set_defaults(fn=cmd_concord)
+
+    p = sub.add_parser("bayesfactor", help="stepping-stone marginal likelihoods / Bayes factors")
+    p.add_argument("--fasta", required=True)
+    p.add_argument("--tree", required=True)
+    p.add_argument("--alphabet", choices=["dna", "protein"], default="dna")
+    p.add_argument("--models", default="jc,gtr", help="comma list: jc, gtr, jc+g, gtr+g")
+    p.add_argument("--rungs", type=int, default=32)
+    p.add_argument("--generations", type=int, default=3000)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--mesh", type=str, default=None, metavar="T,S",
+                   help="only '1,1' (one device) is ported")
+    _add_device(p, "the sampler")
+    p.set_defaults(fn=cmd_bayesfactor)
+
+    p = sub.add_parser("date", help="strict-clock LRT + Bayesian node-age dating of a fixed tree")
+    p.add_argument("--fasta", required=True)
+    p.add_argument("--tree", required=True)
+    p.add_argument("--alphabet", choices=["dna", "protein"], default="dna")
+    p.add_argument("--model", default="jc",
+                   help="jc or a gtr-family string (+g ok); ML-fit, fixed")
+    p.add_argument("--generations", type=int, default=4000)
+    p.add_argument("--chains", type=int, default=2)
+    p.add_argument("--root-prior-mean", type=float, default=0.3,
+                   help="Exponential prior mean on the root age (expected substitutions "
+                        "per site)")
+    p.add_argument("--clock", choices=["strict", "relaxed"], default="strict",
+                   help="relaxed = uncorrelated lognormal branch rates")
+    p.add_argument("--relaxed-sd", type=float, default=0.3,
+                   help="lognormal sd of the relaxed-clock rate prior")
+    p.add_argument("--calibrate", action="append", default=None, metavar="TAXA:MIN:MAX",
+                   help="uniform age calibration on a clade's MRCA (comma-separated taxa, "
+                        "or 'root'); repeatable; switches ages to absolute time + samples "
+                        "the clock rate")
+    p.add_argument("--tip-ages", default=None, metavar="taxon=age,taxon=age,...",
+                   help="heterochronous sampling ages (0 = most recent) for tip dating; all "
+                        "taxa required; samples the clock rate")
+    p.add_argument("--tree-prior", choices=["uniform", "coalescent"], default="uniform",
+                   help="coalescent = Kingman prior on node ages")
+    p.add_argument("--ne", type=float, default=None,
+                   help="fix the coalescent Ne (default: Gibbs-sample it)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--output-tree", default=None,
+                   help="write the posterior-mean ultrametric newick here")
+    _add_device(p, "the fits and the sampler")
+    p.set_defaults(fn=cmd_date)
+
+    p = sub.add_parser("mcmc", help="Bayesian MCMC tree sampling (Metropolis-coupled chains)")
+    p.add_argument("--fasta", required=True)
+    p.add_argument("--alphabet", choices=["dna", "protein"], default="dna")
+    p.add_argument("--model", default="jc",
+                   help="jc (default) or a gtr-family string (+g ok); non-jc models are "
+                        "ML-fit once and held fixed (empirical Bayes)")
+    p.add_argument("--generations", type=int, default=10_000)
+    p.add_argument("--runs", type=int, default=2)
+    p.add_argument("--chains", type=int, default=4)
+    p.add_argument("--heat", type=float, default=0.1)
+    p.add_argument("--sample-every", type=int, default=20)
+    p.add_argument("--burnin", type=float, default=0.25)
+    p.add_argument("--branch-moves", type=int, default=2,
+                   help="branch-length moves per generation")
+    p.add_argument("--proposal", choices=["informed", "nni"], default="informed")
+    p.add_argument("--informed-power", type=float, default=0.1,
+                   help="weight exponent p of the informed proposal (neighbour weight "
+                        "posterior^(p*beta))")
+    p.add_argument("--full-bayes", action="store_true",
+                   help="sample GTR exchangeabilities + frequencies in the chain (flat "
+                        "Dirichlet priors) instead of fixing them at the ML fit")
+    p.add_argument("--brlen-prior-mean", type=float, default=0.1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--output-tree", default=None, help="write the consensus newick here")
+    p.add_argument("--samples-out", default=None,
+                   help="write sampled trees (newick, one per line) here")
+    p.add_argument("--trace-out", default=None,
+                   help="Tracer-compatible TSV of scalar traces (lnL, tree length, model "
+                        "simplices)")
+    p.add_argument("--progress-every", type=int, default=0)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="resumable state dir (bit-identical resume; keep --generations "
+                        "constant across legs)")
+    p.add_argument("--checkpoint-every", type=int, default=1000)
+    p.add_argument("--stop-after", type=int, default=None,
+                   help="run at most this many generations this invocation, then "
+                        "checkpoint and exit")
+    p.add_argument("--mesh", type=str, default=None, metavar="T,S",
+                   help="only '1,1' (one device) is ported")
+    _add_device(p, "the sampler")
+    p.set_defaults(fn=cmd_mcmc)
     return parser
 
 

@@ -283,12 +283,16 @@ def parse_fasta_masks(
     return names, masks
 
 
-def canonicalize_topology(children: np.ndarray) -> np.ndarray:
+def canonicalize_topology(
+    children: np.ndarray, lengths: np.ndarray | None = None
+) -> tuple[np.ndarray, np.ndarray | None]:
     """Structure-determined canonical numbering of one host children array.
 
-    Accepts any valid rooted-binary ``children`` (root = last ancestor) and
-    returns the canonical children — the byte identity every host-built
-    topology carries.
+    Accepts any valid rooted-binary ``children`` (root = last ancestor; the
+    numbering need not even be topological, as the samplers' pointer-swap
+    moves leave it) and returns the canonical (children, ``lengths``
+    permuted to the new node numbers, or None) — the byte identity every
+    host-built topology carries.
     """
     children = np.asarray(children)
     n_leaves = children.shape[0] + 1
@@ -296,8 +300,13 @@ def canonicalize_topology(children: np.ndarray) -> np.ndarray:
         n_leaves + a: [int(children[a, 0]), int(children[a, 1])]
         for a in range(n_leaves - 1)
     }
-    ch, _, _ = _canonicalize(n_leaves, kids, 2 * n_leaves - 2)
-    return ch
+    ch, _, relabel = _canonicalize(n_leaves, kids, 2 * n_leaves - 2)
+    if lengths is None:
+        return ch, None
+    out = np.array(lengths, dtype=np.float32, copy=True)
+    for old, new in relabel.items():
+        out[new] = lengths[old]
+    return ch, out
 
 
 def sample_topologies(seed: int, n_leaves: int, batch: int, device="cuda") -> Topology:

@@ -1,7 +1,8 @@
 """Tree search: stepwise addition, distance trees, hill climbing, the
 ratchet, supports (bootstrap, aLRT, UFBoot, topology tests, concordance),
-likelihood climbs, model selection, consensus and tree distances, and the
-differentiable search loops."""
+likelihood climbs, model selection, consensus and tree distances, the
+differentiable search loops, and the Bayesian samplers (MC^3 trees, node
+dating, stepping-stone marginal likelihoods)."""
 
 from trex_tpu_torch.search.alrt import BranchSupports, branch_supports
 
@@ -26,6 +27,9 @@ from trex_tpu_torch.search.concordance import (
     gene_concordance,
     site_concordance,
 )
+from trex_tpu_torch.search.dating import DatingResult, mcmc_date
+from trex_tpu_torch.search.marginal import stepping_stone
+from trex_tpu_torch.search.mcmc import McmcResult, mcmc_sample
 from trex_tpu_torch.search.consensus import (
     consensus_topology,
     majority_rule_consensus,
@@ -79,7 +83,9 @@ from trex_tpu_torch.search.ufboot import UFBootResult, default_candidates, ultra
 __all__ = [
     "BranchSupports",
     "ConcordanceResult",
+    "DatingResult",
     "JointConfig",
+    "McmcResult",
     "ModelFit",
     "RunnerConfig",
     "SearchResult",
@@ -107,6 +113,8 @@ __all__ = [
     "joint_search",
     "majority_rule_consensus",
     "make_optimizer",
+    "mcmc_date",
+    "mcmc_sample",
     "ml_bootstrap_analysis",
     "ml_hill_climb",
     "ml_iterated_search",
@@ -128,6 +136,7 @@ __all__ = [
     "split_frequencies",
     "split_support",
     "spr_decay_support",
+    "stepping_stone",
     "stepwise_addition",
     "stepwise_addition_multi",
     "subtree_leaf_sets",

@@ -376,7 +376,7 @@ def _stepwise_scan(
     st = _seed_state(masks, order, full_mask, site_weights, device)
     for k in range(3, st.n_leaves):
         _insert(st, k)
-    canon = canonicalize_topology(st.children)
+    canon, _ = canonicalize_topology(st.children)
     topo = from_numpy(canon, parents_from_children(canon), device)
     final = float(
         fitch_score(topo, st.masks, st.weights, sequences_are_masks=True,
