@@ -47,10 +47,10 @@ launch count set to 0 just before it and read just after:
 - the differentiable core at full width: ``infer --start diff`` on the
   NNI route's 128 x 1024 alignment (8 restarts x 600 steps, projection,
   K1 ranking the projected trees, held against K1's plain version, then
-  the SPR-scan climb), ``search`` (128 x 1024, 3000 steps, 8 restarts),
-  ``asr`` (128 x 1024, 3000 steps), ``nk-bench`` (32 leaves, K 1, 2, 5, 10,
-  lambda 0, 0.3, 3.0, ``--iterations`` cut to 1000) and ``search-run``
-  (16 x 128, 2000 steps in segments of 500, stopped after 2 and resumed,
+  the SPR-scan climb), ``search`` (128 x 1024, steps cut to 1500, 8
+  restarts), ``asr`` (128 x 1024, 3000 steps), ``nk-bench`` (32 leaves, K
+  1, 2, 5, 10, lambda 0, 0.3, 3.0, ``--iterations`` cut to 150) and
+  ``search-run`` (16 x 128, 1500 steps in segments of 500, stopped after 2 and resumed,
   bit-equal to an uninterrupted run), each with its wall, its launches a
   descent step and idle share (a profiled window of 100 steps) and K1's
   launches.
@@ -133,13 +133,28 @@ launch count set to 0 just before it and read just after:
   short ``--proposal nni`` and ``--full-bayes`` runs (the eigensystems'
   syncs counted); a ``--checkpoint-dir``/``--stop-after`` resume, bit for
   bit against the uninterrupted run; ``date`` on the true tree, strict at
-  4,000 generations and relaxed under a coalescent prior with a calibrated
-  clade (walls by part, gen/s, steady windows of SAMPLER_WINDOW
+  2,000 generations (cut from 4,000) and relaxed under a coalescent prior
+  with a calibrated clade (walls by part, gen/s, steady windows of SAMPLER_WINDOW
   generations); ``bayesfactor --models jc,gtr`` at 32 rungs (the same);
   K4 held within rtol 1e-5 at the samplers' batches
   (8 chains, 32 rungs, 8 x 4 +G categories per site) and at the informed
   neighbourhood's 992 trees beside ``nni_scan``; and each sampler on the
   card against the CPU under one draw source at 10 x 300.
+
+- Slice 6 (``--phases simulate,dnds,reference_models``): ``simulate
+  --leaves 8192 --sites 1024 --model gtr+g`` (the JAX package's scale
+  harness size; the device path: wall, depth levels, a profiled run's
+  launches and idle share, peak memory; composition against the model's
+  frequencies, zero-length copies and invariant sites at that size) and
+  ``simulate --leaves 512 --sites 2048`` (the host walk, byte-equal to the
+  CPU's); ``simulate --model gy94`` at 64 taxa x 1000 codons, ``dnds`` at
+  its defaults (walls by part, a profiled window of Adam steps, omega and
+  kappa beside the truth) and ``dnds --model gy94+g --search``; K3/K4's
+  runtime-Q kernel within rtol 1e-5 of its plain version at
+  Q = 61 on the fitted tree's NNI neighbourhood (one P; a P per branch), on
+  a 512-taxon batch (its plan and its global-slot mode) and at Q = 5; the
+  ML NNI climb at Q = 61, card against CPU; and ``simulate`` and ``dnds
+  --tree`` card against CPU at 10 taxa.
 
 K1 is also captured in a CUDA graph, larger calls run, and the graph
 replayed (each call's scratch is its own: bit-equal to the plain version);
@@ -749,7 +764,8 @@ def run_cli(argv: list[str], **kwargs):
         run_treeprune,
     )
 
-    from trex_tpu_torch.cli.models import run_modeltest, run_partition
+    from trex_tpu_torch.cli.models import run_dnds, run_modeltest, run_partition
+    from trex_tpu_torch.cli.simulate import run_simulate
 
     run = {"infer": run_infer, "score": run_score, "bench": run_bench, "search": run_search,
            "asr": run_asr, "nk-bench": run_nk_bench, "search-run": run_search_run,
@@ -757,7 +773,8 @@ def run_cli(argv: list[str], **kwargs):
            "modeltest": run_modeltest, "bootstrap": run_bootstrap, "topotest": run_topotest,
            "treedist": run_treedist, "consensus": run_consensus, "treeprune": run_treeprune,
            "treedraw": run_treedraw, "stats": run_stats, "concord": run_concord,
-           "mcmc": run_mcmc, "date": run_date, "bayesfactor": run_bayesfactor}[argv[0]]
+           "mcmc": run_mcmc, "date": run_date, "bayesfactor": run_bayesfactor,
+           "simulate": run_simulate, "dnds": run_dnds}[argv[0]]
     with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
         return run(build_parser().parse_args(argv), **kwargs)
 
@@ -820,13 +837,16 @@ def top_events(events: dict, n: int = 8) -> list[dict]:
 # the NNI route's 128 x 1024 alignment, then ``search``, ``asr``,
 # ``nk-bench`` (the reference's sweep, iterations cut) and ``search-run``
 # (stopped after 2 segments and resumed).
-SEARCH_ARGS = ["search", "--leaves", "128", "--sites", "1024", "--iterations", "3000"]
+# ``search`` cut from 3000 to 1500 iterations, ``nk-bench`` from 300 to 150
+# and ``search-run`` from 2000 to 1500, to make room for the models and
+# simulation phases.
+SEARCH_ARGS = ["search", "--leaves", "128", "--sites", "1024", "--iterations", "1500"]
 ASR_ARGS = ["asr", "--leaves", "128", "--sites", "1024"]
-NK_ITERATIONS, NK_LEAVES, NK_SITES = 300, 32, 128
+NK_ITERATIONS, NK_LEAVES, NK_SITES = 150, 32, 128
 NK_ARGS = ["nk-bench", "--leaves", str(NK_LEAVES), "--sites", str(NK_SITES),
            "--k-values", "1", "2", "5", "10", "--lambdas", "0", "0.3", "3.0",
            "--iterations", str(NK_ITERATIONS)]
-SEARCH_RUN_ARGS = ["search-run", "--leaves", "16", "--sites", "128", "--iterations", "2000",
+SEARCH_RUN_ARGS = ["search-run", "--leaves", "16", "--sites", "128", "--iterations", "1500",
                    "--checkpoint-every", "500"]
 # Descent steps profiled for each route's launches a step and idle share.
 WINDOW_STEPS = 100
@@ -1081,6 +1101,7 @@ NNI_ROUTE_SCORE, WEIGHTED_ROUTE_SCORE, ML_NNI_ROUTE_RANKING = 10726.0, 363001.0,
 SUPPORT_ARGS = ["--ratchet", "2", "--decay", "--bootstrap", "8"]
 SPR_ROUNDS, TBR_ROUNDS, TBR_BUDGET = 10, 5, 16384
 CONSTRAINT_TAXA = 16
+BATCHED_STEPWISE_TAXA = 64
 BALANCED_REF = dict(n_taxa=32, n_sites=300)
 
 
@@ -1321,10 +1342,13 @@ def slice_1b_routes(torch, dev, workdir: str, main_fasta: str, nni_fasta: str, m
         emit("enumerating_route", route=key, **enumerating[key])
     routes["enumerating"] = enumerating
 
-    # The batched stepwise path (K1 a step) at 32 states, 128 x 1024: the
-    # NNI route's masks with each site's states sent to 4 of 32 (bit 31
-    # used). The card's tree and score equal the CPU's and the same path's
-    # on the DNA masks (Fitch is blind to the states' names).
+    # The batched stepwise path (K1 a step) at 32 states on the NNI route's
+    # first BATCHED_STEPWISE_TAXA taxa x 1024 patterns (cut from all 128:
+    # the CPU's run took 27.5 of the phase's 44 s): the masks with
+    # each site's states sent to 4 of 32 (bit 31 used). The card's tree and
+    # score equal the CPU's and the same path's on the DNA masks (Fitch is
+    # blind to the states' names).
+    nni_patterns = nni_patterns[:BATCHED_STEPWISE_TAXA]
     wide = relabelled_masks(nni_patterns, 32, SEED + 50)
     w = nni_counts.astype(np.float32)
     reset_counts()
@@ -1420,7 +1444,7 @@ def slice_1b_reference(torch, workdir: str, ref_fasta: str) -> list[dict]:
 PHASES = ("card", "build", "native", "kernels", "routes", "differentiable", "slice_1b",
           "reference", "ml_models", "score_ml", "trait", "ml", "protein", "reference_2b",
           "slice_2c", "reference_2c", "supports", "reference_supports", "bayes",
-          "reference_bayes")
+          "reference_bayes", "simulate", "dnds", "reference_models")
 REQUIRES = {"routes": ("kernels",), "slice_1b": ("kernels", "routes"),
             "score_ml": ("ml_models",), "trait": ("ml_models",), "slice_2c": ("ml_models",)}
 SLICE_2B_PHASES = ("ml_models", "score_ml", "trait", "ml", "protein")
@@ -1540,6 +1564,10 @@ REF_FIT_STEPS = 50
 # partition --search's fits cut from the command's 600 Adam steps (about 60 s of
 # its 67 s on an H100) to make room for the Bayesian phases.
 PARTITION_FIT_STEPS = 300
+# The model routes' (GTR+G scan and NNI, protein) and score_ml's fits cut
+# from the CLI's 800 Adam steps (about 40 s of each model route's 43-52 s
+# on an H100) to make room for the models and simulation phases.
+MODEL_FIT_STEPS = 300
 MODEL_REF_CASES = (
     ("gtr+g", "spr-scan"), ("gtr+g", "nni"), ("hky+i", "spr-scan"), ("hky+i", "nni"),
     ("jc+r3", "spr-scan"), ("jc+r3", "nni"), ("empirical", "spr-scan"), ("empirical", "nni"),
@@ -1740,8 +1768,10 @@ def slice_2b_routes(torch, dev, workdir: str, phases: set, reset_counts, launch_
     if "ml_models" in phases:
         for variant, tail in MODEL_ROUTES.items():
             fasta, v_pat, v_w = variants[variant]
-            run, fields, tree_path = model_route(torch, dev, fasta, tail, reset_counts,
-                                                 launch_counts, workdir, f"gtr_{variant}")
+            with short_fits(MODEL_FIT_STEPS):
+                run, fields, tree_path = model_route(torch, dev, fasta, tail, reset_counts,
+                                                     launch_counts, workdir, f"gtr_{variant}")
+            fields["reduced"] = f"fits {MODEL_FIT_STEPS} Adam steps, not 800"
             k3 = fields["launches"]["k34"]
             if (k3 > 0) != (variant == "nni") or fields["launches"]["k2"] <= 0:
                 raise AssertionError(f"ml_model_route {variant}: launches {fields['launches']}")
@@ -1779,11 +1809,13 @@ def slice_2b_routes(torch, dev, workdir: str, phases: set, reset_counts, launch_
                 "ml", "--model", "gtr+g", "--asr", "joint", "--site-rates", rates_file]
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        out, wall = timed_cli(torch, argv)
+        with short_fits(MODEL_FIT_STEPS):
+            out, wall = timed_cli(torch, argv)
         rates = np.loadtxt(rates_file, skiprows=1)[:, 1]
         if rates.shape != (MODEL_SHAPE["n_sites"],) or not np.isfinite(out["log_likelihood"]):
             raise AssertionError(f"score_ml: {out}, {rates.shape}")
         emit("score_ml", command=" ".join(argv[:1] + argv[3:-1]), wall_s=wall,
+             reduced=f"the fit {MODEL_FIT_STEPS} Adam steps, not 800",
              log_likelihood=out["log_likelihood"],
              joint_log_probability=out["joint_log_probability"],
              mean_site_rate=out["mean_site_rate"], mean_branch_length=out["mean_branch_length"],
@@ -1821,10 +1853,12 @@ def slice_2b_routes(torch, dev, workdir: str, phases: set, reset_counts, launch_
         simulate_model_fasta(aa_fasta, PROTEIN_SHAPE["n_taxa"], PROTEIN_SHAPE["n_sites"],
                              SEED + 12, aa_rates, aa_freqs, 0.8,
                              letters=b"ARNDCQEGHILKMFPSTWYV", branch=(0.05, 0.3))
-        run, fields, _ = model_route(
-            torch, dev, aa_fasta, ["--neighborhood", "nni", "--model", "empirical+g",
-                                   "--model-file", paml, "--model-rounds", "1"],
-            reset_counts, launch_counts, workdir, "protein", alphabet="protein")
+        with short_fits(MODEL_FIT_STEPS):
+            run, fields, _ = model_route(
+                torch, dev, aa_fasta, ["--neighborhood", "nni", "--model", "empirical+g",
+                                       "--model-file", paml, "--model-rounds", "1"],
+                reset_counts, launch_counts, workdir, "protein", alphabet="protein")
+        fields["reduced"] = f"fits {MODEL_FIT_STEPS} Adam steps, not 800"
         k3 = fields["launches"]["k34"]
         if k3 <= 0:
             raise AssertionError(f"protein route launched no K3: {fields['launches']}")
@@ -2904,7 +2938,7 @@ MCMC_SHORT = 100  # the --proposal nni and --full-bayes runs, and the resume
 MCMC_WINDOW = 20  # one sample block of mcmc
 SAMPLER_WINDOW = 30  # date and bayesfactor
 PROFILED_GENERATIONS = 10
-DATE_STRICT_GENERATIONS = 4000  # the command's default
+DATE_STRICT_GENERATIONS = 2000  # the command's 4000, cut to fit the call
 DATE_RELAXED_GENERATIONS = 1000
 # The clock fits of date (clock_lrt's two, 600 Adam steps each, and the
 # sampler's start fit, 500) cut to this many steps: at 64 x 2048 they take
@@ -3032,7 +3066,7 @@ def bayes_routes(torch, dev, workdir: str, reset_counts, launch_counts, timer) -
     ``--proposal nni`` and ``--full-bayes`` runs (the latter counting the
     syncs of its eigensystems), a ``--checkpoint-dir``/``--stop-after``
     resume held bit for bit against the uninterrupted run; ``date`` strict
-    at its default 4,000 generations and relaxed under a coalescent prior
+    at DATE_STRICT_GENERATIONS and relaxed under a coalescent prior
     (Ne sampled) with one calibrated clade; ``bayesfactor --models jc,gtr``
     at 32 rungs; K4 at the samplers' batches (the branch moves' 8 trees,
     the stepping-stone's 32, the +G per-site 8 x 4) and the informed
@@ -3170,7 +3204,7 @@ def bayes_routes(torch, dev, workdir: str, reset_counts, launch_counts, timer) -
     emit("bayes_mcmc_resume", generations=MCMC_SHORT, stopped_at=stop, bit_identical=True,
          mean_lnl=whole[0]["mean_lnl"])
 
-    # date: strict at its default 4,000 generations, then relaxed under a
+    # date: strict at DATE_STRICT_GENERATIONS, then relaxed under a
     # coalescent prior (Ne sampled) with one calibrated clade; the command's
     # walls by part from its timings.
     topo, true_lengths, tree_names = load_newick(open(tree_path).read())
@@ -3463,6 +3497,391 @@ def short_fits(steps: int):
         yield
     finally:
         likelihood.optimize_model = full
+
+# Slice 6 (models and simulation): ``simulate`` at the JAX package's scale
+# harness size (benchmarks/scale_probe.py: 8192 taxa x 1024 sites, 16,383 x
+# 1024 cells, the device path) and a host-walk run; GY94 codons at the
+# samplers' 64-taxon width, ``dnds`` on them, and K3/K4's runtime-Q kernel
+# at Q = 61 (and Q = 5) on their batches.
+SIM_WIDE_ARGS = ["simulate", "--leaves", "8192", "--sites", "1024", "--model", "gtr+g"]
+SIM_HOST_ARGS = ["simulate", "--leaves", "512", "--sites", "2048"]
+DNDS_TRUTH = dict(kappa=2.0, omega=0.3)
+DNDS_SIM_ARGS = ["simulate", "--model", "gy94", "--leaves", "64", "--sites", "1000",
+                 "--kappa", str(DNDS_TRUTH["kappa"]), "--omega", str(DNDS_TRUTH["omega"])]
+# The fitted omega and kappa beside the truth: the CPU's fit of the same
+# alignment (the same seed, the command's defaults) came within 0.0006 of
+# omega and 0.019 of kappa; the card's must come within 3x the latter,
+# 0.06, and 0.01 of omega (the fits' 1e-2 agreement between devices).
+DNDS_TOLERANCE = dict(kappa=0.06, omega=0.01)
+DNDS_PROFILED_STEPS = 20
+CODON_CLIMB_ROUNDS = 2
+K34_Q61_WIDE = dict(n_taxa=512, n_sites=1000, batch=32)
+K34_Q5 = dict(n_taxa=64, n_sites=1024, batch=256)
+MODELS_REF = dict(n_taxa=10, n_sites=300, iterations=50)
+
+
+def k34_any_q(torch, dev, children, leaves, weights, prior, transition, timer,
+              masks: bool = False, force_global: bool = False) -> dict:
+    """K3/K4 at a runtime Q held within rtol K34_RTOL of its plain version,
+    timed (ms, back to back, plain, device ms of a CUDA graph), with its
+    launch plan and bound; ``force_global``: the kernel's global-slot mode
+    at the same shape (the plan's width, its slots in global memory)."""
+    from trex_tpu_torch._device import device_limits
+    from trex_tpu_torch.ops import likelihood_cuda as lc
+
+    q = prior.shape[0]
+    per_branch = transition.dim() == 4
+    plan = lc.launch_plan(leaves.shape[0], q, not per_branch, masks,
+                          device_limits(dev).smem_optin)
+    if force_global:
+        plan = dataclasses.replace(plan, mode="global", smem_bytes=plan.smem_bytes
+                          - 4 * plan.slots * q * plan.sites_per_block)
+
+    def run(fn):
+        return lambda: fn(children, leaves, weights, prior, transition, sequences_are_masks=masks)
+
+    chosen = lc.launch_plan
+    if force_global:
+        lc.launch_plan = lambda *a: plan
+    try:
+        batch, n_taxa = children.shape[0], leaves.shape[0]
+        got = measure(torch, run(lc.batched_log_likelihood_cuda),
+                      run(lc.batched_log_likelihood_plain),
+                      *k34_work(batch, n_taxa, int((weights != 0).sum()), q, per_branch),
+                      rtol=K34_RTOL, plain_reps=2)
+        times = timer(run(lc.batched_log_likelihood_cuda), got["ms"])
+    finally:
+        lc.launch_plan = chosen
+    return dict(trees=batch, n_taxa=n_taxa, patterns=int(leaves.shape[1]), n_states=q,
+                per_branch=per_branch, masks=masks, plan=dataclasses.asdict(plan), **got, **times)
+
+
+def simulate_routes(torch, dev, workdir: str, reset_counts, launch_counts) -> dict:
+    """``simulate`` on the card: SIM_WIDE_ARGS (the device path: wall, depth
+    levels, launches and idle share of a profiled run, peak memory; the
+    leaves' composition against the model's frequencies, drawn from the
+    seed as the command draws them; determinism), the device path's
+    zero-length copies and invariant sites at the same size, and
+    SIM_HOST_ARGS (the host walk; its FASTA byte-equal to ``--device
+    cpu``'s)."""
+    from trex_tpu_torch.cli._common import _load_alignment
+    from trex_tpu_torch.models import simulate as sim
+    from trex_tpu_torch.topology import balanced_topology
+
+    found = {}
+    wide = os.path.join(workdir, "sim_wide.fasta")
+    argv = SIM_WIDE_ARGS + ["--output", wide]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    timings: dict = {}
+    _, wall = timed_cli(torch, argv, timings=timings)
+    peak = torch.cuda.max_memory_allocated()
+    counts = launch_counts()
+    if timings["path"] != "device" or any(counts.values()):
+        raise AssertionError(f"{' '.join(argv)}: {timings}, kernel launches {counts}")
+    with open(wide) as fh:
+        first = fh.read()
+    profile = profile_phase(torch, lambda: run_cli(argv), wall)
+    with open(wide) as fh:
+        if fh.read() != first:
+            raise AssertionError(f"{' '.join(argv)} is not deterministic under its seed")
+    _, leaves, _ = _load_alignment(wide, "dna")
+    states = np.argmax(leaves[..., None] == (1 << np.arange(4)), axis=-1)
+    # The command's draws: the tree from its own generator, then lengths,
+    # GTR rates and frequencies from default_rng(--seed).
+    n_leaves, n_sites = int(SIM_WIDE_ARGS[2]), int(SIM_WIDE_ARGS[4])
+    rng = np.random.default_rng(0)
+    rng.exponential(0.1, size=(2 * n_leaves - 1,))
+    rng.gamma(2.0, 1.0, size=6)
+    freqs = rng.dirichlet(np.full(4, 10.0))
+    observed = np.bincount(states.ravel(), minlength=4) / states.size
+    # About four standard errors of the root's composition, which the
+    # leaves share through the tree.
+    if np.abs(observed - freqs).max() > 1.0 / n_sites**0.5:
+        raise AssertionError(f"composition {observed} against the frequencies {freqs}")
+    # The device path at the same size (16,383 x 1024 cells): zero lengths
+    # copy the root; a 0.5 invariant share leaves exactly constant sites.
+    topo = balanced_topology(n_leaves)
+    copies, anc = sim.simulate_alignment(1, topo, np.zeros(topo.n_all), n_sites=n_sites,
+                                         return_ancestors=True, device=dev)
+    if not ((copies == anc[-1][None]).all() and (anc == anc[-1][None]).all()):
+        raise AssertionError("zero-length branches did not copy the root on the device path")
+    inv = sim.simulate_alignment(2, topo, np.full(topo.n_all, 0.1), n_sites=n_sites,
+                                 gamma_shape=0.5, p_invariant=0.5, device=dev)
+    constant = float((inv == inv[0:1]).all(axis=0).mean())
+    if abs(constant - 0.5) > 2.0 / n_sites**0.5:  # Binomial(L, 0.5) / L, +/- 4 sd
+        raise AssertionError(f"invariant share {constant} with p_invariant 0.5")
+    found["wide"] = dict(
+        command=" ".join(SIM_WIDE_ARGS), path=timings["path"], depth_levels=timings["levels"],
+        wall_s=wall, simulate_s=timings["simulate"], peak_memory_bytes=peak,
+        kernel_launches=counts, profile=profile, composition=observed.tolist(),
+        frequencies=freqs.tolist(), zero_length_copies=True,
+        invariant_constant_share=constant)
+    emit("simulate_wide", **found["wide"])
+
+    # The host walk (below 2^22 cells): card and CPU write the same bytes.
+    texts, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        path = os.path.join(workdir, f"sim_host_{device}.fasta")
+        timings = {}
+        _, walls[device] = timed_cli(torch, SIM_HOST_ARGS + ["--output", path, "--device",
+                                                             device], timings=timings)
+        if timings["path"] != "host":
+            raise AssertionError(f"simulate 512 x 2048 on {device}: {timings}")
+        with open(path) as fh:
+            texts[device] = fh.read()
+    if texts["cuda"] != texts["cpu"]:
+        raise AssertionError("simulate 512 x 2048: card and CPU FASTA differ")
+    found["host"] = dict(command=" ".join(SIM_HOST_ARGS), path="host", wall_s=walls["cuda"],
+                         cpu_wall_s=walls["cpu"], same_fasta_as_cpu=True)
+    emit("simulate_host", **found["host"])
+    return found
+
+
+def dnds_routes(torch, dev, workdir: str, reset_counts, launch_counts, timer) -> dict:
+    """``simulate --model gy94`` (64 taxa x 1000 codons), ``dnds`` at its
+    defaults (walls by part, launches, a profiled window of
+    DNDS_PROFILED_STEPS Adam steps; omega and kappa beside the truth) and
+    ``dnds --model gy94+g --search``; K3/K4's runtime-Q
+    kernel held against its plain version at Q = 61 on the fitted tree's
+    NNI neighbourhood (one shared P at length 0.1; a P per branch at the
+    fitted lengths), on a 512-taxon batch (its plan, and forced into the
+    global-slot mode) and at Q = 5; the ML NNI climb at Q = 61 on the
+    card against the CPU. Returns what the kernels line reads."""
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli._common import _load_alignment
+    from trex_tpu_torch.io import load_newick, nni_neighbors_host
+    from trex_tpu_torch.models import codon as cd
+    from trex_tpu_torch.ops.likelihood import gtr_generator
+    from trex_tpu_torch.search.ml import ml_hill_climb
+
+    found: dict = {"launches": {}}
+    fasta = os.path.join(workdir, "codons.fasta")
+    _, sim_wall = timed_cli(torch, DNDS_SIM_ARGS + ["--output", fasta])
+    fitted_tree = os.path.join(workdir, "codons_fit.nwk")
+
+    def route(argv):
+        reset_counts()
+        timings: dict = {}
+        out, wall = timed_cli(torch, argv, timings=timings)
+        return out, wall, timings, launch_counts()
+
+    out, wall, parts, launches = route(["dnds", "--alignment", fasta, "--output-tree",
+                                        fitted_tree])
+    if launches["k2"] <= 0 or launches["k34"] != 0:
+        raise AssertionError(f"dnds: the stepwise start skipped K2, or K3/K4 ran: {launches}")
+    off = {k: abs(out[k] - DNDS_TRUTH[k]) for k in DNDS_TRUTH}
+    if any(off[k] > DNDS_TOLERANCE[k] for k in off):
+        raise AssertionError(f"dnds: kappa {out['kappa']}, omega {out['omega']} against the "
+                             f"truth {DNDS_TRUTH}")
+    found["launches"]["dnds"] = launches
+    found["dnds"] = dict(command="dnds (defaults: stepwise start, f3x4, gy94, 600 steps)",
+                         simulate_s=sim_wall, wall_s=wall, start_s=parts["start"],
+                         fit_s=parts["fits"][0], kappa=out["kappa"], omega=out["omega"],
+                         truth=DNDS_TRUTH, off_truth=off, log_likelihood=out["log_likelihood"],
+                         unique_codon_patterns=out["unique_codon_patterns"], launches=launches)
+
+    # The fitted tree, the alignment's rows in its leaf order.
+    names, masks, _ = _load_alignment(fasta, "dna")
+    ints = np.full(masks.shape, -1, dtype=np.int32)
+    for b in range(4):
+        ints[masks == (1 << b)] = b
+    codons = cd.encode_codons(ints)
+    freqs = cd.f3x4_frequencies(ints)
+    with open(fitted_tree) as fh:
+        topo, blens, tree_names = load_newick(fh.read(), dev)
+    rows = [names.index(n) for n in tree_names]
+    patterns, counts = compress_alignment(codons[rows])
+    leaves = torch.as_tensor(patterns.astype(np.int32), device=dev)
+    weights = torch.as_tensor(counts.astype(np.float32), device=dev)
+    prior = torch.as_tensor(freqs, device=dev)
+
+    # Where an Adam step's time goes: DNDS_PROFILED_STEPS steps profiled,
+    # against the same steps' unprofiled wall.
+    def window():
+        cd.optimize_gy94(topo, leaves, freqs=freqs, n_iterations=DNDS_PROFILED_STEPS,
+                         site_weights=weights)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    profile = profile_phase(torch, window, time.perf_counter() - t0)
+    found["dnds"].update(window_steps=DNDS_PROFILED_STEPS, profile=profile,
+                         launches_per_step=profile["device_launches"] / DNDS_PROFILED_STEPS,
+                         ms_per_step=1e3 * profile["unprofiled_wall_s"] / DNDS_PROFILED_STEPS)
+    emit("dnds", **found["dnds"])
+
+    argv = ["dnds", "--alignment", fasta, "--model", "gy94+g", "--search"]
+    out, wall, parts, launches = route(argv)
+    if launches["k2"] <= 0 or not np.isfinite(out["log_likelihood"]):
+        raise AssertionError(f"dnds --search: {out}, {launches}")
+    found["launches"]["dnds_search"] = launches
+    found["dnds_search"] = dict(
+        command=" ".join(argv[:1] + argv[3:]), wall_s=wall, start_s=parts["start"],
+        fits_s=parts["fits"],
+        search_s=parts["search"], tree_source=out["tree_source"], kappa=out["kappa"],
+        omega=out["omega"], gamma_shape=out["gamma_shape"],
+        log_likelihood=out["log_likelihood"], launches=launches)
+    emit("dnds_search", **found["dnds_search"])
+
+    # K3 and K4 at Q = 61 on the fitted tree's NNI neighbourhood: the
+    # fitted GY94 model, one P at the ranking length 0.1, then a P per
+    # branch at the fitted lengths (the same lengths in every tree).
+    gen = cd.gy94_generator(out["kappa"], out["omega"], prior)
+    nbrs = torch.as_tensor(nni_neighbors_host(topo)[0], device=dev)
+    shared = torch.linalg.matrix_exp(gen * 0.1).contiguous()
+    lengths = torch.as_tensor(np.nan_to_num(np.asarray(blens, np.float32)), device=dev)
+    per_branch = torch.linalg.matrix_exp(gen * lengths[:, None, None])
+    per_branch = per_branch[None].expand(nbrs.shape[0], -1, -1, -1).contiguous()
+    at = {"dnds_shared": k34_any_q(torch, dev, nbrs, leaves, weights, prior, shared, timer),
+          "dnds_per_branch": k34_any_q(torch, dev, nbrs, leaves, weights, prior, per_branch,
+                                       timer)}
+    del per_branch
+    rng = np.random.default_rng(SEED + 60)
+    n, length, batch = K34_Q61_WIDE.values()
+    wide_children = torch.as_tensor(random_trees(rng, n, batch), device=dev)
+    wide_leaves = torch.as_tensor(rng.integers(0, 61, (n, length)).astype(np.int32), device=dev)
+    ones = torch.ones((length,), device=dev)
+    for key, forced in (("wide_512", False), ("wide_512_global", True)):
+        at[key] = k34_any_q(torch, dev, wide_children, wide_leaves, ones, prior, shared, timer,
+                            force_global=forced)
+    if at["wide_512_global"]["plan"]["mode"] != "global":
+        raise AssertionError(f"K3 at 512 taxa, Q = 61: {at['wide_512_global']['plan']}")
+    n, length, batch = K34_Q5.values()
+    rates = rng.gamma(2.0, 1.0, (5, 5))
+    prior5 = torch.as_tensor(rng.dirichlet(np.full(5, 5.0)).astype(np.float32), device=dev)
+    p5 = torch.linalg.matrix_exp(gtr_generator(torch.as_tensor((rates + rates.T) / 2,
+                                                               device=dev), prior5) * 0.1)
+    states5 = rng.integers(0, 5, (n, length)).astype(np.int32)
+    states5[rng.random(states5.shape) < 0.05] = -1
+    at["q5"] = k34_any_q(torch, dev, torch.as_tensor(random_trees(rng, n, batch), device=dev),
+                         torch.as_tensor(states5, device=dev), torch.ones((length,), device=dev),
+                         prior5, p5.contiguous(), timer)
+    for key, row in at.items():
+        emit("k34_runtime_q", shape=key, **row)
+    found["k34"] = at
+
+    # The ML NNI climb at Q = 61 under the fitted model from the fitted
+    # tree: K3 ranks its batches on the card; the CPU's plain version must
+    # give the same tree and score.
+    s_matrix = cd.gy94_exchangeabilities(out["kappa"], out["omega"])
+    climbs = {}
+    for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        reset_counts()
+        t0 = time.perf_counter()
+        result, _, _ = ml_hill_climb(topo.to(device), leaves.to(device), 61,
+                                     neighborhood="nni", max_rounds=CODON_CLIMB_ROUNDS,
+                                     optimize_final_lengths=False,
+                                     site_weights=weights.to(device),
+                                     rates=s_matrix.to(device), freqs=prior.to(device),
+                                     device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        climbs[key] = (result, time.perf_counter() - t0, launch_counts())
+    card, cpu = climbs["card"][0], climbs["cpu"][0]
+    # Where card and CPU part, if they do: the ranking P (each device's) or
+    # the kernel: the card's final tree scored by K3 under each device's P,
+    # and by the plain version under the CPU's.
+    from trex_tpu_torch.ops.likelihood import fixed_length_model
+    from trex_tpu_torch.ops.likelihood_cuda import (
+        batched_log_likelihood_cuda,
+        batched_log_likelihood_plain,
+    )
+
+    p_card, _ = fixed_length_model(61, 0.1, s_matrix, prior, dev)
+    p_cpu, _ = fixed_length_model(61, 0.1, s_matrix.cpu(), prior.cpu(), "cpu")
+    tree = card.topology.children[None].contiguous()
+    scored = {
+        "k3_card_p": -float(batched_log_likelihood_cuda(tree, leaves, weights, prior,
+                                                        p_card.contiguous())[0]),
+        "k3_cpu_p": -float(batched_log_likelihood_cuda(tree, leaves, weights, prior,
+                                                       p_cpu.to(dev).contiguous())[0]),
+        "plain_cpu_p": -float(batched_log_likelihood_plain(
+            tree.cpu(), leaves.cpu(), weights.cpu(), prior.cpu(), p_cpu)[0]),
+        "p_max_abs_diff": float((p_card.cpu() - p_cpu).abs().max()),
+    }
+    if (not torch.equal(card.topology.children.cpu(), cpu.topology.children)
+            or abs(card.score - cpu.score) > K34_RTOL * abs(cpu.score)
+            or climbs["card"][2]["k34_shared"] <= 0):
+        raise AssertionError(f"Q = 61 NNI climb: card {card.score} ({climbs['card'][2]}), "
+                             f"cpu {cpu.score}, rescored {scored}")
+    found["launches"]["codon_nni_climb"] = climbs["card"][2]
+    found["codon_climb"] = dict(
+        call=f"ml_hill_climb(fitted tree, codon patterns, 61, neighborhood='nni', "
+             f"max_rounds={CODON_CLIMB_ROUNDS}, rates=GY94, freqs=F3x4)",
+        score=card.score, cpu_score=cpu.score, rounds=card.rounds, same_tree_as_cpu=True,
+        rel_diff=abs(card.score - cpu.score) / abs(cpu.score), rescored=scored,
+        wall_s=climbs["card"][1], cpu_wall_s=climbs["cpu"][1], launches=climbs["card"][2])
+    emit("codon_nni_climb", **found["codon_climb"])
+    return found
+
+
+def models_reference(torch, workdir: str) -> list[dict]:
+    """Slice 6 on the card against the CPU at MODELS_REF: ``simulate``
+    (JC, GTR+G+I with ancestors, GY94) byte for byte, and ``dnds --tree``
+    at MODELS_REF iterations: kappa and omega within 1e-3, the
+    log-likelihood within rtol K34_RTOL."""
+    n, sites, steps = MODELS_REF.values()
+    rows = []
+    texts = {}
+    for label, extra in (("jc", []), ("gtr+g+i", ["--model", "gtr+g+i"]),
+                         ("gy94", ["--model", "gy94", "--kappa", "2.5", "--omega", "0.4"])):
+        for device in ("cuda", "cpu"):
+            paths = [os.path.join(workdir, f"ref_{label}_{device}.{k}") for k in ("fa", "nwk")]
+            anc = ([] if label == "gy94" else
+                   ["--output-ancestors", os.path.join(workdir, f"ref_{label}_{device}.anc")])
+            run_cli(["simulate", "--leaves", str(n), "--sites", str(sites), "--seed", "4", *extra,
+                     "--output", paths[0], "--output-tree", paths[1], *anc, "--device", device])
+            texts[device] = [open(p).read() for p in paths + anc[1:]]
+        if texts["cuda"] != texts["cpu"]:
+            raise AssertionError(f"simulate {label}: card and CPU outputs differ")
+        rows.append(dict(command=f"simulate {label}", n_taxa=n, sites=sites,
+                         same_bytes_as_cpu=True))
+    fasta, tree = (os.path.join(workdir, f"ref_gy94_cpu.{k}") for k in ("fa", "nwk"))
+    fits = {device: run_cli(["dnds", "--alignment", fasta, "--tree", tree, "--iterations",
+                             str(steps), "--device", device]) for device in ("cuda", "cpu")}
+    card, cpu = fits["cuda"], fits["cpu"]
+    if (any(abs(card[k] - cpu[k]) > 1e-3 for k in ("kappa", "omega"))
+            or abs(card["log_likelihood"] - cpu["log_likelihood"])
+            > K34_RTOL * abs(cpu["log_likelihood"])):
+        raise AssertionError(f"dnds --tree: card {card} != cpu {cpu}")
+    rows.append(dict(command=f"dnds --tree --iterations {steps}", n_taxa=n, codons=sites,
+                     kappa=card["kappa"], omega=card["omega"],
+                     log_likelihood=card["log_likelihood"],
+                     cpu_log_likelihood=cpu["log_likelihood"]))
+    return rows
+
+
+def models_fields(models: dict) -> dict:
+    """The K3/K4 entry's fields from the dnds phase: its grids on the codon
+    routes and the runtime-Q kernel at its batches."""
+    if not models:
+        return {}
+    return {"codon_route_launches": {
+                route: {k: v[k] for k in ("k34", "k34_shared", "k34_per_branch", "k2")}
+                for route, v in models["launches"].items()},
+            "at_runtime_q": models["k34"]}
+
+
+def models_entry(models: dict) -> dict | None:
+    """K3/K4's kernels-line entry from the dnds phase alone (a run of a
+    subset of the phases): the runtime-Q kernel held and timed at the
+    dnds neighbourhood under one P, launches on the Q = 61 NNI climb."""
+    if not models:
+        return None
+    first = models["k34"]["dnds_shared"]
+    return {
+        "name": "likelihood_batched", "route": "cuda",
+        "source": "trex_tpu_torch/csrc/likelihood_batched.cu",
+        "replaces": ["trex_tpu/ops/likelihood_pallas.py:255",
+                     "trex_tpu/ops/likelihood_pallas.py:135"],
+        "launches": models["launches"]["codon_nni_climb"]["k34"],
+        **{k: first[k] for k in ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "device_ms")},
+        "library_ms": None, **models_fields(models),
+    }
+
 
 def main(argv: list[str] | None = None) -> int:
     import torch
@@ -4369,13 +4788,31 @@ def main(argv: list[str] | None = None) -> int:
         for row in bayes_reference(torch, workdir):
             emit("reference", part="slice 5", **row)
         emit("reference_bayes", seconds=time.perf_counter() - t0)
+    # 12. Slice 6 (models and simulation): simulate at the scale harness's
+    # size and on the host walk, dnds on GY94 codons with K3/K4's runtime-Q
+    # kernel at Q = 61 (and Q = 5), then slice 6 on the card against the CPU.
+    if "simulate" in phases:
+        t0 = time.perf_counter()
+        simulate_routes(torch, dev, workdir, reset_counts, launch_counts)
+        emit("simulate", seconds=time.perf_counter() - t0)
+    models = {}
+    if "dnds" in phases:
+        t0 = time.perf_counter()
+        models = dnds_routes(torch, dev, workdir, reset_counts, launch_counts, device_times)
+        emit("dnds_phase", seconds=time.perf_counter() - t0)
+    if "reference_models" in phases:
+        t0 = time.perf_counter()
+        for row in models_reference(torch, workdir):
+            emit("reference", part="slice 6", **row)
+        emit("reference_models", seconds=time.perf_counter() - t0)
     shutil.rmtree(workdir)
 
     k3_model = k3_model_entry(slice_2b, slice_2c)
     per_site = per_site_entry(supports)
     if not EARLIER_PHASES <= phases:
         # A subset of the phases: the kernels its phases measured.
-        kernels = [k for k in (k3_model, per_site, bayes_entry(bayes)) if k]
+        kernels = [k for k in (k3_model, per_site, bayes_entry(bayes), models_entry(models))
+                   if k]
     else:
         kernels = [
             {
@@ -4408,6 +4845,7 @@ def main(argv: list[str] | None = None) -> int:
                     key: v["launches"]["k2"] for key, v in slice_1b["enumerating"].items()},
                 "ml_nni_route_launches": ml_launches["k2"],
                 "weighted_route_launches": wt_counts["k2"],
+                **({"dnds_route_launches": models["launches"]["dnds"]["k2"]} if models else {}),
                 **k2, "library_ms": None, "at_shapes": k2_shapes,
             },
             {
@@ -4425,6 +4863,7 @@ def main(argv: list[str] | None = None) -> int:
                 **slice_2c_fields(slice_2c),
                 **({"at_ml_tbr": supports["k3_at_ml_tbr"]} if supports else {}),
                 **bayes_fields(bayes),
+                **models_fields(models),
             },
             {
                 "name": "sankoff_batched", "route": "cuda",

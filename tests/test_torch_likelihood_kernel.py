@@ -201,8 +201,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     children, masks, weights, _ = _inputs(6)
     ch, m, w = (torch.as_tensor(x) for x in (children, masks, weights))
     p = jc69_transition(0.1, 4)
-    with pytest.raises(ValueError, match="Q in"):
-        batched_log_likelihood_cuda(ch, m, w, torch.full((3,), 1 / 3), jc69_transition(0.1, 3))
+    # Any Q >= 2 is taken; Q = 1, and a prior whose length disagrees with P, are not.
+    with pytest.raises(ValueError, match="Q >= 2"):
+        batched_log_likelihood_cuda(ch, m, w, torch.ones((1,)), torch.ones((1, 1)))
+    with pytest.raises(ValueError, match="transition must be"):
+        batched_log_likelihood_cuda(ch, m, w, torch.full((3,), 1 / 3), p)
     with pytest.raises(ValueError, match="transition must be"):
         batched_log_likelihood_cuda(ch, m, w, UNIFORM, p[None])
     with pytest.raises(ValueError, match="transition must be"):

@@ -1,5 +1,5 @@
-"""Alignment utilities: site-pattern compression (counterpart of
-``trex_tpu/alignment.py``, copied as is: host-side numpy).
+"""Alignment utilities: site-pattern compression and site classification
+(counterpart of ``trex_tpu/alignment.py``, copied as is: host-side numpy).
 
 Every score in this engine is a weighted site sum, so collapsing duplicate
 columns into (unique patterns, counts) preserves scores exactly.
@@ -45,3 +45,21 @@ def compress_alignment(
         patterns = np.pad(patterns, ((0, 0), (0, extra)))
         weights = np.pad(weights, (0, extra))
     return patterns, weights
+
+
+def constant_site_mask(leaf_sequences) -> np.ndarray:
+    """(L,) bool: True where all leaves share one state (zero-cost sites)."""
+    seqs = np.asarray(leaf_sequences)
+    return (seqs == seqs[0]).all(axis=0)
+
+
+def parsimony_informative_mask(leaf_sequences) -> np.ndarray:
+    """(L,) bool: sites with >= 2 states each in >= 2 leaves. Only these can
+    tell topologies apart; the rest add a topology-independent constant to
+    every parsimony score."""
+    seqs = np.asarray(leaf_sequences)
+    out = np.zeros(seqs.shape[1], dtype=bool)
+    for j in range(seqs.shape[1]):
+        _, counts = np.unique(seqs[:, j], return_counts=True)
+        out[j] = (counts >= 2).sum() >= 2
+    return out

@@ -20,6 +20,12 @@ infer       File-based parsimony or ML tree inference: FASTA/PHYLIP/NEXUS
 partition   Partitioned ML fit (a model per partition, shared lengths with
             rate multipliers), with ``--search`` a climb under it.
 modeltest   Model selection by AIC/AICc/BIC on a fixed tree.
+dnds        GY94 codon-model fit (kappa, omega = dN/dS, +G) on a coding
+            alignment, on a given or stepwise tree, with ``--search`` an
+            SPR-scan climb under the fitted 61-state model.
+simulate    Simulate an alignment down a given, random or coalescent tree
+            under JC/GTR/empirical (+G, +I) or GY94 codons (seq-gen
+            equivalent); large simulations sample on the card.
 search      Multi-restart joint topology + sequence search on a generated
             mutation tree, against exact Sankoff on the true tree.
 asr         Gradient ancestral reconstruction against exact Sankoff.
@@ -51,8 +57,9 @@ date        The strict-clock LRT and Bayesian node ages of a tree (strict
 
 Each prints the same JSON keys as ``python -m trex_tpu.cli <command>``, and
 ``score``/``infer`` the same trees and scores (``infer --start diff``,
-``--ratchet``, ``--bootstrap``, the samplers' chains and the
-generated-data commands draw from the port's own generators). The commands that compute on a device run
+``--ratchet``, ``--bootstrap``, the samplers' chains, ``simulate``'s
+substitutions and the generated-data commands draw from the port's own
+generators). The commands that compute on a device run
 on the card (``--device cuda``, default) or the CPU; the tree-file tools
 (``treedist``, ``consensus``, ``treedraw``, ``stats``, ``treeprune``,
 ``concord``) are host numpy.

@@ -1,5 +1,5 @@
-"""Model-centric commands: ``partition`` and ``modeltest`` (counterpart of
-``trex_tpu/cli/models.py``; ``dnds`` waits for ``models/codon.py``)."""
+"""Model-centric commands: ``partition``, ``modeltest`` and ``dnds``
+(counterpart of ``trex_tpu/cli/models.py``)."""
 
 from __future__ import annotations
 
@@ -186,3 +186,97 @@ def run_modeltest(args, timings: dict | None = None) -> dict:
 def cmd_modeltest(args) -> None:
     """Substitution-model selection by AIC/AICc/BIC on a fixed topology."""
     print(json.dumps(run_modeltest(args)))
+
+
+def run_dnds(args, timings: dict | None = None) -> dict:
+    """The ``dnds`` command's JSON object: GY94 (``--model gy94|gy94+g``)
+    fitted by ``models.codon.optimize_gy94`` on ``--tree`` or the
+    stepwise-addition tree of the nucleotide masks (K2 on the card); with
+    ``--search``, the SPR-scan ML climb at Q = 61 under the fitted kappa
+    and omega, then a refit when the topology moved. ``timings``: a dict
+    that, when given, gets the wall seconds of the start tree
+    (``"start"``), each fit (``"fits"``, a list) and the climb
+    (``"search"``)."""
+    import time
+
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.io import save_newick
+    from trex_tpu_torch.models import codon as cd
+
+    device = resolve_device(args.device)
+    timings = {} if timings is None else timings
+    names, masks, n_states = _load_alignment(args.fasta, "dna")
+    # Codon states want plain bases: a single-bit mask is its base, anything
+    # ambiguous (a gap, an IUPAC code) -1, so the whole codon goes missing.
+    ints = np.full(masks.shape, -1, dtype=np.int32)
+    for b in range(4):
+        ints[masks == (1 << b)] = b
+    codons = cd.encode_codons(ints, stops=args.stops)
+    n_missing = int((codons < 0).sum())
+
+    def synced(key, fn):
+        clock = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - clock
+        if key == "fits":
+            timings.setdefault("fits", []).append(seconds)
+        else:
+            timings[key] = seconds
+        return out
+
+    topo = synced("start", lambda: _fixed_tree(args, names, masks, n_states, device))
+    tree_source = args.tree or "stepwise addition (nucleotide parsimony)"
+    freqs = cd.codon_frequencies(codons, mode=args.freqs, nuc_states=ints)
+    patterns, weights = compress_alignment(codons)
+    leaves = torch.as_tensor(patterns.astype(np.int32), device=device)
+    site_weights = torch.as_tensor(weights.astype(np.float32), device=device)
+
+    def fit(topology):
+        return synced("fits", lambda: cd.optimize_gy94(
+            topology, leaves, freqs=freqs, model=args.model, n_iterations=args.iterations,
+            site_weights=site_weights))
+
+    params, losses = fit(topo)
+    if args.search:
+        # Codon-model tree search: the analytic SPR scan ranks candidates
+        # under GY94 at the fitted kappa and omega (a reversible 61-state
+        # model), then the full model is refitted on the winning topology.
+        from trex_tpu_torch.search.ml import ml_hill_climb
+
+        s_matrix = cd.gy94_exchangeabilities(params["kappa"], params["omega"])
+        result, _, _ = synced("search", lambda: ml_hill_climb(
+            topo, leaves, cd.N_CODONS, neighborhood="spr-scan", site_weights=site_weights,
+            rates=s_matrix, freqs=torch.as_tensor(freqs, device=device),
+            optimize_final_lengths=False, device=device))
+        if not torch.equal(result.topology.children, topo.children):
+            topo = result.topology
+            params, losses = fit(topo)
+        tree_source = f"{tree_source} + GY94 SPR-scan search"
+    lengths = params["branch_lengths"].cpu().numpy()
+    out = {
+        "model": args.model,
+        "codon_frequencies": args.freqs,
+        "tree_source": tree_source,
+        "n_taxa": len(names),
+        "n_codons": int(codons.shape[1]),
+        "unique_codon_patterns": int(patterns.shape[1]),
+        "missing_codons": n_missing,
+        "kappa": round(float(params["kappa"]), 4),
+        "omega": round(float(params["omega"]), 4),
+        "log_likelihood": -float(losses[-1]),
+        "tree_length": float(lengths[:-1].sum()),
+    }
+    if "gamma_shape" in params:
+        out["gamma_shape"] = round(float(params["gamma_shape"]), 4)
+    if args.output_tree:
+        with open(args.output_tree, "w") as fh:
+            fh.write(save_newick(topo, names, lengths) + "\n")
+        out["output_tree"] = args.output_tree
+    return out
+
+
+def cmd_dnds(args) -> None:
+    """GY94 codon-model fit (dN/dS) on a coding nucleotide alignment."""
+    print(json.dumps(run_dnds(args)))

@@ -2,8 +2,8 @@
 the ``score``, ``infer``, ``partition``, ``modeltest``, ``search``, ``asr``,
 ``search-run``, ``bench``, ``ml``, ``bootstrap``, ``nk-bench``, ``trait``,
 ``treedist``, ``consensus``, ``treedraw``, ``stats``, ``treeprune``,
-``topotest``, ``concord``, ``mcmc``, ``bayesfactor`` and ``date``
-commands)."""
+``topotest``, ``concord``, ``mcmc``, ``bayesfactor``, ``date``, ``dnds`` and
+``simulate`` commands: all of the JAX package's)."""
 
 from __future__ import annotations
 
@@ -15,8 +15,9 @@ import trex_tpu_torch.cli as _cli_pkg
 from trex_tpu_torch.cli._common import _add_common, _add_device
 from trex_tpu_torch.cli.bayes import cmd_bayesfactor, cmd_concord, cmd_date, cmd_mcmc
 from trex_tpu_torch.cli.infer import cmd_infer
-from trex_tpu_torch.cli.models import cmd_modeltest, cmd_partition
+from trex_tpu_torch.cli.models import cmd_dnds, cmd_modeltest, cmd_partition
 from trex_tpu_torch.cli.score import cmd_asr, cmd_score, cmd_stats, cmd_trait, cmd_treedraw
+from trex_tpu_torch.cli.simulate import cmd_simulate
 from trex_tpu_torch.cli.search_cmds import (
     cmd_bench,
     cmd_bootstrap,
@@ -189,6 +190,69 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     _add_device(p, "the fits")
     p.set_defaults(fn=cmd_modeltest)
+
+    p = sub.add_parser("dnds", help="GY94 codon-model fit (kappa, omega=dN/dS)")
+    p.add_argument("--alignment", "--fasta", dest="fasta", type=str, required=True,
+                   help="in-frame coding nucleotide alignment "
+                        "(FASTA/PHYLIP/NEXUS, auto-detected)")
+    p.add_argument("--tree", type=str, default=None,
+                   help="newick tree (default: stepwise-addition start)")
+    p.add_argument("--model", choices=("gy94", "gy94+g"), default="gy94")
+    p.add_argument("--freqs", choices=("f61", "f3x4", "f1x4"), default="f3x4",
+                   help="codon frequency estimator")
+    p.add_argument("--stops", choices=("error", "missing"), default="error",
+                   help="how to treat in-frame stop codons")
+    p.add_argument("--iterations", type=int, default=600)
+    p.add_argument("--search", action="store_true",
+                   help="search topology under GY94 (analytic SPR scan at the fitted "
+                        "kappa/omega) instead of keeping the start tree, then refit")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--output-tree", type=str, default=None)
+    _add_device(p, "the fit")
+    p.set_defaults(fn=cmd_dnds)
+
+    p = sub.add_parser("simulate", help="simulate an alignment down a tree (seq-gen equivalent)")
+    p.add_argument("--tree", type=str, default=None,
+                   help="newick with branch lengths; omitted -> random coalescent "
+                        "topology with exponential lengths")
+    p.add_argument("--leaves", type=int, default=16,
+                   help="taxon count for the generated tree (no --tree)")
+    p.add_argument("--sites", type=int, default=1000)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--alphabet", choices=("dna", "protein"), default="dna")
+    p.add_argument("--model", type=str, default="jc",
+                   help="jc|gtr|empirical with optional +g / +i suffixes, or gy94 (codon "
+                        "simulation; --sites counts codons, output is in-frame "
+                        "nucleotide triplets)")
+    p.add_argument("--model-file", type=str, default=None,
+                   help="PAML-format rate file for --model empirical")
+    p.add_argument("--kappa", type=float, default=2.0,
+                   help="GY94 transition/transversion ratio")
+    p.add_argument("--omega", type=float, default=0.5, help="GY94 dN/dS ratio")
+    p.add_argument("--gtr-rates", type=float, nargs="+", default=None,
+                   help="upper-triangle GTR exchangeabilities (default: random, seeded)")
+    p.add_argument("--freqs", type=float, nargs="+", default=None)
+    p.add_argument("--gamma-shape", type=float, default=0.5)
+    p.add_argument("--p-inv", type=float, default=0.2)
+    p.add_argument("--categories", type=int, default=4)
+    p.add_argument("--default-blen", type=float, default=0.1,
+                   help="branch length for generated/length-free trees")
+    p.add_argument("--output", type=str, default=None, help="FASTA path (default stdout)")
+    p.add_argument("--output-tree", type=str, default=None)
+    p.add_argument("--output-ancestors", type=str, default=None,
+                   help="also write the true ancestral sequences (FASTA)")
+    p.add_argument("--coalescent-ne", type=float, default=None,
+                   help="sample the genealogy from a Kingman coalescent with this Ne "
+                        "(time units); overrides --tree")
+    p.add_argument("--clock-rate", type=float, default=1.0,
+                   help="substitutions/site/time-unit for coalescent genealogies "
+                        "(branch lengths = rate x waiting time)")
+    p.add_argument("--sim-tip-ages", type=str, default=None,
+                   help="comma list of sampling ages for a SERIAL coalescent "
+                        "(pairs with date --tip-ages)")
+    _add_device(p, "the device path of a large simulation (the host walk below "
+                   "2^22 node x site cells)")
+    p.set_defaults(fn=cmd_simulate)
 
     p = sub.add_parser("search", help="joint topology+sequence search")
     _add_common(p)

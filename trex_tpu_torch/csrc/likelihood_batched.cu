@@ -50,15 +50,37 @@
 // the int32 exponent sum. The site sum is deterministic: each thread
 // writes its weighted site value, and a second kernel adds a tree's sites
 // in 128-site pairwise blocks, the blocks in index order — no float
-// atomics, so a run reproduces itself bit for bit. Q is a template
-// parameter (4 and 20), so the state loops unroll into registers.
+// atomics, so a run reproduces itself bit for bit.
+// - Q = 4 and Q = 20 (fixed kernels): Q is a template parameter, so the
+//   state loops unroll into registers; one thread per site walks its
+//   tree's plan with no block synchronisation.
+// - Any other Q >= 2 (runtime-Q kernel, as K5's in sankoff_batched.cu):
+//   one thread per (site, tile of 16 parent states), the tiles of a site
+//   sharing its slot column, (slot, state, site). Each thread streams the
+//   two child rows once for its tile (a shared P sits transposed in shared
+//   memory, Pt[j][s], so one 16-byte load gives four parent states' entries
+//   for one child state; a per-branch P is read a row entry at a time from
+//   global memory, a uniform load for the warp). The site's maximum is the
+//   maximum of its tiles' maxima, posted in shared memory, so the block
+//   synchronises twice a step: every tile has read the children and posted
+//   its maximum before any writes the new row (which may take a child's
+//   slot), and the row is in place before the next step reads it. The
+//   root's row goes to its slot like any other, and the site's first tile
+//   adds prior_i root_i over i = 0..Q-1 in order. Under a shared P in state
+//   mode a leaf child's message is a row of a table each block computes
+//   first (a row per state, one for a missing state, one for a state >= Q).
+//   Where even 32 sites' slot columns do not fit a block's shared memory
+//   the same slot stack sits in a global buffer of slots x Q x L floats a
+//   tree (the global-slot mode).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kSumThreads = 128;  // sites per pairwise block of the site sum
-constexpr int kSites = 128;       // sites (threads) per block of the pruning kernel
+constexpr int kSites = 128;       // sites (threads) per block of the fixed kernels
+constexpr int kTile = 16;         // parent states per thread of the runtime-Q kernel
+constexpr int kMaxAnyThreads = 512;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Four entries of a row of P: a shared P from shared memory, a per-branch
@@ -325,6 +347,204 @@ pruning_kernel(const int4* __restrict__ plan,      // (B, n_anc)
   per_site[static_cast<size_t>(tree) * length + site] = per * __ldg(weights + site);
 }
 
+// One child of a runtime-Q step: a leaf (its state or mask `obs`) or an
+// ancestor row (`row`, states `stride` floats apart), and, under a
+// per-branch P, the (Q, Q) matrix of the branch above it (`p`).
+struct AnyChild {
+  bool leaf;
+  int obs;
+  const float* row;
+  const float* p;
+};
+
+template <bool kMasks>
+__device__ __forceinline__ float tip_value(int obs, int j) {
+  const bool allowed = kMasks ? ((obs >> j) & 1) != 0 : (obs == j || obs < 0);
+  return allowed ? 1.0f : 0.0f;
+}
+
+template <bool kMasks>
+__device__ __forceinline__ float child_at(const AnyChild& c, int j, size_t stride) {
+  return c.leaf ? tip_value<kMasks>(c.obs, j) : c.row[j * stride];
+}
+
+// This thread's tile of a message under a shared P: t[v] = sum_j P[s0 + v,
+// j] d[j], j = 0..Q-1 in order, from Pt (Q x pitch floats, zero past Q).
+template <bool kMasks>
+__device__ __forceinline__ void tile_message_shared(const AnyChild& c, int q, int pitch,
+                                                    const float* pt, int s0, size_t stride,
+                                                    float (&t)[kTile]) {
+  {
+    const float a = child_at<kMasks>(c, 0, stride);
+#pragma unroll
+    for (int v = 0; v < kTile; v += 4) {
+      const float4 pv = *reinterpret_cast<const float4*>(pt + s0 + v);
+      t[v] = pv.x * a;
+      t[v + 1] = pv.y * a;
+      t[v + 2] = pv.z * a;
+      t[v + 3] = pv.w * a;
+    }
+  }
+  for (int j = 1; j < q; ++j) {
+    const float a = child_at<kMasks>(c, j, stride);
+    const float* pj = pt + j * pitch + s0;
+#pragma unroll
+    for (int v = 0; v < kTile; v += 4) {
+      const float4 pv = *reinterpret_cast<const float4*>(pj + v);
+      t[v] += pv.x * a;
+      t[v + 1] += pv.y * a;
+      t[v + 2] += pv.z * a;
+      t[v + 3] += pv.w * a;
+    }
+  }
+}
+
+// The same under the child's own P (row-major (Q, Q) in global memory);
+// states past Q are 0.
+template <bool kMasks>
+__device__ __forceinline__ void tile_message_branch(const AnyChild& c, int q, int s0,
+                                                    size_t stride, float (&t)[kTile]) {
+  const int rows = q - s0 < kTile ? q - s0 : kTile;
+  const float* p = c.p + static_cast<size_t>(s0) * q;
+  {
+    const float a = child_at<kMasks>(c, 0, stride);
+#pragma unroll
+    for (int v = 0; v < kTile; ++v) t[v] = v < rows ? __ldg(p + v * q) * a : 0.0f;
+  }
+  for (int j = 1; j < q; ++j) {
+    const float a = child_at<kMasks>(c, j, stride);
+#pragma unroll
+    for (int v = 0; v < kTile; ++v) {
+      if (v < rows) t[v] += __ldg(p + v * q + j) * a;
+    }
+  }
+}
+
+// Any Q >= 2: blocks of `sites` x tiles threads, thread (tile, site) =
+// threadIdx.x / sites, % sites, computing parent states 16 * tile .. + 15
+// of its site. Dynamic shared memory: Pt (q x pitch floats, pitch = q
+// rounded up to 16; shared P only), the leaf-message table ((q + 2) x pitch
+// floats, `use_table` != 0: shared P, state mode), the tiles' maxima
+// (tiles x sites floats), then, in the shared mode, the slot columns
+// (slots, q, sites); the global mode's slots are (chunk, slots, q, L)
+// floats in `slots_g`.
+template <bool kShared, bool kMasks, bool kGlobal>
+__global__ void __launch_bounds__(kMaxAnyThreads)
+pruning_any_kernel(const int4* __restrict__ plan, const int2* __restrict__ children,
+                   const int* __restrict__ leaves, const float* __restrict__ pmats,
+                   const float* __restrict__ prior, const float* __restrict__ weights,
+                   float* __restrict__ slots_g, float* __restrict__ per_site, int tree0,
+                   int n_leaves, int length, int q, int n_slots, int sites, int use_table) {
+  extern __shared__ __align__(16) float smem[];
+  const int pitch = (q + kTile - 1) / kTile * kTile;
+  const int tiles = pitch / kTile;
+  const int lane = threadIdx.x % sites;
+  const int tile = threadIdx.x / sites;
+  const int s0 = tile * kTile;
+  const int tree = tree0 + blockIdx.y;
+  const int site = blockIdx.x * sites + lane;
+  const bool active = site < length;
+  const int n_anc = n_leaves - 1;
+  const int n_all = 2 * n_leaves - 1;
+  const size_t len = static_cast<size_t>(length);
+  float* pt = smem;
+  float* table = pt + (kShared ? q * pitch : 0);
+  float* maxes = table + (use_table ? (q + 2) * pitch : 0);
+  float* cols = maxes + tiles * sites;
+  if (kShared) {
+    for (int k = threadIdx.x; k < q * pitch; k += blockDim.x) {
+      const int j = k / pitch, s = k % pitch;
+      pt[k] = s < q ? __ldg(pmats + s * q + j) : 0.0f;
+    }
+    __syncthreads();
+    // table[code][s] = sum_j P[s, j] tip(code, j); code q: a missing state,
+    // code q + 1: any state >= q.
+    for (int e = threadIdx.x; use_table && e < (q + 2) * pitch; e += blockDim.x) {
+      const int code = e / pitch, s = e % pitch;
+      const int obs = code < q ? code : code == q ? -1 : q;
+      float t = pt[s] * tip_value<false>(obs, 0);
+      for (int j = 1; j < q; ++j) t += pt[j * pitch + s] * tip_value<false>(obs, j);
+      table[e] = t;
+    }
+    __syncthreads();
+  }
+
+  float* base;
+  size_t stride;
+  if (kGlobal) {
+    base = slots_g + static_cast<size_t>(blockIdx.y) * n_slots * q * len + site;
+    stride = len;
+  } else {
+    base = cols + lane;
+    stride = static_cast<size_t>(sites);
+  }
+  const size_t slot_stride = static_cast<size_t>(q) * stride;
+  const int4* steps = plan + static_cast<size_t>(tree) * n_anc;
+  const int2* tree_children = children + static_cast<size_t>(tree) * n_anc;
+  const float* tree_p = pmats + static_cast<size_t>(tree) * n_all * q * q;
+  const int* leaf_col = leaves + site;
+  int exp_sum = 0;
+  int root_slot = 0;
+  for (int k = 0; k < n_anc; ++k) {
+    const int4 st = __ldg(steps + k);
+    float m1[kTile], m2[kTile];
+    float mx = 0.0f;
+    if (active) {
+      const int obs1 = st.y >= 0 ? __ldg(leaf_col + st.y * length) : 0;
+      const int obs2 = st.z >= 0 ? __ldg(leaf_col + st.z * length) : 0;
+      const int2 nodes = kShared ? make_int2(0, 0) : __ldg(tree_children + st.x);
+      const AnyChild c1{st.y >= 0, obs1, st.y >= 0 ? nullptr : base + ~st.y * slot_stride,
+                        kShared ? nullptr : tree_p + static_cast<size_t>(nodes.x) * q * q};
+      const AnyChild c2{st.z >= 0, obs2, st.z >= 0 ? nullptr : base + ~st.z * slot_stride,
+                        kShared ? nullptr : tree_p + static_cast<size_t>(nodes.y) * q * q};
+      if (kShared) {
+        const bool table1 = use_table && c1.leaf, table2 = use_table && c2.leaf;
+        if (!table1) tile_message_shared<kMasks>(c1, q, pitch, pt, s0, stride, m1);
+        if (!table2) tile_message_shared<kMasks>(c2, q, pitch, pt, s0, stride, m2);
+        const int code1 = c1.obs < 0 ? q : c1.obs < q ? c1.obs : q + 1;
+        const int code2 = c2.obs < 0 ? q : c2.obs < q ? c2.obs : q + 1;
+#pragma unroll
+        for (int v = 0; v < kTile; ++v) {
+          if (table1) m1[v] = table[code1 * pitch + s0 + v];
+          if (table2) m2[v] = table[code2 * pitch + s0 + v];
+        }
+      } else {
+        tile_message_branch<kMasks>(c1, q, s0, stride, m1);
+        tile_message_branch<kMasks>(c2, q, s0, stride, m2);
+      }
+#pragma unroll
+      for (int v = 0; v < kTile; ++v) {
+        m1[v] *= m2[v];
+        mx = fmaxf(mx, m1[v]);
+      }
+    }
+    maxes[tile * sites + lane] = mx;
+    __syncthreads();  // every tile has read the children and posted its maximum
+    for (int t = 0; t < tiles; ++t) mx = fmaxf(mx, maxes[t * sites + lane]);
+    // Biased exponent of the site's max (0 when it is 0 or denormal);
+    // 2^(127 - e) built from its bits is exact.
+    const unsigned e = __float_as_uint(mx) >> 23;
+    const float inv = __uint_as_float((254u - e) << 23);
+    exp_sum += static_cast<int>(e) - 127;
+    root_slot = st.w;
+    if (active) {
+      float* dst = base + st.w * slot_stride;
+#pragma unroll
+      for (int v = 0; v < kTile; ++v) {
+        if (s0 + v < q) dst[(s0 + v) * stride] = m1[v] * inv;
+      }
+    }
+    __syncthreads();  // the new row is in place (and the maxima read)
+  }
+  if (tile == 0 && active) {
+    const float* root = base + root_slot * slot_stride;
+    float site_lik = __ldg(prior) * root[0];
+    for (int i = 1; i < q; ++i) site_lik += __ldg(prior + i) * root[i * stride];
+    const float per = logf(fmaxf(site_lik, 1e-30f)) + static_cast<float>(exp_sum) * kLn2;
+    per_site[static_cast<size_t>(tree) * len + site] = per * __ldg(weights + site);
+  }
+}
+
 // out[b] = sum of tree b's weighted site values: a pairwise tree over each
 // 128-site block (zero past L), then the blocks in index order.
 __global__ void __launch_bounds__(kSumThreads)
@@ -355,8 +575,9 @@ struct Args {
   const float* pmats;
   const float* prior;
   const float* weights;
+  float* slots_g;
   float* per_site;
-  int batch, n_leaves, length, chunk, smem;
+  int batch, n_leaves, length, q, n_slots, sites, use_table, chunk, smem;
   cudaStream_t stream;
 };
 
@@ -377,10 +598,37 @@ int launch_chunks(const Args& a) {
   return 0;
 }
 
+template <bool kShared, bool kMasks, bool kGlobal>
+int launch_any(const Args& a) {
+  cudaError_t err = cudaFuncSetAttribute(pruning_any_kernel<kShared, kMasks, kGlobal>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (a.q + kTile - 1) / kTile;
+  const int n_blocks = (a.length + a.sites - 1) / a.sites;
+  for (int tree0 = 0; tree0 < a.batch; tree0 += a.chunk) {
+    const int trees = a.batch - tree0 < a.chunk ? a.batch - tree0 : a.chunk;
+    pruning_any_kernel<kShared, kMasks, kGlobal>
+        <<<dim3(n_blocks, trees), a.sites * tiles, a.smem, a.stream>>>(
+            a.plan, a.children, a.leaves, a.pmats, a.prior, a.weights, a.slots_g, a.per_site,
+            tree0, a.n_leaves, a.length, a.q, a.n_slots, a.sites, a.use_table);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
 template <int Q>
 int dispatch(const Args& a, bool shared, bool masks) {
   if (shared) return masks ? launch_chunks<Q, true, true>(a) : launch_chunks<Q, true, false>(a);
   return masks ? launch_chunks<Q, false, true>(a) : launch_chunks<Q, false, false>(a);
+}
+
+template <bool kGlobal>
+int dispatch_any(const Args& a, bool shared, bool masks) {
+  if (shared) {
+    return masks ? launch_any<true, true, kGlobal>(a) : launch_any<true, false, kGlobal>(a);
+  }
+  return masks ? launch_any<false, true, kGlobal>(a) : launch_any<false, false, kGlobal>(a);
 }
 
 }  // namespace
@@ -388,33 +636,40 @@ int dispatch(const Args& a, bool shared, bool masks) {
 // plan (B, n_anc, 4) int32 from csrc/tree_plan.cu, 16-byte aligned;
 // children (B, n_anc, 2) int32, 8-byte aligned (read for per-branch P);
 // leaves (n_leaves, L) int32 states (negative = missing) or state-set
-// masks (`masks` != 0), n_leaves x L < 2^31; pmats (Q, Q) f32 when
+// masks (`masks` != 0, Q <= 31), n_leaves x L < 2^31; pmats (Q, Q) f32 when
 // `shared` != 0, else (B, n_all, Q, Q) f32, 16-byte aligned; prior (Q,)
 // f32; weights (L,) f32; per_site (B, L) f32, each site's log-likelihood
 // times its weight; out (B,) f32 their sums, or null to launch no site sum
-// (the rows alone). Blocks
-// of 128 threads, one a site, with `smem` bytes of dynamic shared memory (a
-// shared P, the leaf-message table, then the slot columns: the wrapper's
-// launch plan). Trees are walked
-// `chunk` at a time (chunk <= 65535). Q must be 4 or 20. Launches on
-// `stream`, does not synchronise, allocates nothing. Returns the CUDA error
-// code (0 = launched; -1 = unsupported Q).
+// (the rows alone). Q = 4 and 20: blocks of 128 threads, one a site. Any
+// other Q >= 2: blocks of `sites` sites, ceil(Q / 16) threads each (at
+// most 512 a block), `n_slots` slot rows a site; `global_slots` != 0 keeps
+// the slots in slots_g, (chunk, n_slots, Q, L) f32; `use_table` != 0
+// (shared P, state mode) keeps the leaf-message table. Each with `smem`
+// bytes of dynamic shared memory, laid out as the kernels above say (the
+// wrapper's launch plan). Trees are walked `chunk` at a time (chunk <=
+// 65535). Launches on `stream`, does not synchronise, allocates nothing.
+// Returns the CUDA error code (0 = launched; -1 = Q < 2).
 extern "C" int trex_likelihood_batched(const void* plan, const void* children,
                                        const void* leaves, const void* pmats,
-                                       const void* prior, const void* weights,
+                                       const void* prior, const void* weights, void* slots_g,
                                        void* per_site, void* out, int batch, int n_leaves,
                                        int length, int n_states, int shared, int masks,
+                                       int n_slots, int sites, int global_slots, int use_table,
                                        int chunk, int smem, void* stream) {
   const Args a{static_cast<const int4*>(plan),    static_cast<const int2*>(children),
                static_cast<const int*>(leaves),   static_cast<const float*>(pmats),
                static_cast<const float*>(prior),  static_cast<const float*>(weights),
-               static_cast<float*>(per_site),     batch, n_leaves, length, chunk, smem,
+               static_cast<float*>(slots_g),      static_cast<float*>(per_site),
+               batch, n_leaves, length, n_states, n_slots, sites, use_table, chunk, smem,
                static_cast<cudaStream_t>(stream)};
   int rc;
   if (n_states == 4) {
     rc = dispatch<4>(a, shared != 0, masks != 0);
   } else if (n_states == 20) {
     rc = dispatch<20>(a, shared != 0, masks != 0);
+  } else if (n_states >= 2) {
+    rc = global_slots != 0 ? dispatch_any<true>(a, shared != 0, masks != 0)
+                           : dispatch_any<false>(a, shared != 0, masks != 0);
   } else {
     return -1;
   }

@@ -29,12 +29,14 @@ from trex_tpu_torch.io.formats import (
     DNA,
     IUPAC_DNA_MASKS,
     PROTEIN,
+    encode_alignment,
     encode_alignment_masks,
     mask_lookup,
     parse_nexus,
     parse_paml_rates,
     parse_partitions,
     parse_phylip,
+    write_phylip,
 )
 from trex_tpu_torch.topology import Topology, from_numpy
 
@@ -262,6 +264,16 @@ def _split_fasta(text: str) -> tuple[list[str], np.ndarray]:
     return names, data
 
 
+def parse_fasta(text: str, alphabet: str = DNA) -> tuple[list[str], np.ndarray]:
+    """Parse FASTA text into (names, (n_seqs, L) int8 states).
+
+    Unknown characters (gaps, ambiguity codes) map to state 0; use
+    ``parse_fasta_masks`` to keep them as state-set bitmasks.
+    """
+    names, data = _split_fasta(text)
+    return names, encode_alignment(data, alphabet)
+
+
 def parse_fasta_masks(
     text: str, alphabet: str = DNA
 ) -> tuple[list[str], np.ndarray]:
@@ -324,6 +336,13 @@ def nni_neighbors_host(topology: Topology) -> tuple[np.ndarray, np.ndarray]:
     if native.available():
         return native.nni_neighbors(children)
     return py_nni_neighbors(children)
+
+
+def nni_neighbors(topology: Topology, device=None) -> Topology:
+    """All NNI neighbors of one topology, as a batched Topology on
+    ``device`` (default: the topology's)."""
+    children, parents = nni_neighbors_host(topology)
+    return from_numpy(children, parents, topology.device if device is None else device)
 
 
 def spr_neighborhood_host(topology: Topology) -> tuple[np.ndarray, np.ndarray]:
@@ -548,9 +567,12 @@ __all__ = [
     "align_leaf_order",
     "canonicalize_topology",
     "format_tree",
+    "encode_alignment",
     "encode_alignment_masks",
     "load_newick",
+    "nni_neighbors",
     "nni_neighbors_host",
+    "parse_fasta",
     "parse_fasta_masks",
     "parse_nexus",
     "parse_paml_rates",
@@ -572,4 +594,5 @@ __all__ = [
     "tbr_neighborhood",
     "tbr_neighborhood_host",
     "write_fasta",
+    "write_phylip",
 ]

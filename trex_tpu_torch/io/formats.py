@@ -103,6 +103,16 @@ def parse_phylip(text: str) -> tuple[list[str], np.ndarray]:
     return names, data
 
 
+def write_phylip(names: list[str], rows: np.ndarray) -> str:
+    """Serialize a character matrix to relaxed sequential PHYLIP."""
+    rows = np.asarray(rows, dtype=np.uint8)
+    out = [f"{rows.shape[0]} {rows.shape[1]}"]
+    width = max(len(n) for n in names) + 2
+    for name, row in zip(names, rows):
+        out.append(f"{name:<{width}}{row.tobytes().decode('ascii')}")
+    return "\n".join(out) + "\n"
+
+
 def parse_nexus(
     text: str,
 ) -> tuple[list[str] | None, np.ndarray | None, dict[str, str]]:
@@ -227,6 +237,15 @@ def _apply_translate(newick: str, table: dict[str, str]) -> str:
     if token:
         out.append(table.get(token.strip(), token))
     return "".join(out)
+
+
+def encode_alignment(rows: np.ndarray, alphabet: str) -> np.ndarray:
+    """Raw character matrix -> int8 integer states (unknowns -> state 0)."""
+    lookup = np.zeros(256, dtype=np.int8)
+    for i, ch in enumerate(alphabet):
+        lookup[ord(ch)] = i
+        lookup[ord(ch.lower())] = i
+    return lookup[np.asarray(rows, dtype=np.uint8)]
 
 
 def encode_alignment_masks(rows: np.ndarray, alphabet: str) -> np.ndarray:

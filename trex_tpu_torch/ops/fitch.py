@@ -17,12 +17,17 @@ from trex_tpu_torch.ops.fitch_cuda import batched_fitch_score_cuda
 from trex_tpu_torch.topology import Topology
 
 
+def leaf_masks(leaf_sequences: torch.Tensor) -> torch.Tensor:
+    """(n_leaves, L) int states -> (n_leaves, L) int32 singleton bitmasks."""
+    seqs = torch.as_tensor(leaf_sequences).to(torch.int32)
+    return (torch.ones_like(seqs) << seqs).contiguous()
+
+
 def as_masks(leaf_sequences: torch.Tensor, sequences_are_masks: bool) -> torch.Tensor:
     """(n_leaves, L) int32 state-set bitmasks from masks or integer states."""
-    seqs = leaf_sequences.to(torch.int32)
     if sequences_are_masks:
-        return seqs.contiguous()
-    return (torch.ones_like(seqs) << seqs).contiguous()
+        return leaf_sequences.to(torch.int32).contiguous()
+    return leaf_masks(leaf_sequences)
 
 
 def site_weights_or_ones(site_weights, length: int, device) -> torch.Tensor:

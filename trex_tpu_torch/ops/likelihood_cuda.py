@@ -14,9 +14,13 @@ pruning grid (one per 65535 trees), then one site-sum grid (none with
 ``"shared"`` (one (Q, Q) P, the K3 regime) and ``"per_branch"`` (a P per
 branch and tree, K4's), and ``"per_site"`` counts again the grids of the
 calls that returned per-site rows.
-``launch_plan`` picks the kernel's block width: its slots always sit in
-shared memory. Forward only, as the TPU kernel: branch-length derivatives
-come from ``ops.likelihood_asr``.
+``launch_plan`` picks the kernel and its block width: the fixed kernels at
+Q = 4 and 20 (a thread a site, slots in shared memory), the runtime-Q
+kernel at any other Q >= 2 (a thread a 16-state tile of a site; its slots
+in shared memory, or where no width fits in a global buffer, one pruning
+grid per chunk of trees whose slots fit ``GLOBAL_SLOT_BYTES``). Forward
+only, as the TPU kernel: branch-length derivatives come from
+``ops.likelihood_asr``.
 """
 
 from __future__ import annotations
@@ -32,9 +36,13 @@ from trex_tpu_torch.ops.likelihood import highest_matmul_precision, tip_partials
 from trex_tpu_torch.ops.tree_plan import SlotPlan, slot_plan, slots_for, tree_plan
 from trex_tpu_torch.utils.chunking import scan_budget_bytes
 
-SUPPORTED_STATES = (4, 20)
+_FIXED_STATES = (4, 20)  # template instantiations; other Q: runtime-Q kernel
 _MAX_CHUNK = 65535  # grid.y limit: trees per kernel launch
-_SITES = 128  # sites (threads) per block of the kernel
+_SITES = 128  # sites (threads) per block of the fixed kernels
+_TILE = 16  # parent states per thread of the runtime-Q kernel (its P pitch)
+_MAX_ANY_THREADS = 512  # threads per block of the runtime-Q kernel
+_MASK_STATES = 31  # int32 state-set masks (bit 31 is the sign)
+GLOBAL_SLOT_BYTES = 32 << 20  # global-slot mode: slots of the trees in flight, L2-sized
 _LN2 = 0.6931471805599453
 
 
@@ -113,9 +121,10 @@ def batched_log_likelihood_plain(
 
 
 def leaf_codes(q: int, shared_p: bool, masks: bool) -> int:
-    """Rows of the kernel's leaf-message table under a shared P: a row per
-    state, one for a missing state and one for a state >= Q, or a row per
-    mask of Q bits up to 8 states; none above, nor under a per-branch P."""
+    """Rows of the fixed kernels' leaf-message table under a shared P: a
+    row per state, one for a missing state and one for a state >= Q, or a
+    row per mask of Q bits up to 8 states; none above, nor under a
+    per-branch P."""
     if not shared_p:
         return 0
     if masks:
@@ -124,14 +133,30 @@ def leaf_codes(q: int, shared_p: bool, masks: bool) -> int:
 
 
 def launch_plan(n_leaves: int, q: int, shared_p: bool, masks: bool, smem_optin: int) -> SlotPlan:
-    """K3/K4's blocks for ``n_leaves``-taxon trees at Q = ``q``: 128
-    sites, with a shared P (Q^2 floats), the leaf-message table and
-    ``slots`` rows of Q floats a site in shared memory."""
+    """K3/K4's blocks for ``n_leaves``-taxon trees at Q = ``q``. The fixed
+    kernels (Q = 4, 20): 128 sites, a thread each, with a shared P (Q^2
+    floats), the leaf-message table and ``slots`` rows of Q floats a site
+    in shared memory. The runtime-Q kernel: ceil(Q / 16) threads a site (at
+    most 512 a block), a shared P transposed at a pitch of Q rounded up to
+    16, the leaf-message table (shared P, state mode: Q + 2 rows at that
+    pitch) where P and the table take at most half a block's shared memory,
+    a float a thread for the tiles' maxima, and either ``slots`` rows of Q
+    floats a site or, where those do not fit, nothing more (the
+    global-slot mode)."""
     slots = slots_for(n_leaves)
-    codes = leaf_codes(q, shared_p, masks)
-    fixed = 4 * (q * q if shared_p else 0) + 4 * codes * q
-    return slot_plan(slots, 4 * slots * q, fixed, smem_optin, widths=(_SITES,),
-                     leaf_table=codes > 0)
+    if q in _FIXED_STATES:
+        codes = leaf_codes(q, shared_p, masks)
+        fixed = 4 * (q * q if shared_p else 0) + 4 * codes * q
+        return slot_plan(slots, 4 * slots * q, fixed, smem_optin, widths=(_SITES,),
+                         leaf_table=codes > 0)
+    pitch = -(-q // _TILE) * _TILE
+    tiles = pitch // _TILE
+    p_bytes = 4 * q * pitch if shared_p else 0
+    table_bytes = 4 * (q + 2) * pitch
+    table = shared_p and not masks and p_bytes + table_bytes <= smem_optin // 2
+    return slot_plan(slots, 4 * (tiles + slots * q), p_bytes + (table_bytes if table else 0),
+                     smem_optin, threads_per_site=tiles, max_threads=_MAX_ANY_THREADS,
+                     global_column_bytes=4 * tiles, leaf_table=table)
 
 
 def _check(children, leaves, weights, root_prior, transition, sequences_are_masks) -> None:
@@ -150,10 +175,9 @@ def _check(children, leaves, weights, root_prior, transition, sequences_are_mask
         )
     if weights.shape != (leaves.shape[1],):
         raise ValueError(f"weights must be ({leaves.shape[1]},), got {tuple(weights.shape)}")
-    if root_prior.dim() != 1 or root_prior.shape[0] not in SUPPORTED_STATES:
+    if root_prior.dim() != 1 or root_prior.shape[0] < 2:
         raise ValueError(
-            f"the likelihood kernel supports Q in {SUPPORTED_STATES} states, "
-            f"got a root prior of shape {tuple(root_prior.shape)}"
+            f"the root prior must be (Q,) with Q >= 2 states, got {tuple(root_prior.shape)}"
         )
     q = root_prior.shape[0]
     if transition.shape not in ((q, q), (batch, 2 * n_leaves - 1, q, q)):
@@ -161,8 +185,8 @@ def _check(children, leaves, weights, root_prior, transition, sequences_are_mask
             f"transition must be ({q}, {q}) or ({batch}, {2 * n_leaves - 1}, {q}, {q}), "
             f"got {tuple(transition.shape)}"
         )
-    if sequences_are_masks and q > 31:
-        raise ValueError("int32 state-set masks hold at most 31 states")
+    if sequences_are_masks and q > _MASK_STATES:
+        raise ValueError(f"int32 state-set masks hold at most {_MASK_STATES} states, got Q = {q}")
     devices = {x.device for x in (children, leaves, weights, root_prior, transition)}
     if len(devices) != 1:
         raise ValueError(f"all inputs must be on one device, got {sorted(map(str, devices))}")
@@ -179,10 +203,13 @@ def batched_log_likelihood_cuda(
     per_site: bool = False,
 ):
     """(B,) f32 log-likelihoods: K3/K4 on CUDA tensors, the plain version on
-    CPU tensors. Arguments as ``batched_log_likelihood_plain``; Q must be 4
-    or 20. With ``per_site=True``, ``(sums, rows)``: the kernel's (B, L)
-    per-site rows under unit weights, without its site-sum grid, and their
-    weighted sums as ``batched_log_likelihood_plain`` sums them."""
+    CPU tensors. Arguments as ``batched_log_likelihood_plain``; any Q >= 2
+    (masks up to 31 states; under a shared P up to the Q whose transposed P
+    fits a block's shared memory, 240 on an H100, above it ``ValueError``
+    from ``launch_plan``). With ``per_site=True``, ``(sums, rows)``: the
+    kernel's (B, L) per-site rows under unit weights, without its site-sum
+    grid, and their weighted sums as ``batched_log_likelihood_plain`` sums
+    them."""
     _check(children, leaves, weights, root_prior, transition, sequences_are_masks)
     device = children.device
     if device.type == "cpu":
@@ -218,16 +245,24 @@ def batched_log_likelihood_cuda(
     leaves, weights, root_prior = (x.contiguous() for x in (leaves, weights, root_prior))
     steps = tree_plan(children)
     chunk = min(batch, _MAX_CHUNK)
+    slots_g = None
+    if plan.mode == "global":
+        per_tree = 4 * plan.slots * q * length
+        chunk = max(1, min(chunk, GLOBAL_SLOT_BYTES // per_tree))
+        slots_g = torch.empty((chunk * per_tree // 4,), dtype=torch.float32, device=device)
     rows = torch.empty((batch, length), dtype=torch.float32, device=device)
     out = None if per_site else torch.empty((batch,), dtype=torch.float32, device=device)
     # Rows under unit weights; the kernel writes no sum when out is null.
     row_weights = torch.ones_like(weights) if per_site else weights
     rc = _library().trex_likelihood_batched(
         steps.data_ptr(), children.data_ptr(), leaves.data_ptr(), transition.data_ptr(),
-        root_prior.data_ptr(), row_weights.data_ptr(), rows.data_ptr(),
+        root_prior.data_ptr(), row_weights.data_ptr(),
+        None if slots_g is None else slots_g.data_ptr(), rows.data_ptr(),
         None if per_site else out.data_ptr(),
         batch, n_anc + 1, length, q, int(shared), int(sequences_are_masks),
-        chunk, plan.smem_bytes, torch.cuda.current_stream().cuda_stream,
+        plan.slots, plan.sites_per_block, int(plan.mode == "global"),
+        int(plan.leaf_table and q not in _FIXED_STATES), chunk, plan.smem_bytes,
+        torch.cuda.current_stream().cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"likelihood_batched kernel launch failed: CUDA error {rc}")
@@ -260,6 +295,6 @@ batched_log_likelihood_cuda.launches_by_mode = {"shared": 0, "per_branch": 0, "p
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("likelihood_batched")
     fn = lib.trex_likelihood_batched
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

@@ -372,3 +372,38 @@ def _spr_scan_climb(
         trace.append(current_score)
         best, p, v, _, n_finite = run_scan(current)
     return SearchResult(current, current_score, max_rounds, evaluations, trace)
+
+
+def batched_random_restarts(
+    seed: int,
+    n_leaves: int,
+    cost_matrix: torch.Tensor,
+    leaf_sequences,
+    *,
+    n_starts: int = 8,
+    max_rounds: int = 100,
+    score_batch_fn=None,
+    neighborhood: str = "nni",
+    device=None,
+) -> SearchResult:
+    """Hill climb from ``n_starts`` random topologies
+    (``io.sample_topologies(seed, ...)``) and return the best. The JAX
+    package's version takes a key and samples from its last word; the
+    port takes that integer as ``seed``, as ``random_topologies`` does.
+    ``device``: as ``parsimony_hill_climb``'s."""
+    from trex_tpu_torch.io import sample_topologies
+
+    if device is None:
+        device = leaf_sequences.device if torch.is_tensor(leaf_sequences) else "cuda"
+    dev = resolve_device(device)
+    starts = sample_topologies(int(seed), n_leaves, n_starts, dev)
+    best: SearchResult | None = None
+    for s in range(n_starts):
+        result = parsimony_hill_climb(
+            Topology(starts.children[s], starts.parents[s]), cost_matrix, leaf_sequences,
+            max_rounds=max_rounds, score_batch_fn=score_batch_fn, neighborhood=neighborhood,
+            device=dev,
+        )
+        if best is None or result.score < best.score:
+            best = result
+    return best

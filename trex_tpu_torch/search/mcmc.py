@@ -238,14 +238,10 @@ def _build_eval(leaves, n_states, site_weights, sequences_are_masks, rates, freq
         gtr_eigensystem,
         jc69_transition,
     )
-    from trex_tpu_torch.ops.likelihood_cuda import SUPPORTED_STATES, batched_log_likelihood_cuda
+    from trex_tpu_torch.ops.likelihood_cuda import batched_log_likelihood_cuda
     from trex_tpu_torch.ops.nni_scan import nni_neighborhood_lnl
 
     q = n_states
-    if q not in SUPPORTED_STATES:
-        raise ValueError(
-            f"the samplers score through the likelihood kernel, which supports Q in "
-            f"{SUPPORTED_STATES} states, got {q}")
     device = leaves.device
     length = leaves.shape[1]
     weights = (torch.ones((length,), device=device) if site_weights is None

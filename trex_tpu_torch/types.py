@@ -1,5 +1,5 @@
-"""Core constants, the parsimony cost model and the generated-data container
-(counterpart of ``trex_tpu/types.py``).
+"""Core constants, the default float dtype, the parsimony cost model and the
+generated-data container (counterpart of ``trex_tpu/types.py``).
 
 Node ordering follows the engine's numerics contract: leaves
 ``0..n_leaves-1``, ancestors ``n_leaves..n_all-1``, root at ``n_all - 1``,
@@ -16,6 +16,24 @@ import torch
 
 # Sentinel cost for impossible leaf states in the Sankoff DP.
 BIG_COST = 1e5
+
+_DEFAULT_DTYPE = torch.float32
+
+
+def default_dtype() -> torch.dtype:
+    """The process-global default float dtype of the cost models (float32
+    unless changed)."""
+    return _DEFAULT_DTYPE
+
+
+def set_default_dtype(dtype: torch.dtype) -> None:
+    """Set the process-global default float dtype. ``float32`` is the
+    accuracy default; a lower precision suits only the soft-cost and
+    gradient path, never the exact DP or the kernels (which take float32)."""
+    global _DEFAULT_DTYPE
+    if not dtype.is_floating_point:
+        raise TypeError(f"the default dtype must be a float dtype, got {dtype}")
+    _DEFAULT_DTYPE = dtype
 
 
 class PhyloData(NamedTuple):
@@ -42,9 +60,11 @@ class CostModel:
 
     @staticmethod
     def hamming(
-        n_states: int, dtype: torch.dtype = torch.float32, device="cpu"
+        n_states: int, dtype: torch.dtype | None = None, device="cpu"
     ) -> "CostModel":
-        """Unit substitution costs: ``ones - eye``."""
+        """Unit substitution costs: ``ones - eye`` (``dtype``: the default
+        dtype when None)."""
+        dtype = dtype or default_dtype()
         m = torch.ones((n_states, n_states), dtype=dtype, device=device)
         return CostModel(matrix=m - torch.eye(n_states, dtype=dtype, device=device))
 

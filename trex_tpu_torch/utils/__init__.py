@@ -1,1 +1,2 @@
-"""Utilities: memory-bounded chunking."""
+"""Utilities: memory-bounded chunking, timing and profiling, metrics,
+checkpoints and the numerical-debug switch."""

@@ -1,7 +1,9 @@
-"""Memory-bounded chunking of the analytic scans (counterpart of
-``trex_tpu/utils/chunking.py``)."""
+"""Memory-bounded chunking of the analytic scans and of mapped functions
+(counterpart of ``trex_tpu/utils/chunking.py``)."""
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -36,3 +38,24 @@ def scan_budget_bytes(device) -> int:
     free, _ = torch.cuda.mem_get_info(device)
     cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
     return int((free + cached) // 6)
+
+
+def chunked_map(fn: Callable, xs, batch_size: int | None = None):
+    """Map ``fn`` over the leading axis of ``xs`` (a tensor, or a tuple of
+    tensors with one leading length) in chunks of ``batch_size``:
+    ``torch.func.vmap`` within a chunk, a loop across chunks, so peak
+    memory is a chunk's; ``batch_size=None`` maps one element at a time.
+    Returns ``fn``'s outputs (a tensor or a tuple of them) stacked along a
+    new leading axis."""
+    args = xs if isinstance(xs, tuple) else (xs,)
+    n = args[0].shape[0]
+    if batch_size is None:
+        parts = [fn(*(a[i] for a in args)) for i in range(n)]
+        join = torch.stack
+    else:
+        mapped = torch.func.vmap(fn)
+        parts = [mapped(*(a[i : i + batch_size] for a in args)) for i in range(0, n, batch_size)]
+        join = torch.cat
+    if isinstance(parts[0], tuple):
+        return tuple(join([p[k] for p in parts]) for k in range(len(parts[0])))
+    return join(parts)
