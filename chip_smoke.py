@@ -133,7 +133,7 @@ launch count set to 0 just before it and read just after:
   short ``--proposal nni`` and ``--full-bayes`` runs (the eigensystems'
   syncs counted); a ``--checkpoint-dir``/``--stop-after`` resume, bit for
   bit against the uninterrupted run; ``date`` on the true tree, strict at
-  2,000 generations (cut from 4,000) and relaxed under a coalescent prior
+  1,000 generations (cut from 4,000) and relaxed under a coalescent prior
   with a calibrated clade (walls by part, gen/s, steady windows of SAMPLER_WINDOW
   generations); ``bayesfactor --models jc,gtr`` at 32 rungs (the same);
   K4 held within rtol 1e-5 at the samplers' batches
@@ -155,6 +155,22 @@ launch count set to 0 just before it and read just after:
   a 512-taxon batch (its plan and its global-slot mode) and at Q = 5; the
   ML NNI climb at Q = 61, card against CPU; and ``simulate`` and ``dnds
   --tree`` card against CPU at 10 taxa.
+
+- Slice 7a (``--phases mesh,reference_mesh``), the ('tree', 'site') mesh
+  (``trex_tpu_torch/parallel``) at the main path's 512 x 2048, three ways,
+  each against the single-device route on the card: (a) ``infer --mesh
+  auto`` in this process (a 1 x 1 mesh, no process group) against
+  ``--mesh 1,1``; (b) a one-rank NCCL world running the sharded functions
+  (K1 and K5 batch scores, the best tree, K4 lnL, per-site rows, the
+  parsimony scan's table and best move, an ML scan round at 128 x 1024);
+  (c) two gloo ranks sharing the card (``mesh_worker``, a world with a
+  wall limit): ``infer`` at (2, 1) and (1, 2), the ML support route at
+  (1, 2) (K4 on site shards) and the supports route at (2, 1) (candidate
+  fits over 'tree'), then K1, K5 and K4 on each rank's tiles at both
+  meshes; walls (two processes sharing one card: not a scaling figure),
+  each rank's launches, a profiled scan round a route; and the same
+  routes on the card against the CPU at 24 x 300. ``reference_bayes``
+  also holds the Q = 5 sampler (the runtime-Q kernel) card against CPU.
 
 K1 is also captured in a CUDA graph, larger calls run, and the graph
 replayed (each call's scratch is its own: bit-equal to the plain version);
@@ -1444,7 +1460,7 @@ def slice_1b_reference(torch, workdir: str, ref_fasta: str) -> list[dict]:
 PHASES = ("card", "build", "native", "kernels", "routes", "differentiable", "slice_1b",
           "reference", "ml_models", "score_ml", "trait", "ml", "protein", "reference_2b",
           "slice_2c", "reference_2c", "supports", "reference_supports", "bayes",
-          "reference_bayes", "simulate", "dnds", "reference_models")
+          "reference_bayes", "simulate", "dnds", "reference_models", "mesh", "reference_mesh")
 REQUIRES = {"routes": ("kernels",), "slice_1b": ("kernels", "routes"),
             "score_ml": ("ml_models",), "trait": ("ml_models",), "slice_2c": ("ml_models",)}
 SLICE_2B_PHASES = ("ml_models", "score_ml", "trait", "ml", "protein")
@@ -1562,12 +1578,17 @@ DEEP_FIT_STEPS = 3
 # about 15 ms a step on either device at 24 taxa.
 REF_FIT_STEPS = 50
 # partition --search's fits cut from the command's 600 Adam steps (about 60 s of
-# its 67 s on an H100) to make room for the Bayesian phases.
-PARTITION_FIT_STEPS = 300
+# its 67 s on an H100), to 300 to make room for the Bayesian phases, then to
+# 200 for the mesh phases.
+PARTITION_FIT_STEPS = 200
 # The model routes' (GTR+G scan and NNI, protein) and score_ml's fits cut
 # from the CLI's 800 Adam steps (about 40 s of each model route's 43-52 s
-# on an H100) to make room for the models and simulation phases.
-MODEL_FIT_STEPS = 300
+# on an H100), to 300 to make room for the models and simulation phases,
+# then to 200 for the mesh phases.
+MODEL_FIT_STEPS = 200
+# modeltest's fits cut from the command's 500 Adam steps for the mesh
+# phases.
+MODELTEST_FIT_STEPS = 300
 MODEL_REF_CASES = (
     ("gtr+g", "spr-scan"), ("gtr+g", "nni"), ("hky+i", "spr-scan"), ("hky+i", "nni"),
     ("jc+r3", "spr-scan"), ("jc+r3", "nni"), ("empirical", "spr-scan"), ("empirical", "nni"),
@@ -2292,6 +2313,7 @@ def slice_2c_routes(torch, dev, workdir: str, main_fasta: str, nni_fasta: str, s
     k4 = k4_at_ml_bootstrap(torch, dev, run.result.topology, main_fasta, 8, timer)
     found["at_ml_bootstrap"] = k4
     found["launches"]["ml_support"] = launches
+    found["ml_support_out"] = (run, wall)
     emit("ml_support_route", command="infer " + " ".join(ML_SUPPORT_ARGS) + " (512 x 2048)",
          n_taxa=out["n_taxa"], unique_patterns=out["unique_patterns"],
          neg_log_likelihood=out["neg_log_likelihood"], ranking_score=out["ranking_score"],
@@ -2384,7 +2406,7 @@ def slice_2c_routes(torch, dev, workdir: str, main_fasta: str, nni_fasta: str, s
 
     args = build_parser().parse_args([
         "modeltest", "--alignment", slice_2b["gtr_fasta"], "--tree", slice_2b["nni_tree"],
-        "--models", MODELTEST_MODELS])
+        "--models", MODELTEST_MODELS, "--iterations", str(MODELTEST_FIT_STEPS)])
     fits: dict = {}
     reset_counts()
     clock = time.perf_counter()
@@ -2399,7 +2421,8 @@ def slice_2c_routes(torch, dev, workdir: str, main_fasta: str, nni_fasta: str, s
     gtr_names = _load_alignment(slice_2b["gtr_fasta"], "dna")[0]
     topo = align_leaf_order(topo, tree_names, gtr_names).to(dev)
     emit("modeltest_route", command=f"modeltest --tree <NNI model route's tree> --models "
-         f"{MODELTEST_MODELS} (512 x 2048, 500 Adam steps a fit)", truth="gtr+g",
+         f"{MODELTEST_MODELS} (512 x 2048, {MODELTEST_FIT_STEPS} Adam steps a fit)",
+         truth="gtr+g",
          best=out["best"], table=out["table"], fit_s=fits,
          wall_s=wall, launches=launch_counts(),
          hky_g_fit_profile=fit_profile(torch, topo, slice_2b["gtr_patterns"],
@@ -2641,6 +2664,7 @@ def supports_routes(torch, dev, workdir: str, main_fasta: str, reset_counts, lau
     argv = ["infer", "--alignment", main_fasta, *SUPPORT_ARGS_4A]
     run, wall, launches, peak = ml_route(torch, argv, reset_counts, launch_counts)
     out, seconds = run.out, run.seconds
+    found["route_out"] = (run, wall)
     n_anc = len(names) - 1
     if (launches["k34_per_site"] <= 0 or launches["k34_per_branch"] <= launches["k34_per_site"]
             or len(out["sh_alrt_support"]) != n_anc or len(out["ufboot_support"]) != n_anc
@@ -2938,8 +2962,8 @@ MCMC_SHORT = 100  # the --proposal nni and --full-bayes runs, and the resume
 MCMC_WINDOW = 20  # one sample block of mcmc
 SAMPLER_WINDOW = 30  # date and bayesfactor
 PROFILED_GENERATIONS = 10
-DATE_STRICT_GENERATIONS = 2000  # the command's 4000, cut to fit the call
-DATE_RELAXED_GENERATIONS = 1000
+DATE_STRICT_GENERATIONS = 1000  # the command's 4000, cut to fit the call
+DATE_RELAXED_GENERATIONS = 500
 # The clock fits of date (clock_lrt's two, 600 Adam steps each, and the
 # sampler's start fit, 500) cut to this many steps: at 64 x 2048 they take
 # about 28 ms a step on an H100 (47 s of a 59 s strict run at full length).
@@ -3377,12 +3401,35 @@ def same_chains(name: str, card, cpu, scale: float) -> None:
                                  f"{np.abs(a - b).max()}")
 
 
+def q5_alignment(n_taxa: int, n_sites: int, seed: int):
+    """(patterns, counts) of 5-state characters evolved down a random tree
+    (each site changes with probability 0.15 an edge), 5% missing (-1)."""
+    from trex_tpu_torch.alignment import compress_alignment
+
+    rng = np.random.default_rng(seed)
+    children = random_trees(rng, n_taxa, 1)[0]
+    seqs = np.empty((2 * n_taxa - 1, n_sites), np.int64)
+    seqs[-1] = rng.integers(0, 5, n_sites)
+    for a in range(n_taxa - 2, -1, -1):
+        for c in children[a]:
+            s = seqs[n_taxa + a].copy()
+            hit = rng.random(n_sites) < 0.15
+            s[hit] = rng.integers(0, 5, int(hit.sum()))
+            seqs[c] = s
+    states = seqs[:n_taxa].astype(np.int32)
+    states[rng.random(states.shape) < 0.05] = -1
+    patterns, counts = compress_alignment(states)
+    return np.asarray(patterns, np.int32), np.asarray(counts, np.float32)
+
+
 def bayes_reference(torch, workdir: str) -> list[dict]:
     """Slice 5 on the card against the CPU at BAYES_REF_SHAPE, each sampler
     from one draw source (a CPU generator's draws, moved to the run's
     device): the same accepts, children and samples, lnL and lengths within
     rtol K34_RTOL; accepts whose log u lies within 1e-5 of log alpha (and
-    within 1e-6 |lnL|) counted."""
+    within 1e-6 |lnL|) counted. The informed sampler also runs at Q = 5
+    (``q5_alignment``, K4's runtime-Q kernel), with its gen/s on each
+    device."""
     from trex_tpu_torch.alignment import compress_alignment
     from trex_tpu_torch.cli._common import _load_alignment
     from trex_tpu_torch.io import load_newick
@@ -3416,10 +3463,17 @@ def bayes_reference(torch, workdir: str) -> list[dict]:
                                                              dtype=np.float32))),
         "bayesfactor jc": ("ss", {}),
         "bayesfactor gtr": ("ss", dict(sample_model=True)),
+        # K4's runtime-Q kernel in the sampler: 5-state characters with
+        # missing data (tests/test_torch_mcmc_any_q.py's case, at 10 x 300).
+        "mcmc informed q5": ("mcmc", dict(n_runs=1, n_chains=2, n_states=5)),
     }
+    q5_patterns, q5_counts = q5_alignment(BAYES_REF_SHAPE["n_taxa"], BAYES_REF_SHAPE["n_sites"],
+                                          SEED + 36)
     rows = []
     for name, (kind, kw) in runs.items():
-        outs, margins = {}, {"cuda": [], "cpu": []}
+        outs, margins, walls = {}, {"cuda": [], "cpu": []}, {}
+        kw = dict(kw)
+        q = kw.pop("n_states", 4)
         accept = mcmc.metropolis_accept
         try:
             for device in ("cuda", "cpu"):
@@ -3435,8 +3489,18 @@ def bayes_reference(torch, workdir: str) -> list[dict]:
                 if kind == "mcmc":
                     ck = os.path.join(workdir, f"bayes_ref_{device}")
                     shutil.rmtree(ck, ignore_errors=True)
-                    res = mcmc.mcmc_sample(patterns.astype(np.int32), 4, n_generations=gens,
+                    leaves = patterns.astype(np.int32)
+                    if q != 4:
+                        leaves = q5_patterns
+                        common.update(site_weights=q5_counts, sequences_are_masks=False)
+                    if device == "cuda":
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = mcmc.mcmc_sample(leaves, q, n_generations=gens,
                                            sample_every=10, checkpoint_dir=ck, **common, **kw)
+                    if device == "cuda":
+                        torch.cuda.synchronize()
+                    walls[device] = time.perf_counter() - t0
                     state = dict(np.load(os.path.join(ck, "mcmc_checkpoint.npz")))
                     state.pop("draws_state")
                     outs[device] = dict(state, sample_children=res.sample_children,
@@ -3458,6 +3522,8 @@ def bayes_reference(torch, workdir: str) -> list[dict]:
                                                                     [1.0]))).max())
         finite = np.abs(card[np.isfinite(card)])
         row = dict(sampler=name, generations=gens, decisions=int(card.size),
+                   **({"n_states": q, "gen_per_s": {d: gens / w for d, w in walls.items()}}
+                      if q != 4 else {}),
                    near_ties_within_1e_5=int((finite <= 1e-5).sum()),
                    near_ties_within_1e_6_lnl=int((finite <= 1e-6 * scale).sum()))
         # The first decision the devices took apart: none, or one whose log u
@@ -3883,6 +3949,615 @@ def models_entry(models: dict) -> dict | None:
     }
 
 
+# Slice 7a (multi-device): the ('tree', 'site') mesh. The host has one
+# card, and NCCL puts one rank on a card, so the mesh runs three ways: (a) a
+# 1 x 1 mesh in this process (no process group), (b) a one-rank NCCL world,
+# (c) two gloo ranks sharing the card (gloo runs its collectives on CUDA
+# tensors), the one way the kernels see true tree and site shards here.
+MESH_WORLD_TIMEOUT = 300  # the two-rank world's wall limit, seconds
+MESH_PER_SITE_TREES = 64  # (b)'s per-site rows: the first trees of the NNI batch
+MESH_ML_SCAN_ROUNDS = 1  # (b)'s ML scan: one reduced round at 128 x 1024
+# aLRT statistics of a mesh route against its single-device run: twice a
+# difference of two fitted likelihoods near 4.5e5 at 512 x 2048, where the
+# batched Newton fit's float32 sums follow its chunks, which differ per
+# rank. Read 0.126 apart at (2, 1) on an H100 in two runs; the bound leaves
+# about 8 times that.
+MESH_ALRT_TOL = 1.0
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def mesh_commands(fasta: str, device: str = "cuda") -> dict[str, list[str]]:
+    """(c)'s commands by name: the default infer on each two-rank mesh, the
+    ML support route (K4 on site shards) and the supports route (candidate
+    fits over 'tree')."""
+    tail = ["--device", device]
+    return {
+        "parsimony 2,1": ["infer", "--alignment", fasta, "--mesh", "2,1", *tail],
+        "parsimony 1,2": ["infer", "--alignment", fasta, "--mesh", "1,2", *tail],
+        "ml bootstrap 1,2": ["infer", "--alignment", fasta, *ML_SUPPORT_ARGS, "--mesh", "1,2",
+                             *tail],
+        "supports 2,1": ["infer", "--alignment", fasta, *SUPPORT_ARGS_4A, "--mesh", "2,1",
+                         *tail],
+    }
+
+
+def launch_counters():
+    """(wrappers, reset, read): the kernel wrappers by name, a function that
+    sets every launch count to 0 and one that reads them (each wrapper's
+    grids, and K3/K4's by mode: "k34_shared" (one P, K3), "k34_per_branch"
+    (a P a branch, K4) and of those the per-site calls' "k34_per_site")."""
+    from trex_tpu_torch.ops.fitch_cuda import batched_fitch_score_cuda
+    from trex_tpu_torch.ops.fitch_levels import fitch_levels_balanced
+    from trex_tpu_torch.ops.insertion_cuda import insertion_delta_cuda
+    from trex_tpu_torch.ops.likelihood_cuda import batched_log_likelihood_cuda
+    from trex_tpu_torch.ops.sankoff_cuda import batched_sankoff_score_cuda
+    from trex_tpu_torch.ops.tree_plan import tree_plan
+
+    wrappers = {
+        "k1": batched_fitch_score_cuda, "k2": insertion_delta_cuda,
+        "k34": batched_log_likelihood_cuda, "k5": batched_sankoff_score_cuda,
+        "k6": fitch_levels_balanced, "plan": tree_plan,
+    }
+
+    def reset() -> None:
+        for fn in wrappers.values():
+            fn.launches = 0
+            if hasattr(fn, "calls"):
+                fn.calls = 0
+        batched_log_likelihood_cuda.launches_by_mode = {"shared": 0, "per_branch": 0,
+                                                         "per_site": 0}
+
+    def read() -> dict:
+        modes = batched_log_likelihood_cuda.launches_by_mode
+        return {**{name: fn.launches for name, fn in wrappers.items()},
+                "k34_shared": modes["shared"], "k34_per_branch": modes["per_branch"],
+                "k34_per_site": modes.get("per_site", 0)}
+
+    return wrappers, reset, read
+
+
+def main_patterns(torch, fasta: str, device):
+    """(patterns, weights) of an alignment as device tensors (int32 masks,
+    float32 counts), as ``infer`` compresses it."""
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli._common import _load_alignment
+
+    _, masks, _ = _load_alignment(fasta, "dna")
+    patterns, counts = compress_alignment(masks)
+    return (torch.as_tensor(np.asarray(patterns, np.int32), device=device),
+            torch.as_tensor(np.asarray(counts, np.float32), device=device))
+
+
+def profiled_window(torch, fn) -> dict:
+    """``fn()`` once more after a first call, profiled: this process's
+    device busy time and idle share, launches, top kernels (the card's
+    work of this process only)."""
+    fn()
+    events, wall = device_events(torch, fn)
+    busy = sum(seconds for _, seconds in events.values())
+    return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+            "device_launches": sum(count for count, _ in events.values()),
+            "top": top_events(events, 4)}
+
+
+def scan_round(mesh, topology, leaves, weights):
+    """One sharded SPR-scan round (``sharded_spr_scan_best``) at a tree: the
+    main path's climb round, the window (a) profiles."""
+    from trex_tpu_torch.parallel.sharded import sharded_spr_scan_best
+
+    return lambda: sharded_spr_scan_best(mesh, topology, leaves, weights,
+                                         sequences_are_masks=True)
+
+
+def score_round(torch, mesh, batch, blens, leaves, weights):
+    """One round of candidate scoring over the mesh: K1 parsimony scores and
+    K4 JC log-likelihoods of ``batch`` (``tile_batch``), each a psum over
+    'site' and a gather over 'tree'; the window (b) and (c) profile."""
+    from trex_tpu_torch.parallel import sharded as sh
+    from trex_tpu_torch.types import CostModel
+
+    hamming = CostModel.hamming(4, device=leaves.device).matrix
+    kw = dict(site_weights=weights, sequences_are_masks=True)
+    return lambda: (sh.sharded_batch_scores(mesh, batch, hamming, leaves, **kw),
+                    sh.sharded_log_likelihoods(mesh, batch, blens, leaves, 4, **kw))
+
+
+def tile_batch(torch, topology, leaves):
+    """The NNI neighbourhood of ``topology`` on ``leaves``' device, and its
+    JC ranking lengths (RANKING_LENGTH on every branch)."""
+    from trex_tpu_torch.io import nni_neighbors_host
+    from trex_tpu_torch.topology import Topology
+
+    children, parents = nni_neighbors_host(topology)
+    batch = Topology(torch.as_tensor(children, device=leaves.device),
+                     torch.as_tensor(parents, device=leaves.device))
+    return batch, torch.full((batch.children.shape[0], topology.n_all), RANKING_LENGTH,
+                             device=leaves.device)
+
+
+def shard_tiles(torch, topology, leaves, weights, reset, read) -> dict:
+    """K1 (Hamming), K5 (TT(1, 2)) and K4 (JC, a P per branch) on this rank's
+    tiles of ``topology``'s NNI batch, on the (2, 1) and (1, 2) meshes of
+    the world: the gathered scores and this rank's launches, by mesh."""
+    from trex_tpu_torch.parallel import make_mesh
+    from trex_tpu_torch.parallel import sharded as sh
+    from trex_tpu_torch.types import CostModel
+
+    batch, blens = tile_batch(torch, topology, leaves)
+    kw = dict(site_weights=weights, sequences_are_masks=True)
+    out = {}
+    for t, s in ((2, 1), (1, 2)):
+        mesh = make_mesh(tree_parallelism=t)
+        reset()
+        scores = {
+            "k1": sh.sharded_batch_scores(mesh, batch, CostModel.hamming(4, device=leaves.device)
+                                          .matrix, leaves, **kw),
+            "k5": sh.sharded_batch_scores(mesh, batch, CostModel.transition_transversion(
+                1.0, 2.0, device=leaves.device).matrix, leaves, **kw),
+            "k4": sh.sharded_log_likelihoods(mesh, batch, blens, leaves, 4, **kw),
+        }
+        if leaves.is_cuda:
+            torch.cuda.synchronize()
+        out[f"{t},{s}"] = dict(launches=read(),
+                               **{k: v.cpu().tolist() for k, v in scores.items()})
+    return out
+
+
+def mesh_worker(rank: int, work: str) -> int:
+    """One rank of a two-rank world (run as ``python -c "import chip_smoke;
+    chip_smoke.mesh_worker(rank, dir)"``): gloo over ``file://`` in
+    ``work``, on the card the ranks share (``device`` "cuda") or the CPU.
+    Runs each command of ``work/spec.json`` after a barrier, every launch
+    count set to 0 just before it and read just after, then ``shard_tiles``
+    and on the card a profiled ``score_round`` at (2, 1) on the first
+    command's tree; writes ``work/rank<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from trex_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    with open(os.path.join(work, "spec.json")) as fh:
+        spec = json.load(fh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(f"file://{work}/rdv", 2, rank, spec["timeout"], backend="gloo",
+                           device=spec["device"])
+    cuda = spec["device"] == "cuda"
+    # The two ranks share the host's cores.
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    _, reset, read = launch_counters()
+    results, first = {}, None
+    for name, argv in spec["commands"].items():
+        dist.barrier()
+        if cuda:
+            torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        run = run_cli(argv)
+        if cuda:
+            torch.cuda.synchronize()
+        results[name] = dict(out=run.out, wall_s=time.perf_counter() - t0,
+                             seconds=run.seconds, launches=read())
+        first = first or run.result.topology
+    if spec.get("profile"):
+        leaves, weights = main_patterns(torch, spec["profile"], spec["device"])
+        results["tiles"] = shard_tiles(torch, first, leaves, weights, reset, read)
+        if cuda:
+            batch, blens = tile_batch(torch, first, leaves)
+            dist.barrier()
+            results["profile"] = profiled_window(torch, score_round(
+                torch, make_mesh(tree_parallelism=2), batch, blens, leaves, weights))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+        json.dump(results, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_mesh_world(workdir: str, name: str, commands: dict, device: str,
+                   profile: str | None = None) -> list[dict]:
+    """Each rank's results of ``mesh_worker`` on ``commands`` in a new
+    two-rank world. A rank that fails, or a world past
+    MESH_WORLD_TIMEOUT, kills both and raises with their logs."""
+    work = os.path.join(workdir, name)
+    os.makedirs(work)
+    with open(os.path.join(work, "spec.json"), "w") as fh:
+        json.dump(dict(commands=commands, device=device, timeout=MESH_WORLD_TIMEOUT,
+                       profile=profile), fh)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    procs = []
+    for rank in range(2):
+        log = open(os.path.join(work, f"log{rank}.txt"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c",
+             f"import sys, chip_smoke; sys.exit(chip_smoke.mesh_worker({rank}, {work!r}))"],
+            cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + MESH_WORLD_TIMEOUT
+    try:
+        while (any(p.poll() is None for p, _ in procs)
+               and not any(p.poll() for p, _ in procs) and time.monotonic() < deadline):
+            time.sleep(0.2)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    if any(p.returncode for p, _ in procs):
+        logs = "\n".join(f"--- rank {r} (rc {p.returncode}) ---\n"
+                         + open(os.path.join(work, f"log{r}.txt")).read()[-6000:]
+                         for r, (p, _) in enumerate(procs))
+        raise AssertionError(f"two-rank world {name} failed:\n{logs}")
+    results = []
+    for rank in range(2):
+        with open(os.path.join(work, f"rank{rank}.json")) as fh:
+            results.append(json.load(fh))
+    return results
+
+
+def same_ml_route(card: dict, ref: dict) -> dict:
+    """An ML route's JSON against its single-device run: the same keys,
+    tree topology and counts, likelihoods within rtol K34_RTOL, lengths
+    within 1e-3; bootstrap supports, supports and shares within SHARE_TOL;
+    aLRT statistics within MESH_ALRT_TOL. Returns the worst differences."""
+    card = {k: v for k, v in card.items() if k != "mesh"}
+    ref = {k: v for k, v in ref.items() if k != "mesh"}
+    worst = {"split_support": 0.0, "alrt_stat": 0.0}
+    if "alrt" in ref:
+        got, want = card.pop("alrt"), ref.pop("alrt")
+        if [a is None for a in got] != [b is None for b in want]:
+            raise AssertionError("aLRT statistics: the untested branches differ")
+        worst["alrt_stat"] = max((abs(a - b) for a, b in zip(got, want) if b is not None),
+                                 default=0.0)
+        if worst["alrt_stat"] > MESH_ALRT_TOL:
+            raise AssertionError(f"aLRT statistics {worst['alrt_stat']} apart "
+                                 f"(bound {MESH_ALRT_TOL})")
+    if "split_support" in ref:
+        worst["split_support"] = max(abs(a - b) for a, b in zip(card["split_support"],
+                                                                 ref["split_support"]))
+        if worst["split_support"] > SHARE_TOL:
+            raise AssertionError(f"split supports: {card['split_support']} != "
+                                 f"{ref['split_support']}")
+        card = {k: v for k, v in card.items() if k not in ("split_support",
+                                                          "mean_split_support")}
+        ref = {k: v for k, v in ref.items() if k not in ("split_support", "mean_split_support")}
+    worst.update(close_supports(card, ref))
+    return worst
+
+
+def mesh_routes(torch, dev, workdir: str, main_fasta: str, nni_fasta: str, reuse: dict,
+                reset_counts, launch_counts) -> dict:
+    """Slice 7a at the main path's width, 512 x 2048: (a) ``infer --mesh
+    auto`` in this process (a 1 x 1 mesh) against ``--mesh 1,1``; (b) a
+    one-rank NCCL world running the sharded functions on the main path's
+    and the supports' batches against the single-device functions; (c) two
+    gloo ranks sharing the card running ``mesh_commands`` against the
+    single-device runs (``reuse``: the ML support and supports routes'
+    outputs when their phases ran, else run here), then K1, K5 and K4 on
+    each rank's tiles at both meshes. Each with walls, launches and a
+    profiled window: (a) a scan round (``scan_round``), (b) and (c) a round
+    of candidate scoring (``score_round``). Returns what the kernels line
+    reads."""
+    import torch.distributed as dist
+
+    from trex_tpu_torch.io import nni_neighbors_host
+    from trex_tpu_torch.ops.dispatch import batched_scores_fastest
+    from trex_tpu_torch.ops.fitch_cuda import batched_fitch_score_cuda
+    from trex_tpu_torch.ops.likelihood import jc69_transition
+    from trex_tpu_torch.ops.likelihood_asr import per_site_matrix
+    from trex_tpu_torch.ops.likelihood_cuda import batched_log_likelihood_cuda
+    from trex_tpu_torch.ops.likelihood_scan import likelihood_spr_scan_best_segmented
+    from trex_tpu_torch.ops.spr_scan import spr_scan_best_segmented, spr_scan_segmented
+    from trex_tpu_torch.parallel import initialize_distributed, make_mesh
+    from trex_tpu_torch.parallel import sharded as sh
+    from trex_tpu_torch.topology import Topology, random_topologies
+    from trex_tpu_torch.types import CostModel
+
+    found = {"launches": {}}
+    pat_t, w_t = main_patterns(torch, main_fasta, dev)
+
+    # (a) One process: --mesh auto is a 1 x 1 mesh without a process group.
+    runs = {}
+    for spec in ("1,1", "auto"):
+        reset_counts()
+        runs[spec] = timed_cli(torch, ["infer", "--alignment", main_fasta, "--mesh", spec])
+        found["launches"][f"a {spec}"] = launch_counts()
+    single, meshed = runs["1,1"][0].out, runs["auto"][0].out
+    if meshed.pop("mesh") != {"tree": 1, "site": 1} or meshed != single:
+        raise AssertionError(f"--mesh auto {meshed} != --mesh 1,1 {single}")
+    tree = runs["1,1"][0].result.topology
+    one = make_mesh()
+    found["a"] = dict(wall_s={spec: wall for spec, (_, wall) in runs.items()},
+                      seconds={spec: run.seconds for spec, (run, _) in runs.items()},
+                      launches={spec: found["launches"][f"a {spec}"] for spec in runs},
+                      parsimony_score=single["parsimony_score"],
+                      search_rounds=single["search_rounds"], same_tree_and_score=True,
+                      profile=profiled_window(torch, scan_round(one, tree, pat_t, w_t)))
+    emit("mesh_a", command="infer --mesh auto (a 1 x 1 mesh, no process group) against "
+         "--mesh 1,1, 512 x 2048", **found["a"])
+
+    # (b) A one-rank NCCL world: real NCCL collectives around the kernels.
+    t0 = time.perf_counter()
+    initialize_distributed(f"file://{workdir}/nccl_rdv", 1, 0, 120, device=dev)
+    try:
+        mesh = make_mesh()
+        if dist.get_backend() != ("nccl" if dev.type == "cuda" else "gloo") or \
+                mesh.groups["site"] is None:
+            raise AssertionError(f"the NCCL world did not form: {dist.get_backend()}")
+        children, parents = nni_neighbors_host(tree)
+        batch = Topology(torch.as_tensor(children, device=dev),
+                         torch.as_tensor(parents, device=dev))
+        hamming = CostModel.hamming(4, device=dev).matrix
+        tt = CostModel.transition_transversion(1.0, 2.0, device=dev).matrix
+        blens = torch.full((batch.children.shape[0], tree.n_all), RANKING_LENGTH, device=dev)
+        few = Topology(batch.children[:MESH_PER_SITE_TREES], batch.parents[:MESH_PER_SITE_TREES])
+        ml_leaves, ml_w = main_patterns(torch, nni_fasta, dev)
+        ml_tree = random_topologies(SEED + 70, ml_leaves.shape[0], 1, dev)
+        ml_tree = Topology(ml_tree.children[0], ml_tree.parents[0])
+        kw = dict(site_weights=w_t, sequences_are_masks=True)
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = {
+            "k1 batch": sh.sharded_batch_scores(mesh, batch, hamming, pat_t, **kw),
+            "k5 batch": sh.sharded_batch_scores(mesh, batch, tt, pat_t, **kw),
+            "best tree": sh.sharded_best_tree(mesh, batch, hamming, pat_t, **kw),
+            "k4 lnl": sh.sharded_log_likelihoods(mesh, batch, blens, pat_t, 4, **kw),
+            "per-site rows": sh.sharded_per_site_matrix(mesh, few, pat_t, 4, weights=w_t,
+                                                        sequences_are_masks=True),
+            "scan table": sh.sharded_spr_scan(mesh, tree, pat_t, w_t, sequences_are_masks=True),
+            "scan best": sh.sharded_spr_scan_best(mesh, tree, pat_t, w_t,
+                                                  sequences_are_masks=True),
+            "ml scan best": sh.sharded_spr_scan_best(mesh, ml_tree, ml_leaves, ml_w,
+                                                     sequences_are_masks=True, criterion="ml",
+                                                     n_states=4),
+        }
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t1
+        found["launches"]["b"] = launch_counts()
+        prior = torch.full((4,), 0.25, device=dev)
+        p = jc69_transition(blens, 4).contiguous()
+        want = {
+            "k1 batch": batched_scores_fastest(batch, hamming, pat_t, w_t,
+                                               sequences_are_masks=True),
+            "k5 batch": batched_scores_fastest(batch, tt, pat_t, w_t, sequences_are_masks=True),
+            "k4 lnl": batched_log_likelihood_cuda(batch.children, pat_t, w_t, prior, p,
+                                                  sequences_are_masks=True),
+            "per-site rows": per_site_matrix(few, pat_t, 4, weights=w_t,
+                                             sequences_are_masks=True),
+            "scan table": spr_scan_segmented(tree, pat_t, w_t, sequences_are_masks=True),
+            "scan best": spr_scan_best_segmented(tree, pat_t, w_t, sequences_are_masks=True),
+            "ml scan best": likelihood_spr_scan_best_segmented(
+                ml_tree, ml_leaves, 4, RANKING_LENGTH, ml_w, sequences_are_masks=True),
+        }
+        scores = want["k1 batch"]
+        want["best tree"] = (torch.argmin(scores), scores.min())
+        checks = {}
+        for key in got:
+            a, b = got[key], want[key]
+            if key in ("k4 lnl", "per-site rows"):
+                rel = float(((a - b).abs() / b.abs()).max())
+                if rel > K34_RTOL:
+                    raise AssertionError(f"(b) {key}: rel err {rel}")
+                checks[key] = {"equal": bool(torch.equal(a, b)), "max_rel_err": rel}
+            elif key == "scan table":
+                if not (torch.equal(a[0], b[0]) and float(a[1]) == float(b[1])):
+                    raise AssertionError(f"(b) {key} differs")
+                checks[key] = {"equal": True}
+            elif isinstance(a, tuple) and not torch.is_tensor(a[0]):
+                if a != b:
+                    raise AssertionError(f"(b) {key}: {a} != {b}")
+                checks[key] = {"equal": True, "move": list(a)}
+            else:
+                a = [float(x) for x in a] if isinstance(a, tuple) else a
+                b = [float(x) for x in b] if isinstance(b, tuple) else b
+                same = a == b if isinstance(a, list) else bool(torch.equal(a, b))
+                if not same:
+                    raise AssertionError(f"(b) {key} differs")
+                checks[key] = {"equal": True}
+        # K1 held and timed at the rank's tile (here the whole NNI batch).
+        kids = batch.children.to(torch.int32).contiguous()
+        found["k1_at_b"] = measure(
+            torch, lambda: batched_fitch_score_cuda(kids, pat_t, w_t, n_states=4),
+            lambda: k1_plain_in_slices(torch, kids, pat_t, w_t),
+            *k1_work(kids.shape[0], pat_t.shape[0], int((w_t != 0).sum()), 4),
+            ops_per_s=INT32_OPS_PER_S, plain_reps=2)
+        found["b"] = dict(batch=int(batch.children.shape[0]), per_site_trees=MESH_PER_SITE_TREES,
+                          ml_scan_shape=[int(ml_leaves.shape[0]), int(ml_leaves.shape[1])],
+                          checks=checks, sharded_calls_s=sharded_s, k1_at_tile=found["k1_at_b"],
+                          launches=found["launches"]["b"],
+                          profile=profiled_window(torch, score_round(torch, mesh, batch, blens,
+                                                                     pat_t, w_t)))
+        if min(found["b"]["launches"][k] for k in ("k1", "k5", "k34_per_branch",
+                                                   "k34_per_site")) <= 0:
+            raise AssertionError(f"(b) launches: {found['b']['launches']}")
+        emit("mesh_b", what="a one-rank NCCL world: the sharded functions on the main path's "
+             "NNI batch (1020 trees, 512 x 2048), its tree's scans, the first "
+             f"{MESH_PER_SITE_TREES} trees' per-site rows and an ML scan round at 128 x 1024, "
+             "each against the single-device function", **found["b"])
+        del batch, few, got, want, blens, p, kids
+    finally:
+        dist.destroy_process_group()
+    found["b"]["wall_s"] = time.perf_counter() - t0
+
+    # (c) Two gloo ranks on the card, against the single-device runs.
+    refs = {"parsimony 2,1": runs["1,1"], "parsimony 1,2": runs["1,1"]}
+    commands = mesh_commands(main_fasta)
+    for name, key in (("ml bootstrap 1,2", "ml_support_out"), ("supports 2,1", "route_out")):
+        if key in reuse:
+            refs[name] = reuse[key]
+        else:
+            argv = [a for a in commands[name] if a not in ("--mesh", "1,2", "2,1")]
+            refs[name] = timed_cli(torch, argv)
+    # The ranks need the card's memory that this process's allocator caches.
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_mesh_world(workdir, "mesh_c", commands, "cuda", profile=main_fasta)
+    world_s = time.perf_counter() - t0
+    rows, failed = {}, []
+    for name, argv in commands.items():
+        ref_out, ref_wall = refs[name][0].out, refs[name][1]
+        outs = [r[name]["out"] for r in ranks]
+        spec = argv[argv.index("--mesh") + 1]
+        got = dict(outs[0])
+        try:
+            if outs[0] != outs[1]:
+                raise AssertionError("the ranks' results differ")
+            if got.pop("mesh") != {"tree": int(spec[0]), "site": int(spec[2])}:
+                raise AssertionError(f"mesh {outs[0]['mesh']}")
+            if name.startswith("parsimony"):
+                if got != ref_out:
+                    raise AssertionError(f"{got} != single device {ref_out}")
+                worst = {"equal": True}
+            else:
+                worst = same_ml_route(got, ref_out)
+        except AssertionError as err:
+            failed.append(f"(c) {name}: {str(err)[:2000]}")
+            worst = {"failed": True}
+        rows[name] = dict(wall_s=[r[name]["wall_s"] for r in ranks],
+                          single_device_wall_s=ref_wall,
+                          single_device_seconds=refs[name][0].seconds,
+                          launches=[r[name]["launches"] for r in ranks],
+                          seconds=[r[name]["seconds"] for r in ranks], worst=worst)
+        emit("mesh_c", command=" ".join(argv[3:]) + " (512 x 2048; two gloo ranks sharing "
+             "one card: not a scaling figure)", **rows[name])
+    if failed:
+        raise AssertionError("\n".join(failed))
+    # K1, K5 and K4 on true tree and site shards, against the single-device
+    # kernels on the same batch (the first route's tree: the main path's).
+    batch, blens = tile_batch(torch, tree, pat_t)
+    hamming = CostModel.hamming(4, device=dev).matrix
+    tt = CostModel.transition_transversion(1.0, 2.0, device=dev).matrix
+    single = {
+        "k1": batched_scores_fastest(batch, hamming, pat_t, w_t, sequences_are_masks=True),
+        "k5": batched_scores_fastest(batch, tt, pat_t, w_t, sequences_are_masks=True),
+        "k4": batched_log_likelihood_cuda(
+            batch.children, pat_t, w_t, torch.full((4,), 0.25, device=dev),
+            jc69_transition(blens, 4).contiguous(), sequences_are_masks=True),
+    }
+    tiles = {}
+    for shape in ("2,1", "1,2"):
+        row = {"launches": [r["tiles"][shape]["launches"] for r in ranks]}
+        for key, want in single.items():
+            got = [torch.tensor(r["tiles"][shape][key], device=dev) for r in ranks]
+            if not torch.equal(got[0], got[1]):
+                raise AssertionError(f"(c) {key} at {shape}: the ranks differ")
+            rel = float(((got[0] - want).abs() / want.abs()).max())
+            if (key != "k4" and not torch.equal(got[0], want)) or rel > K34_RTOL:
+                raise AssertionError(f"(c) {key} at {shape} differs from one device: {rel}")
+            row[key] = {"equal": bool(torch.equal(got[0], want)), "max_rel_err": rel}
+        for key, launch in (("k1", "k1"), ("k5", "k5"), ("k4", "k34_per_branch")):
+            if min(n[launch] for n in row["launches"]) <= 0:
+                raise AssertionError(f"(c) {key} at {shape} did not launch on every rank")
+        tiles[shape] = row
+    del batch, blens, single
+    emit("mesh_c_tiles", what="K1, K5 (TT(1, 2)) and K4 (JC, a P per branch) on each rank's "
+         "tile of the main path's NNI batch at (2, 1) and (1, 2), against one device",
+         **tiles)
+    found["c"] = dict(routes=rows, world_s=world_s, tiles=tiles,
+                      profile=[r["profile"] for r in ranks])
+    found["launches"]["c"] = {name: row["launches"] for name, row in rows.items()}
+    found["launches"]["c tiles"] = {shape: row["launches"] for shape, row in tiles.items()}
+    for key in ("k1", "k34_per_branch", "k34_per_site"):
+        if not any(row["launches"][rank][key] > 0 for row in rows.values() for rank in (0, 1)):
+            raise AssertionError(f"(c) no {key} launch on a shard")
+    emit("mesh_c_profile", what="one round of K1 scores and K4 lnL over the (2, 1) mesh on "
+         "the main path's NNI batch, profiled in each rank (its own process's kernels)",
+         world_s=world_s,
+         profile=found["c"]["profile"])
+    return found
+
+
+def mesh_reference(torch, workdir: str, devices=("cuda", "cpu")) -> list[dict]:
+    """Slice 7a on the card against the CPU at REF_SHAPE: (a) ``infer --mesh
+    auto``; (b) the sharded functions in a one-rank world (NCCL on the
+    card, gloo on the CPU) on the NNI batch of that tree and its scans;
+    (c) ``mesh_commands`` in one two-rank world, each command on the card
+    and on the CPU."""
+    import torch.distributed as dist
+
+    from trex_tpu_torch.io import nni_neighbors_host
+    from trex_tpu_torch.parallel import initialize_distributed, make_mesh
+    from trex_tpu_torch.parallel import sharded as sh
+    from trex_tpu_torch.topology import Topology
+    from trex_tpu_torch.types import CostModel
+
+    fasta = os.path.join(workdir, "mesh_ref.fasta")
+    simulate_fasta(fasta, REF_SHAPE["n_taxa"], REF_SHAPE["n_sites"], SEED + 71)
+    rows = []
+    card_dev, cpu_dev = devices
+    outs = [run_cli(["infer", "--alignment", fasta, "--mesh", "auto", "--device", d])
+            for d in devices]
+    if outs[0].out != outs[1].out:
+        raise AssertionError(f"(a) card {outs[0].out} != cpu {outs[1].out}")
+    rows.append(dict(route="(a) infer --mesh auto", parsimony_score=outs[0].out[
+        "parsimony_score"], same_json=True))
+    tree = outs[1].result.topology
+    got = []
+    for i, device in enumerate(devices):
+        initialize_distributed(f"file://{workdir}/ref_rdv_{i}", 1, 0, 120, device=device)
+        try:
+            mesh = make_mesh()
+            leaves, weights = main_patterns(torch, fasta, device)
+            children, parents = nni_neighbors_host(tree)
+            batch = Topology(torch.as_tensor(children, device=device),
+                             torch.as_tensor(parents, device=device))
+            t = tree.to(device)
+            kw = dict(site_weights=weights, sequences_are_masks=True)
+            got.append([
+                sh.sharded_batch_scores(mesh, batch, CostModel.hamming(4, device=device).matrix,
+                                        leaves, **kw).cpu(),
+                sh.sharded_batch_scores(
+                    mesh, batch, CostModel.transition_transversion(1.0, 2.0, device=device).matrix,
+                    leaves, **kw).cpu(),
+                sh.sharded_log_likelihoods(mesh, batch, torch.full(
+                    (batch.children.shape[0], t.n_all), RANKING_LENGTH, device=device), leaves,
+                    4, **kw).cpu(),
+                sh.sharded_spr_scan(mesh, t, leaves, weights, sequences_are_masks=True)[0].cpu(),
+                sh.sharded_spr_scan_best(mesh, t, leaves, weights, sequences_are_masks=True),
+            ])
+        finally:
+            dist.destroy_process_group()
+    card, cpu = got
+    rel = float(((card[2] - cpu[2]).abs() / cpu[2].abs()).max())
+    if not (torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1])
+            and torch.equal(card[3], cpu[3]) and card[4] == cpu[4] and rel <= K34_RTOL):
+        raise AssertionError(f"(b) card and CPU differ (lnl rel {rel})")
+    rows.append(dict(route="(b) sharded functions, one-rank worlds (NCCL / gloo)",
+                     batch=int(card[0].shape[0]), parsimony_equal=True, lnl_max_rel_err=rel,
+                     scan_best=list(card[4])))
+    commands = {f"{name} {i}": argv for i, d in enumerate(devices)
+                for name, argv in mesh_commands(fasta, d).items()}
+    torch.cuda.empty_cache()
+    ranks = run_mesh_world(workdir, "mesh_ref", commands, card_dev)
+    for name in mesh_commands(fasta):
+        a, b = (ranks[0][f"{name} {i}"]["out"] for i in range(2))
+        if name.startswith("parsimony"):
+            if a != b:
+                raise AssertionError(f"(c) {name}: card {a} != cpu {b}")
+            worst = {"equal": True}
+        else:
+            worst = same_ml_route(a, b)
+        rows.append(dict(route=f"(c) {name}, two ranks", worst=worst))
+    return rows
+
+
+def mesh_entry(mesh: dict) -> dict | None:
+    """K1's kernels-line entry from the mesh phase alone (a run of a subset
+    of the phases): launches on (c)'s default infer at (2, 1), and K1 held
+    and timed at (b)'s batch, the rank's tile of the main path's NNI batch."""
+    if not mesh:
+        return None
+    at = mesh["k1_at_b"]
+    return {
+        "name": "fitch_batched", "route": "cuda",
+        "source": "trex_tpu_torch/csrc/fitch_batched.cu",
+        "replaces": "trex_tpu/ops/sankoff_pallas.py:183",
+        "launches": mesh["launches"]["c"]["parsimony 2,1"][0]["k1"],
+        **{k: at[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "mesh_route_launches": mesh["launches"],
+    }
+
+
 def main(argv: list[str] | None = None) -> int:
     import torch
 
@@ -3942,28 +4617,7 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
-    wrappers = {
-        "k1": batched_fitch_score_cuda, "k2": insertion_delta_cuda,
-        "k34": batched_log_likelihood_cuda, "k5": batched_sankoff_score_cuda,
-        "k6": fitch_levels_balanced, "plan": tree_plan,
-    }
-
-    def reset_counts() -> None:
-        for fn in wrappers.values():
-            fn.launches = 0
-            if hasattr(fn, "calls"):
-                fn.calls = 0
-        batched_log_likelihood_cuda.launches_by_mode = {"shared": 0, "per_branch": 0,
-                                                         "per_site": 0}
-
-    def launch_counts() -> dict:
-        """Each wrapper's grids, and K3/K4's by mode: "k34_shared" (one
-        P, K3) and "k34_per_branch" (a P a branch, K4), and of those the
-        per-site calls' ("k34_per_site")."""
-        modes = batched_log_likelihood_cuda.launches_by_mode
-        return {**{name: fn.launches for name, fn in wrappers.items()},
-                "k34_shared": modes["shared"], "k34_per_branch": modes["per_branch"],
-                "k34_per_site": modes.get("per_site", 0)}
+    wrappers, reset_counts, launch_counts = launch_counters()
 
     def call_counts() -> dict:
         """Calls that launched, of the wrappers that count them (K5, K3/K4)."""
@@ -4805,14 +5459,28 @@ def main(argv: list[str] | None = None) -> int:
         for row in models_reference(torch, workdir):
             emit("reference", part="slice 6", **row)
         emit("reference_models", seconds=time.perf_counter() - t0)
+    # 13. Slice 7a (multi-device): the mesh at 512 x 2048 three ways (a 1 x 1
+    # mesh, a one-rank NCCL world, two gloo ranks sharing the card), then
+    # the same routes on the card against the CPU.
+    mesh = {}
+    if "mesh" in phases:
+        t0 = time.perf_counter()
+        mesh = mesh_routes(torch, dev, workdir, main_fasta, nni_fasta,
+                           {**slice_2c, **supports}, reset_counts, launch_counts)
+        emit("mesh", seconds=time.perf_counter() - t0)
+    if "reference_mesh" in phases:
+        t0 = time.perf_counter()
+        for row in mesh_reference(torch, workdir):
+            emit("reference", part="slice 7a", **row)
+        emit("reference_mesh", seconds=time.perf_counter() - t0)
     shutil.rmtree(workdir)
 
     k3_model = k3_model_entry(slice_2b, slice_2c)
     per_site = per_site_entry(supports)
     if not EARLIER_PHASES <= phases:
         # A subset of the phases: the kernels its phases measured.
-        kernels = [k for k in (k3_model, per_site, bayes_entry(bayes), models_entry(models))
-                   if k]
+        kernels = [k for k in (k3_model, per_site, bayes_entry(bayes), models_entry(models),
+                               mesh_entry(mesh)) if k]
     else:
         kernels = [
             {
@@ -4828,6 +5496,7 @@ def main(argv: list[str] | None = None) -> int:
                 "ml_nni_route_launches": ml_launches["k1"],
                 "weighted_route_launches": wt_counts["k1"],
                 "bench_q4_launches": bench_runs[4]["launches"]["k1"],
+                **({"mesh_route_launches": mesh["launches"]} if mesh else {}),
                 "shape": K1_SHAPE, **k1, "library_ms": None,
                 "at_main_path": k1_main, "at_nni_route": k1_nni, "scratch_at_b": scratch_ab,
                 "at_support_route": slice_1b["support"]["k1_at_this_shape"],
@@ -4864,6 +5533,7 @@ def main(argv: list[str] | None = None) -> int:
                 **({"at_ml_tbr": supports["k3_at_ml_tbr"]} if supports else {}),
                 **bayes_fields(bayes),
                 **models_fields(models),
+                **({"mesh_route_launches": mesh["launches"]} if mesh else {}),
             },
             {
                 "name": "sankoff_batched", "route": "cuda",
@@ -4874,6 +5544,7 @@ def main(argv: list[str] | None = None) -> int:
                 "main_path_launches": main_counts["k5"],
                 "bench_q61_launches": bench_runs[61]["launches"]["k5"],
                 "score_launches": score_counts["k5"],
+                **({"mesh_route_launches": mesh["launches"]} if mesh else {}),
                 "shape": K5_BENCH_SHAPE, **k5, "library_ms": None,
                 "at_shapes": {key: v for key, v in k5_shapes.items() if key != "a"},
             },

@@ -108,6 +108,20 @@ def test_mesh_is_refused(fasta, tmp_path, command):
         torch_cli.main(argv)
 
 
+@pytest.mark.parametrize("command", ["mcmc", "bayesfactor", "date"])
+def test_launched_world_is_refused(fasta, tmp_path, monkeypatch, command):
+    """A launcher's two-rank world (``torchrun``'s environment) with no
+    ``--mesh`` flag is refused before any rank runs the sampler."""
+    for name, value in (("RANK", "0"), ("WORLD_SIZE", "2"), ("LOCAL_RANK", "0"),
+                        ("MASTER_ADDR", "localhost"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(name, value)
+    argv = [command, "--fasta", fasta, "--device", "cpu"]
+    if command != "mcmc":
+        argv += ["--tree", str(tmp_path / "none.nwk")]
+    with pytest.raises(SystemExit, match="Multi-device"):
+        torch_cli.main(argv)
+
+
 @pytest.mark.parametrize("command", ["mcmc", "date", "bayesfactor"])
 def test_default_device_is_the_card(fasta, tmp_path, command):
     import torch

@@ -20,6 +20,83 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--metrics-file", type=str, default=None)
 
 
+def _add_mesh_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--mesh", type=str, default=None, metavar="T,S",
+        help="shard work over a ('tree','site') mesh of the world's ranks "
+        "(torchrun --nproc-per-node N): T,S axis sizes (product = ranks), "
+        "'auto', or '1,1' to force one device. Default: auto when the world "
+        "has more than one rank, else one device",
+    )
+
+
+def _make_cli_mesh(spec: str | None, divides: int | None = None):
+    """Build a ('tree', 'site') mesh from a ``--mesh T,S`` CLI spec, with
+    the JAX CLI's rules.
+
+    ``"T,S"`` = explicit axis sizes (T*S must equal the ranks of the world,
+    1 without one); ``"auto"`` = ``make_mesh``'s heuristic over the world;
+    ``"1,1"`` = the single-device opt-out (None). No flag means ``auto``
+    when the world has more than one rank, else None. ``divides``: with
+    ``auto``, the largest tree axis dividing both the world and
+    ``divides`` (for samplers that split a fixed batch without padding).
+    """
+    import torch.distributed as dist
+
+    from trex_tpu_torch.parallel.mesh import make_mesh
+
+    n = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if spec == "1,1":
+        return None
+    if spec is None:
+        if n <= 1:
+            return None
+        spec = "auto"
+    if spec == "auto":
+        if divides is not None:
+            t = max(t for t in range(1, n + 1) if n % t == 0 and divides % t == 0)
+            return make_mesh(tree_parallelism=t)
+        return make_mesh()
+    try:
+        t_str, s_str = spec.split(",")
+        t, s = int(t_str), int(s_str)
+    except ValueError:
+        raise SystemExit(f"--mesh wants 'T,S' or 'auto', got {spec!r}")
+    if t * s != n:
+        raise SystemExit(f"--mesh {t},{s}: {t}*{s} != {n} addressable devices")
+    return make_mesh(tree_parallelism=t)
+
+
+def _join_world(args):
+    """Join a launcher's world (``torchrun``: every rank runs the command)
+    on ``--device``, then build ``--mesh``'s mesh (``_make_cli_mesh``)."""
+    from trex_tpu_torch.parallel.distributed import initialize_distributed
+
+    initialize_distributed(device=args.device)
+    return _make_cli_mesh(getattr(args, "mesh", None))
+
+
+def refuse_world(command: str) -> None:
+    """Refuse a launcher's world of more than one rank (``torchrun
+    --nproc-per-node N``) for a command that runs on one device: each rank
+    would run the whole command and write the same files. Only ``infer``
+    and ``topotest`` join a world (``_join_world``)."""
+    import os
+
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    if ranks > 1:
+        raise SystemExit(f"{command} runs on one device, not over {ranks} ranks: the "
+                         "Multi-device item of ROADMAP.md; launch it as one process")
+
+
+def is_output_rank() -> bool:
+    """True on the rank that prints and writes files: rank 0 of a world,
+    or the only process."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def _add_device(p: argparse.ArgumentParser, what: str) -> None:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help=f"where {what} runs (default cuda; raises when no "

@@ -10,7 +10,13 @@ import time
 import torch
 
 from trex_tpu_torch._device import resolve_device
-from trex_tpu_torch.cli._common import _load_alignment, _outgroup_indices, _start_tree
+from trex_tpu_torch.cli._common import (
+    _join_world,
+    _load_alignment,
+    _outgroup_indices,
+    _start_tree,
+    is_output_rank,
+)
 from trex_tpu_torch.search.hillclimb import (
     SearchResult,
     constrained_start,
@@ -56,11 +62,6 @@ def _check_ported(args) -> None:
                     f"--{name} applies to --criterion ml only (ROADMAP.md, accepted "
                     f"differences: the JAX CLI ignores it under {args.criterion})"
                 )
-    if args.mesh not in (None, "1,1"):
-        raise SystemExit(
-            "--mesh is not ported yet: the Multi-device item of ROADMAP.md; this "
-            "port runs on one device"
-        )
 
 
 def _sync(device: torch.device) -> None:
@@ -73,12 +74,19 @@ def run_infer(args) -> InferRun:
     ratchet, constraints, rooting and supports) or (``--criterion ml``)
     likelihood climb (with the iterated search, constraints, rooting, a
     fitted model and bootstrap supports); or (``--criterion distance``)
-    the NJ/UPGMA tree itself."""
+    the NJ/UPGMA tree itself.
+
+    With ``--mesh`` (or a launcher's world of more than one rank: every
+    rank runs the command, ``torchrun --nproc-per-node N``) the climbs,
+    scans, supports and bootstraps run across the ('tree', 'site') mesh
+    where the JAX CLI's do, the JSON gains ``"mesh"``, and only rank 0
+    writes ``--output-tree``."""
     import numpy as np
 
     from trex_tpu_torch.alignment import compress_alignment
 
     _check_ported(args)
+    mesh = _join_world(args)
     device = resolve_device(args.device)
     names, masks, n_states = _load_alignment(args.fasta, args.alphabet)
     patterns, counts = compress_alignment(masks)
@@ -92,6 +100,8 @@ def run_infer(args) -> InferRun:
         "n_sites": int(masks.shape[1]),
         "unique_patterns": int((counts > 0).sum()),
     }
+    if mesh is not None:
+        out["mesh"] = dict(mesh.shape)
     if args.criterion == "distance":
         return _run_distance(args, out, names, patterns, n_states, weights)
     t0 = time.perf_counter()
@@ -122,9 +132,9 @@ def run_infer(args) -> InferRun:
     leaves = torch.as_tensor(patterns, device=device)
     if args.criterion == "ml":
         return _run_ml(args, out, names, leaves, n_states, weights, starts, constraint,
-                       t1 - t0)
+                       t1 - t0, mesh)
     return _run_parsimony(args, out, names, leaves, n_states, weights, starts, constraint,
-                          t1 - t0)
+                          t1 - t0, mesh)
 
 
 def _run_distance(args, out, names, patterns, n_states, weights) -> InferRun:
@@ -165,7 +175,7 @@ def _run_distance(args, out, names, patterns, n_states, weights) -> InferRun:
         out["outgroup"] = args.outgroup
     newick = save_newick(topo, names, branch_lengths=blens, support=support)
     out.update(method=method, tree=newick, tree_length=float(np.asarray(blens)[:-1].sum()))
-    if args.output_tree:
+    if args.output_tree and is_output_rank():
         with open(args.output_tree, "w") as fh:
             fh.write(newick + "\n")
     return InferRun(out, None, seconds, torch.as_tensor(blens, dtype=torch.float32))
@@ -207,7 +217,7 @@ def _constraint(args, names: list[str], out: dict):
 
 
 def _run_parsimony(args, out, names, leaves, n_states, weights, starts, constraint,
-                   start_seconds) -> InferRun:
+                   start_seconds, mesh) -> InferRun:
     """The parsimony branch: a climb (or the ratchet) from each start, under
     ``constraint`` (required splits, constraint taxa) when given, the best
     score wins; then outgroup rooting, SPR-decay and bootstrap
@@ -241,7 +251,7 @@ def _run_parsimony(args, out, names, leaves, n_states, weights, starts, constrai
                 generator=torch.Generator().manual_seed(args.seed + s_idx),
                 n_iterations=args.ratchet, climb_rounds=args.rounds,
                 neighborhood=args.neighborhood, site_weights=weights,
-                sequences_are_masks=True,
+                sequences_are_masks=True, mesh=mesh,
             )
             out["ratchet_iterations"] = args.ratchet
         else:
@@ -255,6 +265,7 @@ def _run_parsimony(args, out, names, leaves, n_states, weights, starts, constrai
                 constraint_splits=splits,
                 constraint_taxa=taxa,
                 timings=timings,
+                mesh=mesh,
             )
             for key, value in timings.items():
                 generation[key] = generation.get(key, 0.0) + value
@@ -273,7 +284,8 @@ def _run_parsimony(args, out, names, leaves, n_states, weights, starts, constrai
     if args.decay:
         from trex_tpu_torch.search.bremer import spr_decay_support
 
-        decay, _ = spr_decay_support(result.topology, leaves, weights, sequences_are_masks=True)
+        decay, _ = spr_decay_support(result.topology, leaves, weights, sequences_are_masks=True,
+                                     mesh=mesh)
         out["decay"] = [None if np.isnan(d) else round(float(d), 1) for d in decay]
         lap("decay")
     support = None
@@ -288,6 +300,7 @@ def _run_parsimony(args, out, names, leaves, n_states, weights, starts, constrai
             site_weights=weights,
             sequences_are_masks=True,
             generator=torch.Generator().manual_seed(args.seed + 1),
+            mesh=mesh,
         )
         out["bootstrap_replicates"] = args.bootstrap
         out["mean_split_support"] = float(np.mean(support))
@@ -304,13 +317,13 @@ def _finish(args, out: dict, result: SearchResult, newick: str) -> None:
         evaluations=result.evaluations,
         tree=newick,
     )
-    if args.output_tree:
+    if args.output_tree and is_output_rank():
         with open(args.output_tree, "w") as fh:
             fh.write(newick + "\n")
 
 
 def _run_ml(args, out, names, leaves, n_states, weights, starts, constraint,
-            start_seconds) -> InferRun:
+            start_seconds, mesh) -> InferRun:
     """The ML branch: a likelihood climb (under ``constraint`` when given),
     or with ``--ratchet`` the iterated search (kicks from numpy's
     ``default_rng(--seed + 13)``, the JAX CLI's key), from each start,
@@ -337,7 +350,7 @@ def _run_ml(args, out, names, leaves, n_states, weights, starts, constraint,
                 st, leaves, n_states, seed=args.seed + 13,
                 n_iterations=args.ratchet, max_rounds=args.rounds,
                 neighborhood=args.neighborhood, sequences_are_masks=True,
-                site_weights=weights, timings=timings,
+                site_weights=weights, timings=timings, mesh=mesh,
             )
             out["ml_iterations"] = args.ratchet
             seconds["climb"] += timings["climb"] + sum(timings["reclimbs"])
@@ -352,6 +365,7 @@ def _run_ml(args, out, names, leaves, n_states, weights, starts, constraint,
                 constraint_splits=splits,
                 constraint_taxa=taxa,
                 timings=timings,
+                mesh=mesh,
             )
             seconds["climb"] += timings["climb"]
         seconds["newton"] += timings["newton"]
@@ -369,9 +383,9 @@ def _run_ml(args, out, names, leaves, n_states, weights, starts, constraint,
     params: dict = {}
     if args.model != "jc":
         result, lengths, params = _fit_model(args, out, names, leaves, n_states, weights,
-                                             result, seconds)
+                                             result, seconds, mesh)
     support = _likelihood_supports(args, out, leaves, n_states, weights, result, params,
-                                   seconds)
+                                   seconds, mesh)
     lengths_np = lengths.cpu().numpy()
     newick = save_newick(result.topology, names, lengths_np, support=support)
     out["mean_branch_length"] = float(lengths_np.mean())
@@ -386,6 +400,7 @@ def _run_ml(args, out, names, leaves, n_states, weights, starts, constraint,
             site_weights=weights,
             sequences_are_masks=True,
             generator=torch.Generator().manual_seed(args.seed + 1),
+            mesh=mesh,
         )
         _sync(leaves.device)
         seconds["bootstrap"] = time.perf_counter() - clock
@@ -396,7 +411,7 @@ def _run_ml(args, out, names, leaves, n_states, weights, starts, constraint,
     return InferRun(out, result, seconds, lengths)
 
 
-def _likelihood_supports(args, out, leaves, n_states, weights, result, params, seconds):
+def _likelihood_supports(args, out, leaves, n_states, weights, result, params, seconds, mesh):
     """``--alrt`` (``search.alrt.branch_supports``, draws from a CPU
     generator seeded ``--seed`` + 7) and ``--ufboot``
     (``search.ufboot.ultrafast_bootstrap``, ``--seed`` + 11, also its TBR
@@ -418,7 +433,7 @@ def _likelihood_supports(args, out, leaves, n_states, weights, result, params, s
         sup = branch_supports(
             result.topology, leaves, n_states, rates=rates, freqs=freqs,
             site_weights=weights, n_replicates=args.alrt, sequences_are_masks=True,
-            generator=torch.Generator().manual_seed(args.seed + 7), timings=parts,
+            generator=torch.Generator().manual_seed(args.seed + 7), timings=parts, mesh=mesh,
         )
         _sync(leaves.device)
         seconds.update(alrt=time.perf_counter() - clock, alrt_parts=parts)
@@ -435,7 +450,7 @@ def _likelihood_supports(args, out, leaves, n_states, weights, result, params, s
             result.topology, leaves, n_states, rates=rates, freqs=freqs,
             site_weights=weights, n_replicates=args.ufboot, sequences_are_masks=True,
             seed=args.seed + 11, generator=torch.Generator().manual_seed(args.seed + 11),
-            timings=parts,
+            timings=parts, mesh=mesh,
         )
         _sync(leaves.device)
         seconds.update(ufboot=time.perf_counter() - clock, ufboot_parts=parts)
@@ -485,7 +500,7 @@ def _mixture_kwargs(params: dict) -> dict:
     return {}
 
 
-def _fit_model(args, out, names, leaves, n_states, weights, result, seconds):
+def _fit_model(args, out, names, leaves, n_states, weights, result, seconds, mesh):
     """``optimize_model`` on the climbed tree, then up to
     ``--model-rounds`` rounds of climbing under the fitted model (rate
     mixture aware on the scan) and refitting, stopping when the topology
@@ -524,7 +539,7 @@ def _fit_model(args, out, names, leaves, n_states, weights, result, seconds):
             result.topology, leaves, n_states,
             max_rounds=args.rounds, neighborhood=args.neighborhood,
             sequences_are_masks=True, site_weights=weights,
-            rates=params["rates"], freqs=params["freqs"], **mixture,
+            rates=params["rates"], freqs=params["freqs"], mesh=mesh, **mixture,
         )
         params, model_losses = fit(result.topology)
         out["neg_log_likelihood"] = float(model_losses[-1])
@@ -558,4 +573,6 @@ def _fit_model(args, out, names, leaves, n_states, weights, result, seconds):
 
 
 def cmd_infer(args) -> None:
-    print(json.dumps(run_infer(args).out))
+    out = run_infer(args).out
+    if is_output_rank():
+        print(json.dumps(out))

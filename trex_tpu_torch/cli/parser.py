@@ -12,7 +12,7 @@ import argparse
 import torch
 
 import trex_tpu_torch.cli as _cli_pkg
-from trex_tpu_torch.cli._common import _add_common, _add_device
+from trex_tpu_torch.cli._common import _add_common, _add_device, _add_mesh_flag, refuse_world
 from trex_tpu_torch.cli.bayes import cmd_bayesfactor, cmd_concord, cmd_date, cmd_mcmc
 from trex_tpu_torch.cli.infer import cmd_infer
 from trex_tpu_torch.cli.models import cmd_dnds, cmd_modeltest, cmd_partition
@@ -145,8 +145,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "score wins")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--output-tree", type=str, default=None)
-    p.add_argument("--mesh", type=str, default=None, metavar="T,S",
-                   help="only '1,1' (one device) is ported")
+    _add_mesh_flag(p)
     _add_device(p, "the search")
     p.set_defaults(fn=cmd_infer)
 
@@ -367,8 +366,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write per-tree per-site log-likelihoods here "
                         "(CONSEL/puzzle site-lnL format) for external "
                         "AU-test tools")
-    p.add_argument("--mesh", type=str, default=None, metavar="T,S",
-                   help="only '1,1' (one device) is ported")
+    _add_mesh_flag(p)
     _add_device(p, "the fits and the tests")
     p.set_defaults(fn=cmd_topotest)
 
@@ -488,6 +486,8 @@ def main(argv: list[str] | None = None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     args = build_parser().parse_args(argv)
+    if args.fn not in (cmd_infer, cmd_topotest):
+        refuse_world(args.command)
     args.fn(args)
 
 

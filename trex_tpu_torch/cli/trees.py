@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from trex_tpu_torch._device import resolve_device
-from trex_tpu_torch.cli._common import _load_alignment
+from trex_tpu_torch.cli._common import _join_world, _load_alignment, is_output_rank
 
 
 def _read_trees(path: str) -> list[str]:
@@ -126,7 +126,9 @@ def cmd_consensus(args) -> None:
 def run_topotest(args, timings: dict | None = None) -> tuple[dict, object]:
     """The printed JSON object of ``topotest`` and its
     ``TopologyTestResult``. ``timings`` gains the model fit's seconds
-    ("model") and ``topology_tests``'s."""
+    ("model") and ``topology_tests``'s. With ``--mesh`` (or a launcher's
+    world of more than one rank) the candidates' fits split over the mesh's
+    'tree' axis; only rank 0 writes ``--site-lnl``."""
     import time
 
     from trex_tpu_torch.alignment import compress_alignment
@@ -135,9 +137,7 @@ def run_topotest(args, timings: dict | None = None) -> tuple[dict, object]:
     from trex_tpu_torch.search.topotest import topology_tests
     from trex_tpu_torch.topology import Topology
 
-    if args.mesh not in (None, "1,1"):
-        raise SystemExit("--mesh is not ported yet: the Multi-device item of ROADMAP.md; this "
-                         "port runs on one device")
+    mesh = _join_world(args)
     device = resolve_device(args.device)
     names, masks, n_states = _load_alignment(args.fasta, args.alphabet)
     patterns, counts = compress_alignment(masks)
@@ -174,9 +174,9 @@ def run_topotest(args, timings: dict | None = None) -> tuple[dict, object]:
     res = topology_tests(
         batch, leaves, n_states, rates=rates, freqs=freqs, site_weights=weights,
         n_replicates=args.replicates, sequences_are_masks=True,
-        generator=torch.Generator().manual_seed(args.seed), timings=timings,
+        generator=torch.Generator().manual_seed(args.seed), timings=timings, mesh=mesh,
     )
-    if args.site_lnl:
+    if args.site_lnl and is_output_rank():
         # Per-pattern values back in site order: the CONSEL/puzzle site-lnL
         # matrix ("T L" header, one row per tree).
         _, first_idx, inverse = np.unique(masks, axis=1, return_index=True, return_inverse=True)
@@ -210,7 +210,9 @@ def run_topotest(args, timings: dict | None = None) -> tuple[dict, object]:
 
 
 def cmd_topotest(args) -> None:
-    print(json.dumps(run_topotest(args)[0]))
+    out = run_topotest(args)[0]
+    if is_output_rank():
+        print(json.dumps(out))
 
 
 def run_treeprune(args) -> dict:

@@ -264,14 +264,11 @@ def likelihood_spr_scan_segmented(
     (default: as many as a fraction of the device's available memory
     holds, as ``ops.spr_scan.spr_scan_segmented`` sizes them); rows are
     computed whole in each segment, so the table is the one-call scan's."""
-    from trex_tpu_torch.ops.spr_scan import _BYTES_PER_CELL
-    from trex_tpu_torch.utils.chunking import scan_budget_bytes
+    from trex_tpu_torch.ops.spr_scan import segment_rows
 
     n_all = topology.n_all
     n_prune = n_all - 1
-    device = torch.as_tensor(leaf_sequences).device
-    if max_cells is None:
-        max_cells = scan_budget_bytes(device) // _BYTES_PER_CELL
+    seg = segment_rows(n_prune, n_all, torch.as_tensor(leaf_sequences).device, max_cells)
 
     def scan(pn):
         return likelihood_spr_scan(
@@ -281,9 +278,8 @@ def likelihood_spr_scan_segmented(
             sequences_are_masks=sequences_are_masks, prune_nodes=pn, prune_chunk=prune_chunk,
         )
 
-    if n_prune * n_all <= max_cells:
+    if seg == n_prune:
         return scan(None)
-    seg = max(1, max_cells // n_all)
     rows = []
     for s0 in range(0, n_prune, seg):
         scores, base = scan(torch.arange(s0, min(s0 + seg, n_prune), dtype=torch.int64))

@@ -234,6 +234,15 @@ def mask_invalid(
     return scores
 
 
+def segment_rows(n_rows: int, n_all: int, device, max_cells: int | None = None) -> int:
+    """Prune nodes one segment of a scan over ``n_rows`` of them takes: at
+    most ``max_cells / n_all`` (default: as many as a fraction of
+    ``device``'s available memory holds), at least 1, at most ``n_rows``."""
+    if max_cells is None:
+        max_cells = scan_budget_bytes(device) // _BYTES_PER_CELL
+    return max(1, min(n_rows, max_cells // n_all))
+
+
 def _segment_best(scores: torch.Tensor, valid_rows: int):
     """(min, flat argmin, finite count) of one segment's (S, n_all) block.
 
@@ -286,9 +295,7 @@ def best_over_segments(scan_segment, n_all: int, device, max_cells: int | None =
     base_score, n_finite).
     """
     n_prune = n_all - 1
-    if max_cells is None:
-        max_cells = scan_budget_bytes(device) // _BYTES_PER_CELL
-    seg = max(1, min(n_prune, max_cells // n_all))
+    seg = segment_rows(n_prune, n_all, device, max_cells)
     pending = []
     base = None
     for s0 in range(0, n_prune, seg):
@@ -328,16 +335,13 @@ def spr_scan_segmented(
     """
     n_all = topology.n_all
     n_prune = n_all - 1
-    device = torch.as_tensor(leaf_sequences).device
-    if max_cells is None:
-        max_cells = scan_budget_bytes(device) // _BYTES_PER_CELL
+    seg = segment_rows(n_prune, n_all, torch.as_tensor(leaf_sequences).device, max_cells)
     scan = lambda pn: spr_scan(  # noqa: E731
         topology, leaf_sequences, site_weights,
         sequences_are_masks=sequences_are_masks, prune_nodes=pn, prune_chunk=prune_chunk,
     )
-    if n_prune * n_all <= max_cells:
+    if seg == n_prune:
         return scan(None)
-    seg = max(1, max_cells // n_all)
     rows = []
     for s0 in range(0, n_prune, seg):
         scores, base = scan(torch.arange(s0, min(s0 + seg, n_prune), dtype=torch.int64))

@@ -150,6 +150,7 @@ def branch_supports(
     replicate_weights=None,
     generator: torch.Generator | None = None,
     timings: dict | None = None,
+    mesh=None,
 ) -> BranchSupports:
     """aLRT / SH-aLRT / RELL supports for every internal branch.
 
@@ -160,10 +161,14 @@ def branch_supports(
     ``generator``. ``timings`` gains the seconds of the alternatives'
     enumeration ("enumerate"), their fit ("fit"; ``per_site_matrix``'s
     keys under "per_site") and the replicates' statistics ("rell").
+    ``mesh``: an optional ('tree', 'site') ``parallel.mesh.Mesh``
+    (every rank calls with the same inputs; None: this device alone): the
+    fit's candidates split over ``tree``
+    (``parallel.sharded.sharded_per_site_matrix``).
     """
     import time
 
-    from trex_tpu_torch.ops.likelihood_asr import per_site_matrix
+    from trex_tpu_torch.parallel.sharded import sharded_per_site_matrix
 
     leaves = torch.as_tensor(leaf_sequences)
     device = leaves.device
@@ -189,10 +194,9 @@ def branch_supports(
     sh = np.ones((n_anc,))
     rell = np.ones((n_anc,))
     fit_timings: dict = {}
-    per_site = per_site_matrix(
-        batch, leaves, n_states,
-        rates, freqs, weights, n_sweeps=n_sweeps, sequences_are_masks=sequences_are_masks,
-        timings=fit_timings)
+    per_site = sharded_per_site_matrix(
+        mesh, batch, leaves, n_states, rates=rates, freqs=freqs, weights=weights,
+        n_sweeps=n_sweeps, sequences_are_masks=sequences_are_masks, timings=fit_timings)
     observed = rell_totals(weights[None], per_site)[0].cpu().numpy().astype(np.float64)
     ref_ll = float(observed[0])
     if timings is not None:

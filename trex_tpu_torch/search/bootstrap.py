@@ -131,6 +131,7 @@ def bootstrap_analysis(
     replicate_weights=None,
     generator: torch.Generator | None = None,
     device=None,
+    mesh=None,
 ) -> tuple[np.ndarray, list[Topology]]:
     """Bootstrap split support for ``reference``.
 
@@ -140,7 +141,9 @@ def bootstrap_analysis(
     weights come from ``replicate_weights``, (R, L) counts (the JAX
     package's draws replayed), or else ``_replicate_weights`` from
     ``generator`` (pattern occurrences resampled when ``site_weights``,
-    the base pattern counts, is given).
+    the base pattern counts, is given). ``mesh``: each replicate's climb
+    scores its batches across the ('tree', 'site') mesh under the
+    replicate's weights (``parsimony_hill_climb``'s ``mesh``).
 
     Returns (support (n_ancestors,), the replicates' best topologies).
     """
@@ -161,7 +164,7 @@ def bootstrap_analysis(
         parsimony_hill_climb(
             reference, cost_matrix, leaves,
             max_rounds=search_rounds, neighborhood=neighborhood,
-            site_weights=w, sequences_are_masks=sequences_are_masks,
+            site_weights=w, sequences_are_masks=sequences_are_masks, mesh=mesh,
         ).topology
         for w in replicate_weights[:n_replicates]
     ]
@@ -182,27 +185,29 @@ def ml_bootstrap_analysis(
     replicate_weights=None,
     generator: torch.Generator | None = None,
     device=None,
+    mesh=None,
 ) -> tuple[np.ndarray, list[Topology]]:
     """Bootstrap split support under the likelihood criterion.
 
     Each replicate climbs from ``reference`` (``parsimony_hill_climb``,
     ``search_rounds`` rounds of ``neighborhood``) with its candidates
     ranked by JC69 log-likelihood under the replicate's weights, every
-    branch at ``ranking_branch_length``: one call of
-    ``ops.likelihood_cuda.batched_log_likelihood_cuda`` a batch with a
-    (B, n_all, Q, Q) matrix a branch and tree (K4's per-branch mode on the
-    card, as the JAX package's TPU route runs its slots kernel). The
-    weights come from ``replicate_weights`` ((R, L) counts, the JAX
-    package's draws replayed) or else ``_replicate_weights`` from
-    ``generator`` (pattern occurrences resampled when ``site_weights`` is
-    given). ``device``: default the device of a tensor ``leaf_sequences``,
-    else ``cuda``.
+    branch at ``ranking_branch_length``: a batch is one call of
+    ``parallel.sharded.mesh_log_likelihoods`` across the ('tree', 'site')
+    ``mesh`` (None: this device alone), the candidates over ``tree``, the
+    sites over ``site``, on each rank's tile one call of
+    ``ops.likelihood_cuda.batched_log_likelihood_cuda`` with a (B, n_all,
+    Q, Q) matrix a branch and tree (K4's per-branch mode on the card, as
+    the JAX package's TPU route runs its slots kernel). The weights come
+    from ``replicate_weights`` ((R, L) counts, the JAX package's draws
+    replayed) or else ``_replicate_weights`` from ``generator`` (pattern
+    occurrences resampled when ``site_weights`` is given). ``device``:
+    default the device of a tensor ``leaf_sequences``, else ``cuda``.
 
     Returns (support (n_ancestors,), the replicates' best topologies).
     """
     from trex_tpu_torch._device import resolve_device
-    from trex_tpu_torch.ops.likelihood import jc69_transition
-    from trex_tpu_torch.ops.likelihood_cuda import batched_log_likelihood_cuda
+    from trex_tpu_torch.parallel.sharded import mesh_log_likelihoods
     from trex_tpu_torch.search.hillclimb import parsimony_hill_climb
 
     if device is None and torch.is_tensor(leaf_sequences):
@@ -215,24 +220,16 @@ def ml_bootstrap_analysis(
         replicate_weights = _replicate_weights(leaves.shape[-1], n_replicates,
                                                site_weights, generator)
     replicate_weights = torch.as_tensor(replicate_weights, device=device).to(torch.float32)
-    n_all = reference.n_all
-    p_branch = jc69_transition(torch.tensor(float(ranking_branch_length), device=device),
-                               n_states)
-    prior = torch.full((n_states,), 1.0 / n_states, device=device)
     dummy_cost = torch.zeros((n_states, n_states), device=device)
     best: list[Topology] = []
     for w in replicate_weights[:n_replicates]:
-        w = w.contiguous()
+        lnl = mesh_log_likelihoods(mesh, leaves, n_states, w.contiguous(),
+                                   sequences_are_masks)
 
-        def score_batch(topos, _cost, _leaves, w=w):
-            children = topos.children.to(torch.int32).contiguous()
+        def score_batch(topos, _cost, _leaves, lnl=lnl):
             # Every branch of every candidate at the ranking length: the
             # table is one broadcast of one matrix.
-            per_branch = p_branch.expand(children.shape[0], n_all, n_states, n_states)
-            return -batched_log_likelihood_cuda(
-                children, leaves, w, prior, per_branch.contiguous(),
-                sequences_are_masks=sequences_are_masks,
-            )
+            return -lnl(topos.children, float(ranking_branch_length))
 
         best.append(parsimony_hill_climb(
             reference, dummy_cost, leaves, max_rounds=search_rounds,

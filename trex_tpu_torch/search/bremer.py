@@ -29,24 +29,28 @@ def spr_decay_support(
     *,
     sequences_are_masks: bool = False,
     device=None,
+    mesh=None,
 ) -> tuple[np.ndarray, float]:
     """(n_ancestors,) SPR-decay values of the internal branches and the
     base score.
 
     Entries are upper bounds on the Bremer support, in parsimony steps;
     the root's entry and branches no move of the neighborhood destroys
-    are NaN. The scan (the full table, ``ops.spr_scan.spr_scan_segmented``,
-    chunked as the SPR-scan climb chunks it) runs on ``device``: by default
-    that of ``leaf_sequences`` when it is a tensor, else ``cuda``.
+    are NaN. The scan (the full table, ``parallel.sharded.sharded_spr_scan``,
+    segmented and chunked as the SPR-scan climb's) runs on ``device``: by
+    default that of ``leaf_sequences`` when it is a tensor, else ``cuda``.
+    With ``mesh`` (a ('tree', 'site') ``parallel.mesh.Mesh``; every rank
+    calls with the same inputs; None: this device alone) the scan's prune
+    rows split over ``tree`` and the table is gathered: the decay needs the
+    whole table.
     """
     import torch
 
     from trex_tpu_torch._device import resolve_device
     from trex_tpu_torch.io import spr_move
-    from trex_tpu_torch.ops.spr_scan import spr_scan_segmented
+    from trex_tpu_torch.parallel.sharded import sharded_spr_scan
     from trex_tpu_torch.search.bootstrap import subtree_leaf_sets
     from trex_tpu_torch.search.ratchet import unrooted_splits
-    from trex_tpu_torch.utils.chunking import auto_prune_chunk, scan_budget_bytes
 
     if device is None and torch.is_tensor(leaf_sequences):
         device = leaf_sequences.device
@@ -56,14 +60,8 @@ def spr_decay_support(
     n_leaves = topology.n_leaves
     n_all = topology.n_all
     _, parents = topology.to_numpy()
-    # The climb's chunking: each chunk's (chunk x nodes x sites) up/down
-    # tables within the device's scan budget.
-    prune_chunk = auto_prune_chunk(
-        n_all - 1, n_all * leaves.shape[-1] * 4 * 2, scan_budget_bytes(leaves.device))
-    scores, base = spr_scan_segmented(
-        topology, leaves, site_weights, sequences_are_masks=sequences_are_masks,
-        prune_chunk=prune_chunk,
-    )
+    scores, base = sharded_spr_scan(mesh, topology, leaves, site_weights,
+                                    sequences_are_masks=sequences_are_masks)
     scores = scores.cpu().numpy().astype(np.float64)
     base = float(base)
 

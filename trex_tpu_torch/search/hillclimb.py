@@ -159,6 +159,7 @@ def parsimony_hill_climb(
     constraint_taxa: frozenset[int] | None = None,
     device=None,
     timings: dict | None = None,
+    mesh=None,
 ) -> SearchResult:
     """Greedy hill climb from ``start``; stops at a local optimum.
 
@@ -194,8 +195,17 @@ def parsimony_hill_climb(
             host seconds: ``"generate"`` (candidates, kicks, constraint
             filter, transfer) and ``"score"`` (the batch calls up to their
             scores on the host).
+        mesh: optional ('tree', 'site') ``parallel.mesh.Mesh``: every rank
+            runs the climb with the same inputs (None: this device alone,
+            the same calls on a 1 x 1 mesh). The enumerating
+            neighbourhoods score each batch across the mesh
+            (``parallel.sharded.mesh_score_batch``: candidates over
+            ``tree``, sites over ``site``; the scores are the single-device
+            ones bit for bit), unless a ``score_batch_fn`` is given;
+            ``"spr-scan"`` splits each scan's prune rows over ``tree`` and
+            reduces them to the best move (``sharded_spr_scan_best``).
     """
-    from trex_tpu_torch.ops.dispatch import batched_scores_fastest, check_alphabet
+    from trex_tpu_torch.ops.dispatch import check_alphabet
 
     if device is None and torch.is_tensor(leaf_sequences):
         device = leaf_sequences.device
@@ -227,6 +237,7 @@ def parsimony_hill_climb(
             start, leaves, max_rounds,
             site_weights=weights,
             sequences_are_masks=sequences_are_masks,
+            mesh=mesh,
         )
     if neighborhood not in ("nni", "spr", "tbr"):
         raise ValueError(f"unknown neighborhood {neighborhood!r}")
@@ -234,15 +245,13 @@ def parsimony_hill_climb(
     from trex_tpu_torch.topology import from_numpy
 
     if score_batch_fn is None:
+        from trex_tpu_torch.parallel.sharded import mesh_score_batch
+
         check_alphabet(cost_matrix, leaves, sequences_are_masks=sequences_are_masks)
+        score_batch_fn = mesh_score_batch(mesh, leaves, weights, sequences_are_masks)
 
     def score_batch(topos: Topology):
-        if score_batch_fn is not None:
-            return score_batch_fn(topos, cost_matrix, leaves)
-        return batched_scores_fastest(
-            topos, cost_matrix, leaves, weights,
-            sequences_are_masks=sequences_are_masks,
-        )
+        return score_batch_fn(topos, cost_matrix, leaves)
 
     def single_score(topo: Topology) -> float:
         return float(score_batch(Topology(topo.children[None], topo.parents[None]))[0])
@@ -328,29 +337,21 @@ def _spr_scan_climb(
     *,
     site_weights: torch.Tensor | None,
     sequences_are_masks: bool,
+    mesh=None,
 ) -> SearchResult:
-    """Hill climb where each round is one analytic all-SPR scan.
+    """Hill climb where each round is one analytic all-SPR scan, its prune
+    rows over ``mesh``'s ``tree`` axis (None: this device alone), reduced
+    to the best move by ``parallel.sharded.sharded_spr_scan_best``.
 
     ``evaluations`` counts scored candidates (finite scan entries) for
     comparability with the enumerating climber.
     """
     from trex_tpu_torch.io import spr_move
-    from trex_tpu_torch.ops.spr_scan import spr_scan_best_segmented
-    from trex_tpu_torch.utils.chunking import auto_prune_chunk, scan_budget_bytes
-
-    n_all = start.n_all
-    length = leaf_sequences.shape[-1]
-    # Bound each chunk's (chunk x nodes x sites) up/down tables.
-    prune_chunk = auto_prune_chunk(
-        n_all - 1, n_all * length * 4 * 2, scan_budget_bytes(leaf_sequences.device)
-    )
+    from trex_tpu_torch.parallel.sharded import sharded_spr_scan_best
 
     def run_scan(topo):
-        return spr_scan_best_segmented(
-            topo, leaf_sequences, site_weights,
-            sequences_are_masks=sequences_are_masks,
-            prune_chunk=prune_chunk,
-        )
+        return sharded_spr_scan_best(mesh, topo, leaf_sequences, site_weights,
+                                     sequences_are_masks=sequences_are_masks)
 
     current = start
     best, p, v, base, n_finite = run_scan(current)

@@ -169,7 +169,7 @@ def joint_optimize(
     fixed_adjacency: torch.Tensor | None = None,
     fixed_sequences: torch.Tensor | None = None,
     *,
-    noise: torch.Tensor | None = None,
+    noise: torch.Tensor | Callable[[int], torch.Tensor] | None = None,
     generator: torch.Generator | None = None,
 ):
     """Run the annealed joint search.
@@ -183,7 +183,8 @@ def joint_optimize(
         fixed_sequences: the (N, L, Q) sequences held fixed when
             ``cfg.learn_sequences`` is False.
         noise: (n_iterations, [R,] n_all - 1, n_anc) Gumbel noise of the
-            steps; drawn from ``generator`` a step at a time when None.
+            steps, or a function of the step that returns it; drawn from
+            ``generator`` a step at a time when None.
 
     Returns:
         (params, losses): the optimised parameters and the (n_iterations,
@@ -192,12 +193,14 @@ def joint_optimize(
     device = leaf_tensor.device
     params = {k: v.detach().clone().to(device).requires_grad_(True) for k, v in params.items()}
     shape = params["tree_params"].shape if "tree_params" in params else None
-    if noise is not None:
+    if torch.is_tensor(noise):
         noise = noise.to(device)
 
     def noise_at(i):
         if not cfg.learn_topology:
             return None
+        if callable(noise):
+            return noise(i)
         if noise is not None:
             return noise[i]
         return gumbel(shape, generator=generator, device=device)
@@ -256,9 +259,62 @@ def evaluate_solution(
     return exact_cost(seqs, tree, cost_matrix)
 
 
-def _best(params, losses, scores):
-    best = int(torch.argmin(scores))
-    return {k: v[best] for k, v in params.items()}, losses[:, best], scores[best]
+def _restart_rows(mesh, n_restarts: int) -> slice:
+    """This rank's block of the restarts: the restart axis over the mesh's
+    'tree' axis, which must divide it (all of them without a mesh)."""
+    from trex_tpu_torch.parallel.mesh import TREE_AXIS
+
+    if mesh is None:
+        return slice(0, n_restarts)
+    n_tree = mesh.shape[TREE_AXIS]
+    if n_restarts % n_tree != 0:
+        raise ValueError(
+            f"n_restarts = {n_restarts} must be divisible by the mesh tree "
+            f"axis size ({n_tree})"
+        )
+    size = n_restarts // n_tree
+    return slice(mesh.tree_index * size, (mesh.tree_index + 1) * size)
+
+
+def _mesh_draws(mesh, n_restarts: int, shape, generator, device, noise, eval_noise):
+    """(rows, noise, eval_noise()) of this rank's restarts: the given draws'
+    rows, or for draws from ``generator`` the whole batch's drawn on every
+    rank in the single-device order (a step's noise at that step, the
+    evaluation's after the descent) and the rank's rows taken."""
+    rows = _restart_rows(mesh, n_restarts)
+    full = (n_restarts, *shape)
+    if noise is None:
+        def noise(i):
+            return gumbel(full, generator=generator, device=device)[rows]
+    else:
+        noise = noise[:, rows]
+
+    def eval_draw():
+        drawn = gumbel(full, generator=generator, device=device) if eval_noise is None \
+            else eval_noise
+        return drawn[rows]
+
+    return rows, noise, eval_draw
+
+
+def _best_over_mesh(mesh, rows: slice, params, losses, scores):
+    """(params, losses, score) of the restart with the lowest score in the
+    whole batch (the first on ties, as ``argmin``): one ``all_gather`` of
+    each rank's (best score, its restart index) over 'tree', then the
+    winner's params, losses and score broadcast from its rank (no
+    collective without a mesh)."""
+    from trex_tpu_torch.parallel.mesh import TREE_AXIS, local_mesh
+
+    mesh = mesh or local_mesh()
+    local = int(torch.argmin(scores))
+    pair = torch.tensor([float(scores[local]), float(rows.start + local)],
+                        dtype=torch.float64, device=scores.device)
+    winner = int(torch.argmin(mesh.all_gather(pair, TREE_AXIS)[:, 0]))
+    best = [*(v[local].clone() for v in params.values()), losses[:, local].clone(),
+            scores[local].clone()]
+    for t in best:
+        mesh.broadcast(t, TREE_AXIS, winner)
+    return dict(zip(params, best[:-2])), best[-2], best[-1]
 
 
 def joint_search(
@@ -271,6 +327,7 @@ def joint_search(
     init: dict[str, torch.Tensor] | None = None,
     noise: torch.Tensor | None = None,
     eval_noise: torch.Tensor | None = None,
+    mesh=None,
 ):
     """Multi-restart joint search; restarts are the leading axis.
 
@@ -279,15 +336,24 @@ def joint_search(
     drawn from ``generator`` where not given. Returns (params, losses,
     score) of the restart whose discretised solution has the lowest exact
     parsimony cost (the first on ties).
+
+    ``mesh``: an optional ``parallel.mesh.Mesh`` (every rank calls with the
+    same arguments; None: this device alone): the restarts split over its
+    'tree' axis, which must divide ``n_restarts``; each rank descends its
+    block and the best restart comes back to every rank
+    (``_best_over_mesh``). Draws from ``generator`` are the whole batch's,
+    so the result is the single-device one.
     """
     n_leaves = (leaf_tensor.shape[0] + 1) // 2
     if init is None:
         init = init_params(n_leaves, leaf_tensor.shape[1], leaf_tensor.shape[2],
                            generator=generator, batch=(n_restarts,), device=leaf_tensor.device)
-    params, losses = joint_optimize(init, leaf_tensor, cfg, noise=noise, generator=generator)
-    scores = evaluate_solution(params, leaf_tensor, cost_matrix, noise=eval_noise,
-                               generator=generator)
-    return _best(params, losses, scores)
+    rows, noise, eval_noise = _mesh_draws(mesh, n_restarts, init["tree_params"].shape[1:],
+                                          generator, leaf_tensor.device, noise, eval_noise)
+    params, losses = joint_optimize({k: v[rows] for k, v in init.items()}, leaf_tensor, cfg,
+                                    noise=noise)
+    scores = evaluate_solution(params, leaf_tensor, cost_matrix, noise=eval_noise())
+    return _best_over_mesh(mesh, rows, params, losses, scores)
 
 
 def fit_topology(
@@ -301,13 +367,15 @@ def fit_topology(
     init: torch.Tensor | None = None,
     noise: torch.Tensor | None = None,
     eval_noise: torch.Tensor | None = None,
+    mesh=None,
 ):
     """Learn only the topology for known (hard) sequences (the reference's
     "fixed sequences, learned topology" regime): Adam without clipping, the
     constraint penalty not temperature-scaled, ``n_restarts`` descents as
     one batch, and the restart with the best exact cost at temperature
-    0.01 wins. ``init`` ((R, n_all - 1, n_anc) logits), ``noise`` and
-    ``eval_noise`` as in ``joint_search``. Returns (params, losses)."""
+    0.01 wins. ``init`` ((R, n_all - 1, n_anc) logits), ``noise``,
+    ``eval_noise`` and ``mesh`` as in ``joint_search``. Returns (params,
+    losses)."""
     n_all = sequences_one_hot.shape[0]
     n_anc = n_all - (n_all + 1) // 2
     device = sequences_one_hot.device
@@ -317,12 +385,13 @@ def fit_topology(
     cfg = JointConfig(n_iterations=n_iterations, learning_rate=learning_rate,
                       temp_start=1.0, temp_end=1.0, constraint_scale=constraint_scale,
                       learn_sequences=False)
-    params, losses = joint_optimize({"tree_params": init}, sequences_one_hot, cfg,
-                                    fixed_sequences=sequences_one_hot, noise=noise,
-                                    generator=generator)
-    tree = soft_topology(params["tree_params"], 0.01, noise=eval_noise, generator=generator)
+    rows, noise, eval_noise = _mesh_draws(mesh, n_restarts, init.shape[1:], generator,
+                                          device, noise, eval_noise)
+    params, losses = joint_optimize({"tree_params": init[rows]}, sequences_one_hot, cfg,
+                                    fixed_sequences=sequences_one_hot, noise=noise)
+    tree = soft_topology(params["tree_params"], 0.01, noise=eval_noise())
     q = sequences_one_hot.shape[-1]
     hamming = torch.ones((q, q), device=device) - torch.eye(q, device=device)
     scores = exact_cost(sequences_one_hot, tree, hamming)
-    params, losses, _ = _best(params, losses, scores)
+    params, losses, _ = _best_over_mesh(mesh, rows, params, losses, scores)
     return params, losses

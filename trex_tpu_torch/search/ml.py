@@ -42,6 +42,7 @@ def ml_hill_climb(
     constraint_taxa: frozenset[int] | None = None,
     device=None,
     timings: dict | None = None,
+    mesh=None,
 ) -> tuple[SearchResult, torch.Tensor, torch.Tensor]:
     """Greedy ML topology search, then the branch-length fit.
 
@@ -69,6 +70,12 @@ def ml_hill_climb(
     ``leaf_sequences``, else ``cuda``. ``timings``: a dict that, when
     given, receives the wall seconds of the climb (``"climb"``) and of the
     branch-length fit (``"newton"``), each taken after the device is done.
+    ``mesh``: an optional ('tree', 'site') ``parallel.mesh.Mesh`` (every
+    rank runs the search with the same inputs); with ``"spr-scan"`` each
+    round's scan splits its prune rows over ``tree`` and reduces them to
+    the best move (``parallel.sharded.sharded_spr_scan_best``). The
+    enumerating neighbourhoods rank on each rank's device alone, as the
+    JAX package's do.
 
     Returns (search_result, branch_lengths (n_all,), nll_curve): the
     result's ``score`` is the negative ranking log-likelihood; the lengths
@@ -105,6 +112,7 @@ def ml_hill_climb(
             site_weights=weights, sequences_are_masks=sequences_are_masks,
             rates=rates, freqs=freqs, gamma_shape=gamma_shape,
             category_rates=category_rates, category_weights=category_weights,
+            mesh=mesh,
         )
     else:
         # Every ranking branch has the same length, so one (Q, Q) matrix
@@ -172,38 +180,23 @@ def _ml_scan_climb(
     gamma_shape=None,
     category_rates=None,
     category_weights=None,
+    mesh=None,
 ) -> SearchResult:
     """Greedy ML climb where each round is one analytic likelihood scan
-    (rate-mixture aware with ``gamma_shape`` or ``category_rates``).
+    (rate-mixture aware with ``gamma_shape`` or ``category_rates``), its
+    prune rows over ``mesh``'s ``tree`` axis (None: this device alone).
 
     ``evaluations`` counts scored candidates (finite scan entries).
     """
     from trex_tpu_torch.io import spr_move
-    from trex_tpu_torch.ops.likelihood_scan import likelihood_spr_scan_best_segmented
-    from trex_tpu_torch.utils.chunking import auto_prune_chunk, scan_budget_bytes
-
-    n_all = start.n_all
-    length = leaves.shape[-1]
-    # Each prune variant holds (Q+1)-wide f32 inside and upstream tables,
-    # and under a mixture one (n_all, L) f32 per-site table a category until
-    # the categories are mixed.
-    if category_rates is not None:
-        n_cat = len(category_rates)
-    elif gamma_shape is not None:
-        n_cat = 4
-    else:
-        n_cat = 0
-    prune_chunk = auto_prune_chunk(
-        n_all - 1, n_all * length * 4 * ((n_states + 1) * 2 + n_cat),
-        scan_budget_bytes(leaves.device),
-    )
+    from trex_tpu_torch.parallel.sharded import sharded_spr_scan_best
 
     def run_scan(topo):
-        return likelihood_spr_scan_best_segmented(
-            topo, leaves, n_states, ranking_branch_length, site_weights,
-            rates=rates, freqs=freqs, gamma_shape=gamma_shape,
+        return sharded_spr_scan_best(
+            mesh, topo, leaves, site_weights, sequences_are_masks=sequences_are_masks,
+            criterion="ml", ranking_branch_length=ranking_branch_length,
+            n_states=n_states, rates=rates, freqs=freqs, gamma_shape=gamma_shape,
             category_rates=category_rates, category_weights=category_weights,
-            sequences_are_masks=sequences_are_masks, prune_chunk=prune_chunk,
         )
 
     current = start
@@ -243,6 +236,7 @@ def ml_iterated_search(
     progress_dir: str | None = None,
     device=None,
     timings: dict | None = None,
+    mesh=None,
 ) -> tuple[SearchResult, torch.Tensor, torch.Tensor]:
     """Iterated ML search: random kicks and a reclimb, keeping the best.
 
@@ -261,7 +255,8 @@ def ml_iterated_search(
     (the search resumes from it). ``timings``: a dict that, when given,
     receives the wall seconds of the first climb (``"climb"``), of each
     reclimb (``"reclimbs"``, a list) and of the final Newton fit
-    (``"newton"``), each after the device is done.
+    (``"newton"``), each after the device is done. ``mesh``: passed to
+    every ``ml_hill_climb``.
 
     Returns (best result, its Newton-fitted branch lengths, loss curve):
     the result's ``trace`` holds the best score after each iteration.
@@ -293,7 +288,7 @@ def ml_iterated_search(
         ranking_branch_length=ranking_branch_length, max_rounds=max_rounds,
         neighborhood=neighborhood, optimize_final_lengths=False,
         sequences_are_masks=sequences_are_masks, site_weights=site_weights,
-        rates=rates, freqs=freqs, device=device,
+        rates=rates, freqs=freqs, device=device, mesh=mesh,
     )
 
     def dump_progress(iteration: int, best: SearchResult) -> None:

@@ -70,6 +70,7 @@ def parsimony_ratchet(
     site_weights=None,
     sequences_are_masks: bool = False,
     device=None,
+    mesh=None,
 ) -> SearchResult:
     """Run the parsimony ratchet from ``start``.
 
@@ -86,7 +87,9 @@ def parsimony_ratchet(
     iteration the best tree so far is written to ``best.nwk`` and a line
     (iteration, best score, evaluations) appended to ``trace.jsonl``.
     ``device``: where the climbs run (default: a tensor
-    ``leaf_sequences``'s device, else ``cuda``).
+    ``leaf_sequences``'s device, else ``cuda``). ``mesh``: every climb,
+    perturbed and true, scores across the ('tree', 'site') mesh
+    (``parsimony_hill_climb``'s ``mesh``).
 
     Returns the best ``SearchResult``; its trace is the best true score
     after each iteration.
@@ -114,7 +117,7 @@ def parsimony_ratchet(
         return parsimony_hill_climb(
             topo, cost_matrix, leaves,
             max_rounds=climb_rounds, neighborhood=neighborhood,
-            site_weights=weights, sequences_are_masks=sequences_are_masks,
+            site_weights=weights, sequences_are_masks=sequences_are_masks, mesh=mesh,
         )
 
     def dump_progress(iteration: int) -> None:

@@ -93,6 +93,7 @@ def topology_tests(
     au_weights=None,
     generator: torch.Generator | None = None,
     timings: dict | None = None,
+    mesh=None,
 ) -> TopologyTestResult:
     """KH / SH / BP / ELW (and AU with ``au_scales``) over a batched
     Topology of candidate trees, on the device of ``leaf_sequences``.
@@ -104,11 +105,14 @@ def topology_tests(
     (``search.bootstrap._replicate_weights``), then the AU scales
     (``au_replicate_weights``). ``timings`` gains the seconds of the fit
     ("fit"; ``per_site_matrix``'s keys under "per_site") and of the tests
-    ("tests").
+    ("tests"). ``mesh``: an optional ('tree', 'site') ``parallel.mesh.Mesh``
+    (every rank calls with the same inputs; None: this device alone): the
+    fit's candidates split over ``tree``
+    (``parallel.sharded.sharded_per_site_matrix``).
     """
     import time
 
-    from trex_tpu_torch.ops.likelihood_asr import per_site_matrix
+    from trex_tpu_torch.parallel.sharded import sharded_per_site_matrix
 
     n_trees = int(trees.children.shape[0])
     if n_trees < 2:
@@ -120,9 +124,9 @@ def topology_tests(
                else _f32(site_weights, device=device))
     clock = time.perf_counter()
     fit_timings: dict = {}
-    per_site = per_site_matrix(trees, leaves, n_states, rates, freqs, weights,
-                               n_sweeps=n_sweeps, sequences_are_masks=sequences_are_masks,
-                               timings=fit_timings)
+    per_site = sharded_per_site_matrix(
+        mesh, trees, leaves, n_states, rates=rates, freqs=freqs, weights=weights,
+        n_sweeps=n_sweeps, sequences_are_masks=sequences_are_masks, timings=fit_timings)
     obs = rell_totals(weights[None], per_site)[0].cpu().numpy().astype(np.float64)
     now = time.perf_counter()
     if timings is not None:

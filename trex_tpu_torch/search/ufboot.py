@@ -103,6 +103,7 @@ def ultrafast_bootstrap(
     replicate_weights=None,
     generator: torch.Generator | None = None,
     timings: dict | None = None,
+    mesh=None,
 ) -> UFBootResult:
     """RELL ultrafast bootstrap supports for ``topology``'s internal branches.
 
@@ -116,13 +117,17 @@ def ultrafast_bootstrap(
     ``timings`` gains the seconds of the candidates ("candidates"), their
     fit ("fit"; ``per_site_matrix``'s keys under "per_site"), the RELL
     product and vote ("rell") and the split bookkeeping ("splits").
+    ``mesh``: an optional ('tree', 'site') ``parallel.mesh.Mesh``
+    (every rank calls with the same inputs; None: this device alone): the
+    fit's candidates split over ``tree``
+    (``parallel.sharded.sharded_per_site_matrix``).
 
     Returns ``UFBootResult``; ``support[i]`` is the share of replicates
     whose winning candidate contains the unrooted split below ancestor i.
     """
     import time
 
-    from trex_tpu_torch.ops.likelihood_asr import per_site_matrix
+    from trex_tpu_torch.parallel.sharded import sharded_per_site_matrix
 
     leaves = torch.as_tensor(leaf_sequences)
     device = leaves.device
@@ -147,10 +152,10 @@ def ultrafast_bootstrap(
         timings["candidates"] = now - clock
     clock = now
     fit_timings: dict = {}
-    per_site = per_site_matrix(
-        from_numpy(cand_children, cand_parents, device), leaves, n_states, rates, freqs,
-        weights, n_sweeps=n_sweeps, sequences_are_masks=sequences_are_masks,
-        timings=fit_timings)
+    per_site = sharded_per_site_matrix(
+        mesh, from_numpy(cand_children, cand_parents, device), leaves, n_states, rates=rates,
+        freqs=freqs, weights=weights, n_sweeps=n_sweeps,
+        sequences_are_masks=sequences_are_masks, timings=fit_timings)
     obs_ll = rell_totals(weights[None], per_site)[0].cpu().numpy().astype(np.float64)
     now = time.perf_counter()
     if timings is not None:
