@@ -47,9 +47,9 @@ launch count set to 0 just before it and read just after:
 - the differentiable core at full width: ``infer --start diff`` on the
   NNI route's 128 x 1024 alignment (8 restarts x 600 steps, projection,
   K1 ranking the projected trees, held against K1's plain version, then
-  the SPR-scan climb), ``search`` (128 x 1024, steps cut to 1500, 8
+  the SPR-scan climb), ``search`` (128 x 1024, steps cut to 1000, 8
   restarts), ``asr`` (128 x 1024, 3000 steps), ``nk-bench`` (32 leaves, K
-  1, 2, 5, 10, lambda 0, 0.3, 3.0, ``--iterations`` cut to 150) and
+  1, 2, 5, 10, lambda 0, 0.3, 3.0, ``--iterations`` cut to 100) and
   ``search-run`` (16 x 128, 1500 steps in segments of 500, stopped after 2 and resumed,
   bit-equal to an uninterrupted run), each with its wall, its launches a
   descent step and idle share (a profiled window of 100 steps) and K1's
@@ -133,7 +133,7 @@ launch count set to 0 just before it and read just after:
   short ``--proposal nni`` and ``--full-bayes`` runs (the eigensystems'
   syncs counted); a ``--checkpoint-dir``/``--stop-after`` resume, bit for
   bit against the uninterrupted run; ``date`` on the true tree, strict at
-  1,000 generations (cut from 4,000) and relaxed under a coalescent prior
+  500 generations (cut from 4,000) and relaxed under a coalescent prior
   with a calibrated clade (walls by part, gen/s, steady windows of SAMPLER_WINDOW
   generations); ``bayesfactor --models jc,gtr`` at 32 rungs (the same);
   K4 held within rtol 1e-5 at the samplers' batches
@@ -149,7 +149,8 @@ launch count set to 0 just before it and read just after:
   ``simulate --leaves 512 --sites 2048`` (the host walk, byte-equal to the
   CPU's); ``simulate --model gy94`` at 64 taxa x 1000 codons, ``dnds`` at
   its defaults (walls by part, a profiled window of Adam steps, omega and
-  kappa beside the truth) and ``dnds --model gy94+g --search``; K3/K4's
+  kappa beside the truth) and ``dnds --model gy94+g --search`` (its fits cut
+  to 300 steps); K3/K4's
   runtime-Q kernel within rtol 1e-5 of its plain version at
   Q = 61 on the fitted tree's NNI neighbourhood (one P; a P per branch), on
   a 512-taxon batch (its plan and its global-slot mode) and at Q = 5; the
@@ -171,6 +172,18 @@ launch count set to 0 just before it and read just after:
   each rank's launches, a profiled scan round a route; and the same
   routes on the card against the CPU at 24 x 300. ``reference_bayes``
   also holds the Q = 5 sampler (the runtime-Q kernel) card against CPU.
+
+- Slice 7b (``--phases mesh_bayes``), the samplers' chains and rungs over
+  the mesh's 'tree' axis at slice 5's 64 x 2048: (a) ``mcmc_sample``,
+  ``mcmc_date`` and ``stepping_stone`` with ``mesh=make_mesh()`` in a
+  one-rank NCCL world, each bit for bit its ``mesh=None`` run; (b) two
+  gloo ranks sharing the card (``mesh_bayes_worker``): ``mcmc --runs 1
+  --chains 8 --mesh 2,1`` (the MC^3 swap straddles the ranks), ``mcmc
+  --runs 2 --chains 4 --mesh 2,1``, ``bayesfactor --models jc,gtr --rungs
+  32 --mesh 2,1`` and ``mcmc_date`` with 8 chains at (2, 1), each against
+  its single-device card run (the same JSON, samples file and dating
+  arrays, exactly), with each rank's gen/s, K4 grids a generation and
+  the collectives' walls; K4 held and timed at a rank's 4-chain batch.
 
 K1 is also captured in a CUDA graph, larger calls run, and the graph
 replayed (each call's scratch is its own: bit-equal to the plain version);
@@ -855,10 +868,11 @@ def top_events(events: dict, n: int = 8) -> list[dict]:
 # (stopped after 2 segments and resumed).
 # ``search`` cut from 3000 to 1500 iterations, ``nk-bench`` from 300 to 150
 # and ``search-run`` from 2000 to 1500, to make room for the models and
-# simulation phases.
-SEARCH_ARGS = ["search", "--leaves", "128", "--sites", "1024", "--iterations", "1500"]
+# simulation phases; ``search`` to 1000 and ``nk-bench`` to 100 for the
+# samplers' mesh phase (on a slow host the whole script passed 1200 s).
+SEARCH_ARGS = ["search", "--leaves", "128", "--sites", "1024", "--iterations", "1000"]
 ASR_ARGS = ["asr", "--leaves", "128", "--sites", "1024"]
-NK_ITERATIONS, NK_LEAVES, NK_SITES = 150, 32, 128
+NK_ITERATIONS, NK_LEAVES, NK_SITES = 100, 32, 128
 NK_ARGS = ["nk-bench", "--leaves", str(NK_LEAVES), "--sites", str(NK_SITES),
            "--k-values", "1", "2", "5", "10", "--lambdas", "0", "0.3", "3.0",
            "--iterations", str(NK_ITERATIONS)]
@@ -1460,7 +1474,8 @@ def slice_1b_reference(torch, workdir: str, ref_fasta: str) -> list[dict]:
 PHASES = ("card", "build", "native", "kernels", "routes", "differentiable", "slice_1b",
           "reference", "ml_models", "score_ml", "trait", "ml", "protein", "reference_2b",
           "slice_2c", "reference_2c", "supports", "reference_supports", "bayes",
-          "reference_bayes", "simulate", "dnds", "reference_models", "mesh", "reference_mesh")
+          "reference_bayes", "simulate", "dnds", "reference_models", "mesh", "reference_mesh",
+          "mesh_bayes")
 REQUIRES = {"routes": ("kernels",), "slice_1b": ("kernels", "routes"),
             "score_ml": ("ml_models",), "trait": ("ml_models",), "slice_2c": ("ml_models",)}
 SLICE_2B_PHASES = ("ml_models", "score_ml", "trait", "ml", "protein")
@@ -1575,17 +1590,19 @@ PROFILED_STEPS = 20
 DEEP_FIT_STEPS = 3
 # Adam steps of every fit in the card-against-CPU reference (both devices
 # alike; the full-width routes run the CLI's 800): a fit is launch-bound,
-# about 15 ms a step on either device at 24 taxa.
-REF_FIT_STEPS = 50
+# about 15 ms a step on either device at 24 taxa. Cut from 50 for the
+# samplers' mesh phase.
+REF_FIT_STEPS = 25
 # partition --search's fits cut from the command's 600 Adam steps (about 60 s of
 # its 67 s on an H100), to 300 to make room for the Bayesian phases, then to
-# 200 for the mesh phases.
-PARTITION_FIT_STEPS = 200
+# 200 for the mesh phases, then to 100 for the samplers' mesh phase.
+PARTITION_FIT_STEPS = 100
 # The model routes' (GTR+G scan and NNI, protein) and score_ml's fits cut
 # from the CLI's 800 Adam steps (about 40 s of each model route's 43-52 s
 # on an H100), to 300 to make room for the models and simulation phases,
-# then to 200 for the mesh phases.
-MODEL_FIT_STEPS = 200
+# then to 200 for the mesh phases, then to 100 for the samplers' mesh
+# phase.
+MODEL_FIT_STEPS = 100
 # modeltest's fits cut from the command's 500 Adam steps for the mesh
 # phases.
 MODELTEST_FIT_STEPS = 300
@@ -2954,7 +2971,7 @@ def supports_reference(torch, workdir: str) -> list[dict]:
 BAYES_SHAPE = dict(n_taxa=64, n_sites=2048)
 MCMC_ARGS = ["--runs", "2", "--chains", "4", "--proposal", "informed", "--informed-power",
              "0.1", "--branch-moves", "2"]
-MCMC_GENERATIONS = 2000  # the JAX benchmark's 10,000, cut to fit the call
+MCMC_GENERATIONS = 500  # the JAX benchmark's 10,000, cut to fit the call
 MCMC_SHORT = 100  # the --proposal nni and --full-bayes runs, and the resume
 # Steady-state windows (``steady_window``): generations timed, and
 # generations profiled (tracing costs about 0.2 ms an event, and mcmc
@@ -2962,13 +2979,13 @@ MCMC_SHORT = 100  # the --proposal nni and --full-bayes runs, and the resume
 MCMC_WINDOW = 20  # one sample block of mcmc
 SAMPLER_WINDOW = 30  # date and bayesfactor
 PROFILED_GENERATIONS = 10
-DATE_STRICT_GENERATIONS = 1000  # the command's 4000, cut to fit the call
-DATE_RELAXED_GENERATIONS = 500
+DATE_STRICT_GENERATIONS = 500  # the command's 4000, cut to fit the call
+DATE_RELAXED_GENERATIONS = 300
 # The clock fits of date (clock_lrt's two, 600 Adam steps each, and the
 # sampler's start fit, 500) cut to this many steps: at 64 x 2048 they take
 # about 28 ms a step on an H100 (47 s of a 59 s strict run at full length).
-CLOCK_FIT_STEPS = 150
-BAYESFACTOR_GENERATIONS = 300
+CLOCK_FIT_STEPS = 60
+BAYESFACTOR_GENERATIONS = 200
 BAYES_REF_SHAPE = dict(n_taxa=10, n_sites=300)
 BAYES_REF_GENERATIONS = 60
 
@@ -3580,6 +3597,9 @@ DNDS_SIM_ARGS = ["simulate", "--model", "gy94", "--leaves", "64", "--sites", "10
 # 0.06, and 0.01 of omega (the fits' 1e-2 agreement between devices).
 DNDS_TOLERANCE = dict(kappa=0.06, omega=0.01)
 DNDS_PROFILED_STEPS = 20
+# ``dnds --search``'s two GY94+G fits cut from the command's 600 Adam steps
+# (26.7 s of its 27.2 s on an H100) for the samplers' mesh phase.
+DNDS_SEARCH_STEPS = 300
 CODON_CLIMB_ROUNDS = 2
 K34_Q61_WIDE = dict(n_taxa=512, n_sites=1000, batch=32)
 K34_Q5 = dict(n_taxa=64, n_sites=1024, batch=256)
@@ -3778,7 +3798,8 @@ def dnds_routes(torch, dev, workdir: str, reset_counts, launch_counts, timer) ->
                          ms_per_step=1e3 * profile["unprofiled_wall_s"] / DNDS_PROFILED_STEPS)
     emit("dnds", **found["dnds"])
 
-    argv = ["dnds", "--alignment", fasta, "--model", "gy94+g", "--search"]
+    argv = ["dnds", "--alignment", fasta, "--model", "gy94+g", "--search", "--iterations",
+            str(DNDS_SEARCH_STEPS)]
     out, wall, parts, launches = route(argv)
     if launches["k2"] <= 0 or not np.isfinite(out["log_likelihood"]):
         raise AssertionError(f"dnds --search: {out}, {launches}")
@@ -4155,13 +4176,19 @@ def mesh_worker(rank: int, work: str) -> int:
 def run_mesh_world(workdir: str, name: str, commands: dict, device: str,
                    profile: str | None = None) -> list[dict]:
     """Each rank's results of ``mesh_worker`` on ``commands`` in a new
-    two-rank world. A rank that fails, or a world past
-    MESH_WORLD_TIMEOUT, kills both and raises with their logs."""
+    two-rank world (``launch_world``)."""
     work = os.path.join(workdir, name)
     os.makedirs(work)
     with open(os.path.join(work, "spec.json"), "w") as fh:
         json.dump(dict(commands=commands, device=device, timeout=MESH_WORLD_TIMEOUT,
                        profile=profile), fh)
+    return launch_world(work, "mesh_worker")
+
+
+def launch_world(work: str, worker: str) -> list[dict]:
+    """Each rank's ``work/rank<rank>.json`` after ``chip_smoke.<worker>(rank,
+    work)`` ran in two processes: a rank that fails, or a world past
+    MESH_WORLD_TIMEOUT, kills both and raises with their logs."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
     procs = []
@@ -4169,7 +4196,7 @@ def run_mesh_world(workdir: str, name: str, commands: dict, device: str,
         log = open(os.path.join(work, f"log{rank}.txt"), "w")
         procs.append((subprocess.Popen(
             [sys.executable, "-c",
-             f"import sys, chip_smoke; sys.exit(chip_smoke.mesh_worker({rank}, {work!r}))"],
+             f"import sys, chip_smoke; sys.exit(chip_smoke.{worker}({rank}, {work!r}))"],
             cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT), log))
     deadline = time.monotonic() + MESH_WORLD_TIMEOUT
     try:
@@ -4186,7 +4213,7 @@ def run_mesh_world(workdir: str, name: str, commands: dict, device: str,
         logs = "\n".join(f"--- rank {r} (rc {p.returncode}) ---\n"
                          + open(os.path.join(work, f"log{r}.txt")).read()[-6000:]
                          for r, (p, _) in enumerate(procs))
-        raise AssertionError(f"two-rank world {name} failed:\n{logs}")
+        raise AssertionError(f"two-rank world {os.path.basename(work)} failed:\n{logs}")
     results = []
     for rank in range(2):
         with open(os.path.join(work, f"rank{rank}.json")) as fh:
@@ -4555,6 +4582,342 @@ def mesh_entry(mesh: dict) -> dict | None:
         "launches": mesh["launches"]["c"]["parsimony 2,1"][0]["k1"],
         **{k: at[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "mesh_route_launches": mesh["launches"],
+    }
+
+
+# Slice 7b (the samplers over the mesh): ``mcmc``, ``bayesfactor`` and
+# ``mcmc_date`` with their chains or rungs over the mesh's 'tree' axis, at
+# the bayes phase's 64 x 2048 alignment: (a) the three samplers in a
+# one-rank NCCL world against this process on one device; (b) two gloo
+# ranks sharing the card (not a scaling figure) against the single-device
+# card runs of the same command and seed.
+MESH_BAYES_GENERATIONS = 500  # the mcmc and mcmc_date runs of (b)
+MESH_BAYESFACTOR_GENERATIONS = 300
+MESH_BAYES_ONE_RANK_GENERATIONS = 60  # (a)'s runs
+MESH_BAYES_CHAINS = ["--proposal", "informed", "--informed-power", "0.1", "--branch-moves", "2"]
+MESH_COLLECTIVE_REPS = 20
+
+
+def mesh_bayes_jobs(fasta: str, tree_path: str, work: str, device: str = "cuda") -> dict:
+    """(b)'s jobs by name: the commands (``argv``, rank 0 writing the samples
+    to ``samples``) and the dating run (``date``); each also runs on one
+    device in this process."""
+    gens = ["--generations", str(MESH_BAYES_GENERATIONS)]
+    jobs = {}
+    for name, chains in (("mcmc 1x8 (2,1)", ["--runs", "1", "--chains", "8"]),
+                         ("mcmc 2x4 (2,1)", ["--runs", "2", "--chains", "4"])):
+        jobs[name] = dict(argv=["mcmc", "--fasta", fasta, *chains, *MESH_BAYES_CHAINS, *gens,
+                                "--device", device],
+                          samples=os.path.join(work, name.split()[1] + ".samples"),
+                          generations=MESH_BAYES_GENERATIONS, mesh="2,1", device=device)
+    jobs["bayesfactor jc,gtr 32 rungs (2,1)"] = dict(
+        argv=["bayesfactor", "--fasta", fasta, "--tree", tree_path, "--models", "jc,gtr",
+              "--rungs", "32", "--generations", str(MESH_BAYESFACTOR_GENERATIONS), "--device",
+              device], generations=MESH_BAYESFACTOR_GENERATIONS, mesh="2,1", device=device)
+    jobs["mcmc_date 8 chains strict (2,1)"] = dict(
+        date=dict(fasta=fasta, tree=tree_path), generations=MESH_BAYES_GENERATIONS, mesh="2,1",
+        device=device)
+    return jobs
+
+
+def mesh_date_run(torch, job: dict, mesh, timings: dict) -> dict:
+    """``mcmc_date`` strict at 8 chains on the date job's alignment and
+    tree, from the tree's true ages (no start fit): its arrays."""
+    from trex_tpu_torch.io import load_newick
+    from trex_tpu_torch.search import dating
+
+    topo, lengths, _ = load_newick(open(job["date"]["tree"]).read())
+    leaves, weights = main_patterns(torch, job["date"]["fasta"], job["device"])
+    res = dating.mcmc_date(topo.to(job["device"]), leaves, 4, seed=SEED, n_chains=8,
+                           n_generations=job["generations"],
+                           start_ages=true_ages(topo, lengths), site_weights=weights,
+                           sequences_are_masks=True, device=job["device"], mesh=mesh,
+                           timings=timings)
+    return dict(sample_ages=res.sample_ages, sample_lnl=res.sample_lnl,
+                acceptance=np.array(list(res.acceptance.values())))
+
+
+def run_bayes_job(torch, job: dict, mesh_spec: str | None, reset, read) -> dict:
+    """One job of ``mesh_bayes_jobs`` in this process (on the mesh of
+    ``mesh_spec``, or one device), every launch count set to 0 just before
+    it and read just after: its output, walls, launches and the sampler's
+    seconds."""
+    from trex_tpu_torch.parallel import make_mesh
+
+    cuda = job["device"] == "cuda"
+    timings: dict = {}
+    if cuda:
+        torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    if "argv" in job:
+        argv = list(job["argv"]) + (["--mesh", mesh_spec] if mesh_spec else [])
+        if "samples" in job:
+            argv += ["--samples-out", job["samples"] + ("" if mesh_spec else ".one")]
+        out = run_cli(argv, timings=timings)
+        arrays = {}
+    else:
+        mesh = make_mesh(tree_parallelism=int(mesh_spec[0])) if mesh_spec else None
+        arrays = mesh_date_run(torch, job, mesh, timings)
+        out = {"acceptance": arrays["acceptance"].tolist()}
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read()
+    sampler_s = (sum(v["sampler"] for v in timings.values()) if "models" in out
+                 else timings["sampler"])
+    gens = job["generations"] * (2 if "models" in out else 1)
+    return dict(out=out, arrays=arrays, wall_s=wall, sampler_s=sampler_s,
+                generations_per_s=gens / sampler_s, ms_per_generation=1e3 * sampler_s / gens,
+                launches=launches, k4_grids_per_generation=launches["k34"] / gens)
+
+
+def mesh_collectives(torch, mesh, device) -> dict:
+    """Walls of the samplers' collectives on ``mesh`` at the 64-taxon
+    chains' sizes, each the median of MESH_COLLECTIVE_REPS after a
+    barrier: the straddling swap's gather of the state (4 rows a rank),
+    a Dirichlet move's gather of 16 rungs' concentrations, the counters'
+    sum."""
+    import torch.distributed as dist
+
+    from trex_tpu_torch.parallel.chains import gather_packed, gather_rows, psum_counts
+
+    n_taxa, rows = BAYES_SHAPE["n_taxa"], 4
+    state = [torch.zeros((rows, n_taxa - 1, 2), dtype=torch.int32, device=device),
+             torch.rand((rows, 2 * n_taxa - 1), device=device), torch.rand((rows,), device=device),
+             torch.rand((rows, 1), device=device), torch.rand((rows, 1), device=device)]
+    alpha = torch.rand((16, 6), device=device)
+    acc = torch.zeros((4,), dtype=torch.int64, device=device)
+    calls = {"swap state gather": lambda: gather_packed(mesh, state),
+             "dirichlet alpha gather": lambda: gather_rows(mesh, alpha),
+             "counter psum": lambda: psum_counts(mesh, acc)}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    out = {}
+    for name, fn in calls.items():
+        walls = []
+        dist.barrier()
+        for _ in range(MESH_COLLECTIVE_REPS + 2):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls.append(time.perf_counter() - t0)
+        out[name] = {"ms": 1e3 * float(np.median(walls[2:]))}
+    return out
+
+
+def mesh_bayes_worker(rank: int, work: str) -> int:
+    """One rank of (b)'s two-rank world (run as ``python -c "import
+    chip_smoke; chip_smoke.mesh_bayes_worker(rank, dir)"``): gloo over
+    ``file://`` in ``work``, on the card the ranks share. Runs each job of
+    ``work/spec.json`` on its mesh after a barrier (``run_bayes_job``),
+    then times the samplers' collectives; writes ``work/rank<rank>.json``
+    and the date job's arrays to ``work/<job>_rank<rank>.npz``."""
+    import torch
+    import torch.distributed as dist
+
+    from trex_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    with open(os.path.join(work, "spec.json")) as fh:
+        spec = json.load(fh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(f"file://{work}/rdv", 2, rank, spec["timeout"], backend="gloo",
+                           device=spec["device"])
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    _, reset, read = launch_counters()
+    results = {}
+    for i, (name, job) in enumerate(spec["jobs"].items()):
+        dist.barrier()
+        row = run_bayes_job(torch, job, job["mesh"], reset, read)
+        if row["arrays"]:
+            np.savez(os.path.join(work, f"job{i}_rank{rank}.npz"), **row["arrays"])
+        results[name] = {k: v for k, v in row.items() if k != "arrays"}
+    results["collectives"] = mesh_collectives(torch, make_mesh(tree_parallelism=2),
+                                              spec["device"])
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+        json.dump(results, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_bayes_world(workdir: str, jobs: dict, device: str) -> list[dict]:
+    """Each rank's results of ``mesh_bayes_worker`` on ``jobs`` in a new
+    two-rank world (``launch_world``)."""
+    work = os.path.join(workdir, "mesh_bayes")
+    os.makedirs(work, exist_ok=True)
+    with open(os.path.join(work, "spec.json"), "w") as fh:
+        json.dump(dict(jobs=jobs, device=device, timeout=MESH_WORLD_TIMEOUT), fh)
+    return launch_world(work, "mesh_bayes_worker")
+
+
+def same_bayes_job(name: str, job: dict, meshed: dict, single: dict, arrays, one_arrays) -> dict:
+    """A meshed job against its single-device run, exactly: the same JSON
+    (accept rates, consensus, splits, lnL summaries), the same samples file
+    and the same dating arrays (ages, lnL, acceptance). Raises where any
+    differs; returns what was compared."""
+    compared = ["json"]
+    if meshed["out"] != single["out"]:
+        raise AssertionError(f"(b) {name}: the meshed JSON differs from one device: "
+                             f"{meshed['out']} != {single['out']}")
+    if "samples" in job:
+        with open(job["samples"]) as a, open(job["samples"] + ".one") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"(b) {name}: the samples file differs from one device")
+        compared.append("samples file")
+    for key, want in one_arrays.items():
+        if not np.array_equal(arrays[key], want):
+            raise AssertionError(f"(b) {name}: {key} differs from one device")
+        compared.append(key)
+    return {"equal_to_one_device": compared}
+
+
+def mesh_bayes_routes(torch, dev, workdir: str, reset_counts, launch_counts, timer) -> dict:
+    """Slice 7b at 64 x 2048 (``mesh_bayes_jobs``): (a) ``mcmc_sample``
+    (informed, 2 x 4 chains), ``mcmc_date`` (8 chains) and
+    ``stepping_stone`` (32 rungs, GTR simplices sampled) with
+    ``mesh=make_mesh()`` in a one-rank NCCL world, each bit for bit its
+    call on one device; (b) the jobs on two gloo ranks sharing the card
+    against their single-device card runs, each rank's gen/s, K4 grids a
+    generation and the collectives' walls; K4 held and timed at a rank's
+    4-chain batch. Returns what the kernels line reads."""
+    import torch.distributed as dist
+
+    from trex_tpu_torch.alignment import compress_alignment
+    from trex_tpu_torch.cli._common import _load_alignment
+    from trex_tpu_torch.io import load_newick, sample_topologies
+    from trex_tpu_torch.ops.likelihood import jc69_transition
+    from trex_tpu_torch.parallel import initialize_distributed, make_mesh
+    from trex_tpu_torch.search import dating, mcmc
+    from trex_tpu_torch.search.marginal import stepping_stone
+
+    found: dict = {"launches": {}}
+    fasta = os.path.join(workdir, "mesh_bayes.fasta")
+    tree_path = os.path.join(workdir, "mesh_bayes.nwk")
+    simulate_ultrametric(fasta, tree_path, BAYES_SHAPE["n_taxa"], BAYES_SHAPE["n_sites"],
+                         SEED + 31)
+    _, masks, _ = _load_alignment(fasta, "dna")
+    patterns, counts = compress_alignment(masks)
+    pat_t = torch.as_tensor(patterns.astype(np.int32), device=dev)
+    w_t = torch.as_tensor(counts.astype(np.float32), device=dev)
+    topo, lengths, _ = load_newick(open(tree_path).read())
+    true_topo, ages = topo.to(dev), true_ages(topo, lengths)
+
+    # (a) A one-rank NCCL world: each sampler with mesh=make_mesh() against
+    # mesh=None, from the same seed.
+    gens = MESH_BAYES_ONE_RANK_GENERATIONS
+    kw = dict(seed=SEED + 2, site_weights=w_t, sequences_are_masks=True, device=dev)
+    samplers = {
+        "mcmc_sample 2x4 informed": lambda mesh: mcmc.mcmc_sample(
+            pat_t, 4, n_generations=gens, n_runs=2, n_chains=4, topo_proposal="informed",
+            topo_informed_power=0.1, branch_moves_per_gen=2, sample_every=10, mesh=mesh, **kw),
+        "mcmc_date 8 chains strict": lambda mesh: dating.mcmc_date(
+            true_topo, pat_t, 4, n_generations=gens, n_chains=8, start_ages=ages, mesh=mesh,
+            **kw),
+        "stepping_stone 32 rungs gtr": lambda mesh: stepping_stone(
+            true_topo, pat_t, 4, n_rungs=32, n_generations=gens // 2, sample_model=True,
+            mesh=mesh, **kw),
+    }
+
+    def arrays(res) -> dict:
+        if isinstance(res, dict):
+            return {k: np.asarray(res[k]) for k in ("log_ratios", "acceptance")}
+        keys = [k for k in ("sample_children", "sample_lengths", "sample_ages", "sample_lnl")
+                if hasattr(res, k)]
+        return dict({k: getattr(res, k) for k in keys},
+                    acceptance=np.array(list(res.acceptance.values())))
+
+    one = {name: arrays(run(None)) for name, run in samplers.items()}
+    t0 = time.perf_counter()
+    initialize_distributed(f"file://{workdir}/mesh_bayes_nccl_rdv", 1, 0, 120, device=dev)
+    try:
+        mesh = make_mesh()
+        if dist.get_backend() != ("nccl" if dev.type == "cuda" else "gloo") or \
+                mesh.groups["tree"] is None:
+            raise AssertionError(f"the NCCL world did not form: {dist.get_backend()}")
+        checks = {}
+        for name, run in samplers.items():
+            reset_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = arrays(run(mesh))
+            torch.cuda.synchronize()
+            checks[name] = dict(wall_s=time.perf_counter() - t1, launches=launch_counts())
+            for key, want in one[name].items():
+                if not np.array_equal(got[key], want):
+                    raise AssertionError(f"(a) {name}: {key} differs from one device")
+            checks[name]["bit_identical"] = True
+    finally:
+        dist.destroy_process_group()
+    found["a"] = dict(generations=gens, checks=checks, wall_s=time.perf_counter() - t0)
+    found["launches"]["a"] = {name: c["launches"] for name, c in checks.items()}
+    emit("mesh_bayes_a", what="the three samplers with mesh=make_mesh() in a one-rank NCCL "
+         "world against mesh=None, 64 x 2048", **found["a"])
+
+    # (b) Two gloo ranks sharing the card, against the single-device runs.
+    work = os.path.join(workdir, "mesh_bayes")
+    os.makedirs(work, exist_ok=True)
+    jobs = mesh_bayes_jobs(fasta, tree_path, work, dev.type)
+    single = {name: run_bayes_job(torch, job, None, reset_counts, launch_counts)
+              for name, job in jobs.items()}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_bayes_world(workdir, jobs, dev.type)
+    world_s = time.perf_counter() - t0
+    rows = {}
+    for i, (name, job) in enumerate(jobs.items()):
+        meshed = [r[name] for r in ranks]
+        if meshed[1]["out"] != meshed[0]["out"]:
+            raise AssertionError(f"(b) {name}: the ranks' results differ")
+        rank_arrays = ({} if not single[name]["arrays"] else
+                       dict(np.load(os.path.join(work, f"job{i}_rank0.npz"))))
+        rows[name] = dict(
+            same_bayes_job(name, job, meshed[0], single[name], rank_arrays,
+                           single[name]["arrays"]),
+            single_device={k: single[name][k] for k in (
+                "wall_s", "sampler_s", "generations_per_s", "ms_per_generation",
+                "k4_grids_per_generation", "launches")},
+            ranks=[{k: m[k] for k in ("wall_s", "sampler_s", "generations_per_s",
+                                      "ms_per_generation", "k4_grids_per_generation",
+                                      "launches")} for m in meshed])
+        found["launches"][name] = [m["launches"] for m in meshed]
+        emit("mesh_bayes_b", job=name, **({"command": " ".join(job["argv"][3:])}
+                                           if "argv" in job else {}),
+             note="two gloo ranks sharing one card: not a scaling figure", **rows[name])
+    for name in rows:
+        if min(launches["k34_per_branch"] for launches in found["launches"][name]) <= 0:
+            raise AssertionError(f"(b) {name}: K4 did not launch on every rank")
+    found["b"] = dict(jobs=rows, world_s=world_s,
+                      collectives=[r["collectives"] for r in ranks])
+    emit("mesh_bayes_collectives", what="each rank's collectives of the samplers at (2, 1), "
+         "gloo on the shared card", world_s=world_s, collectives=found["b"]["collectives"])
+
+    # K4 held and timed at a rank's 4-chain batch of the 2 x 4 sampler.
+    rng = np.random.default_rng(SEED + 37)
+    starts = sample_topologies(int(rng.integers(2**31)), BAYES_SHAPE["n_taxa"], 4,
+                               device=dev).children
+    rank_lengths = torch.as_tensor(rng.exponential(0.1, (4, 2 * BAYES_SHAPE["n_taxa"] - 1))
+                                   .astype(np.float32), device=dev)
+    found["k4"] = k4_bayes_at(torch, dev, starts, pat_t, w_t, torch.full((4,), 0.25, device=dev),
+                              jc69_transition(rank_lengths, 4).contiguous(), timer)
+    emit("mesh_bayes_k4", what="K4 at a rank's 4-chain batch (64 x 2048)", **found["k4"])
+    return found
+
+
+def mesh_bayes_entry(mesh_bayes: dict) -> dict | None:
+    """K3/K4's kernels-line entry from the mesh_bayes phase alone (a run of
+    a subset of the phases): launches on (b)'s 2 x 4 mcmc at (2, 1), rank
+    0, and K4 held and timed at a rank's 4-chain batch."""
+    if not mesh_bayes:
+        return None
+    at = mesh_bayes["k4"]
+    return {
+        "name": "likelihood_batched", "route": "cuda",
+        "source": "trex_tpu_torch/csrc/likelihood_batched.cu",
+        "replaces": "trex_tpu/ops/likelihood_pallas.py:135",
+        "launches": mesh_bayes["launches"]["mcmc 2x4 (2,1)"][0]["k34"],
+        **{k: at[k] for k in ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "device_ms")},
+        "library_ms": None, "mesh_bayes_route_launches": mesh_bayes["launches"],
     }
 
 
@@ -5473,6 +5836,14 @@ def main(argv: list[str] | None = None) -> int:
         for row in mesh_reference(torch, workdir):
             emit("reference", part="slice 7a", **row)
         emit("reference_mesh", seconds=time.perf_counter() - t0)
+    # 14. Slice 7b (the samplers over the mesh) at 64 x 2048: a one-rank NCCL
+    # world, then two gloo ranks sharing the card, against one device.
+    mesh_bayes = {}
+    if "mesh_bayes" in phases:
+        t0 = time.perf_counter()
+        mesh_bayes = mesh_bayes_routes(torch, dev, workdir, reset_counts, launch_counts,
+                                       device_times)
+        emit("mesh_bayes", seconds=time.perf_counter() - t0)
     shutil.rmtree(workdir)
 
     k3_model = k3_model_entry(slice_2b, slice_2c)
@@ -5480,7 +5851,7 @@ def main(argv: list[str] | None = None) -> int:
     if not EARLIER_PHASES <= phases:
         # A subset of the phases: the kernels its phases measured.
         kernels = [k for k in (k3_model, per_site, bayes_entry(bayes), models_entry(models),
-                               mesh_entry(mesh)) if k]
+                               mesh_entry(mesh), mesh_bayes_entry(mesh_bayes)) if k]
     else:
         kernels = [
             {
@@ -5534,6 +5905,8 @@ def main(argv: list[str] | None = None) -> int:
                 **bayes_fields(bayes),
                 **models_fields(models),
                 **({"mesh_route_launches": mesh["launches"]} if mesh else {}),
+                **({"mesh_bayes_route_launches": mesh_bayes["launches"],
+                    "at_mesh_bayes_rank_batch": mesh_bayes["k4"]} if mesh_bayes else {}),
             },
             {
                 "name": "sankoff_batched", "route": "cuda",

@@ -169,6 +169,67 @@ def cli(inputs: dict, rank: int) -> dict:
     return out
 
 
+class ReplayDraws:
+    """The samplers' draw protocol (``search/mcmc.py``'s ``TorchDraws``)
+    replaying a recording (``_torch_parity.RecordedDraws``, under
+    ``prefix`` in ``inputs``) call by call: each call must be the recorded
+    call's kind and shape (the whole batch's), and a Dirichlet's
+    concentrations the recorded ones; ``get_state`` gives the key state
+    recorded at this call, ``set_state`` moves to the call recorded with
+    that state."""
+
+    def __init__(self, inputs: dict, prefix: str) -> None:
+        self.calls = inputs[f"{prefix}_calls"]
+        sizes = [int(np.prod(shape)) for _, shape in self.calls]
+        self.offsets = np.concatenate([[0], np.cumsum(sizes)])
+        self.values = inputs[f"{prefix}_values"]
+        self.alphas = inputs[f"{prefix}_alphas"]
+        self.state_at = inputs[f"{prefix}_state_at"]
+        self.states = inputs[f"{prefix}_states"]
+        self.pos = self.alpha_pos = 0
+
+    def _next(self, kind: str, shape):
+        import torch
+
+        got_kind, got_shape = self.calls[self.pos]
+        assert (kind, list(shape)) == (got_kind, got_shape), \
+            f"call {self.pos}: {kind} {list(shape)}, recorded {got_kind} {got_shape}"
+        x = self.values[self.offsets[self.pos]:self.offsets[self.pos + 1]].reshape(shape)
+        self.pos += 1
+        return torch.as_tensor(x, dtype=torch.int64 if kind == "randint" else torch.float32)
+
+    def uniform(self, shape):
+        return self._next("uniform", shape)
+
+    def normal(self, shape):
+        return self._next("normal", shape)
+
+    def randint(self, shape, low, high):
+        return self._next("randint", shape)
+
+    def gumbel(self, shape):
+        return self._next("gumbel", shape)
+
+    def gamma(self, concentration, shape):
+        return self._next("gamma", shape)
+
+    def dirichlet(self, alpha):
+        n = alpha.numel()
+        want = self.alphas[self.alpha_pos:self.alpha_pos + n]
+        np.testing.assert_array_equal(alpha.numpy().ravel(), want, err_msg="Dirichlet alpha")
+        self.alpha_pos += n
+        return self._next("dirichlet", alpha.shape)
+
+    def get_state(self):
+        return self.states[list(self.state_at).index(self.pos)]
+
+    def set_state(self, state) -> None:
+        i = next(i for i, st in enumerate(self.states) if np.array_equal(st, state))
+        self.pos = int(self.state_at[i])
+        self.alpha_pos = sum(int(np.prod(shape)) for kind, shape in self.calls[:self.pos]
+                             if kind == "dirichlet")
+
+
 MESHES = {"t2": 2, "s2": 1}
 """The meshes a two-rank world runs, by name: tree parallelism 2 ((2, 1))
 and 1 ((1, 2)). Both are built in one world."""
@@ -383,6 +444,56 @@ def joint(inputs: dict, rank: int) -> dict:
                                       eval_noise=t["f_eval"], mesh=mesh)
         out[f"{name}_fit_tree"], out[f"{name}_fit_losses"] = params["tree_params"], losses
     return {k: v.numpy() if torch.is_tensor(v) else v for k, v in out.items()}
+
+@worker
+def samplers(inputs: dict, rank: int) -> dict:
+    """``mcmc_sample``, ``mcmc_date`` and ``stepping_stone`` with ``mesh=``
+    under replayed draws, one run for each entry of ``inputs["runs"]``
+    (``name``, ``kind``, ``mesh``, ``draws``, ``kwargs``; an mcmc run's
+    ``checkpoint`` directory, shared by the ranks, which rank 0 first
+    fills with ``inputs["<seed>_<key>"]`` when ``seed`` names them): the
+    results and an mcmc run's final checkpoint."""
+    import torch
+    import torch.distributed as dist
+
+    from trex_tpu_torch.search.dating import mcmc_date
+    from trex_tpu_torch.search.marginal import stepping_stone
+    from trex_tpu_torch.search.mcmc import mcmc_sample
+
+    meshes = _meshes()
+    topo = _topology(inputs, "tree")
+    common = dict(site_weights=inputs["weights"], sequences_are_masks=True, device="cpu")
+    out = {}
+    for run in inputs["runs"]:
+        name = run["name"]
+        kw = dict(run["kwargs"], draws=ReplayDraws(inputs, run["draws"]),
+                  mesh=meshes[run["mesh"]], **common)
+        if run["kind"] == "mcmc":
+            ck = run["checkpoint"]
+            if run.get("seed") and rank == 0:
+                os.makedirs(ck)
+                np.savez(os.path.join(ck, "mcmc_checkpoint.npz"),
+                         **{k[len(run["seed"]) + 1:]: v for k, v in inputs.items()
+                            if k.startswith(run["seed"] + "_")})
+            dist.barrier()
+            res = mcmc_sample(inputs["leaves"], 4, checkpoint_dir=ck, **kw)
+            out.update({f"{name}_{k}": np.asarray(getattr(res, k)) for k in (
+                "sample_children", "sample_lengths", "sample_lnl", "sample_run",
+                "consensus_newick", "ess_lnl", "mean_lengths")})
+            out[f"{name}_asdsf"] = np.asarray(np.nan if res.asdsf is None else res.asdsf)
+            out[f"{name}_acceptance"] = np.array(list(res.acceptance.values()))
+            with np.load(os.path.join(ck, "mcmc_checkpoint.npz")) as saved:
+                out.update({f"{name}_ck_{k}": v for k, v in saved.items()})
+        elif run["kind"] == "date":
+            res = mcmc_date(topo, inputs["leaves"], 4, start_ages=inputs["ages"], **kw)
+            out.update({f"{name}_{k}": np.asarray(getattr(res, k)) for k in (
+                "sample_ages", "sample_lnl", "age_hpd", "ess_root_age")})
+            out[f"{name}_acceptance"] = np.array(list(res.acceptance.values()))
+        else:
+            res = stepping_stone(topo, inputs["leaves"], 4, **kw)
+            out.update({f"{name}_{k}": np.asarray(v) for k, v in res.items()})
+    return {k: v.numpy() if torch.is_tensor(v) else v for k, v in out.items()}
+
 
 if __name__ == "__main__":
     sys.path.insert(0, str(_HERE))

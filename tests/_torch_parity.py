@@ -309,6 +309,65 @@ class JaxDraws:
         self.state, self.queue = jnp.asarray(np.asarray(state, np.uint32)), []
 
 
+class RecordedDraws:
+    """A draw source that hands every call on to ``inner`` (a ``JaxDraws``)
+    and records it, so that ranks which import no JAX replay the same
+    draws (``_torch_dist.ReplayDraws``): each call's kind and shape, its
+    values, a Dirichlet's concentrations, and the key state at each
+    ``get_state``/``set_state`` with the number of calls made by then.
+    One recorder may serve several legs of a resumed run."""
+
+    def __init__(self, inner) -> None:
+        self.inner = inner
+        self.calls: list = []
+        self.values: list = []
+        self.alphas: list = []
+        self.states: list = []
+
+    def _record(self, kind: str, x):
+        self.calls.append([kind, list(x.shape)])
+        self.values.append(x.cpu().numpy().astype(np.float64).ravel())
+        return x
+
+    def uniform(self, shape):
+        return self._record("uniform", self.inner.uniform(shape))
+
+    def normal(self, shape):
+        return self._record("normal", self.inner.normal(shape))
+
+    def randint(self, shape, low, high):
+        return self._record("randint", self.inner.randint(shape, low, high))
+
+    def gumbel(self, shape):
+        return self._record("gumbel", self.inner.gumbel(shape))
+
+    def gamma(self, concentration, shape):
+        return self._record("gamma", self.inner.gamma(concentration, shape))
+
+    def dirichlet(self, alpha):
+        self.alphas.append(alpha.cpu().numpy().astype(np.float32).ravel())
+        return self._record("dirichlet", self.inner.dirichlet(alpha))
+
+    def get_state(self):
+        state = self.inner.get_state()
+        self.states.append((len(self.calls), np.asarray(state)))
+        return state
+
+    def set_state(self, state) -> None:
+        self.inner.set_state(state)
+        self.states.append((len(self.calls), np.asarray(state)))
+
+    def inputs(self, prefix: str) -> dict:
+        """The recording as ``_torch_dist.start_ranks`` inputs under ``prefix``."""
+        return {f"{prefix}_calls": self.calls,
+                f"{prefix}_values": np.concatenate(self.values),
+                f"{prefix}_alphas": (np.concatenate(self.alphas) if self.alphas
+                                     else np.zeros(0, np.float32)),
+                f"{prefix}_state_at": np.array([at for at, _ in self.states], np.int64),
+                f"{prefix}_states": (np.stack([st for _, st in self.states]) if self.states
+                                     else np.zeros((0, 2), np.uint32))}
+
+
 def jax_mcmc_step(branch_moves: int, sample_model: bool, proposal: str | None, swap: bool):
     """``trex_tpu.search.mcmc.mcmc_sample``'s per-generation key schedule
     (its ``gen_step``; ``proposal`` None without topology moves)."""

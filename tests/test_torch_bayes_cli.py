@@ -4,9 +4,13 @@ command's keys in its order, the deterministic fields equal, and (each on
 its own draws) the same consensus tree and top splits; the port's
 ``--output-tree``, ``--samples-out`` and ``--trace-out`` written as the
 JAX command writes them; under ``--full-bayes`` the JAX command, handed
-the port's fit and sampler result, prints the port's JSON. ``--mesh 2,1`` is refused by naming the
-Multi-device item, and without ``--device`` the commands ask for the card
-(none here). 200 generations."""
+the port's fit and sampler result, prints the port's JSON. In one process
+``--mesh 2,1`` asks for more devices than the process has, ``--mesh 1,1``
+and ``--mesh auto`` run on the one device; ``date``, whose JAX command has
+no ``--mesh``, refuses a launcher's world of two ranks
+(``test_torch_bayes_mesh_cli.py``: ``mcmc`` and ``bayesfactor`` on two
+ranks); without ``--device`` the commands ask for the card (none here).
+200 generations."""
 
 import contextlib
 import io
@@ -100,25 +104,32 @@ def test_full_bayes_json_equals_jax_on_one_result(fasta, monkeypatch):
 
 
 @pytest.mark.parametrize("command", ["mcmc", "bayesfactor"])
-def test_mesh_is_refused(fasta, tmp_path, command):
+def test_mesh_needs_the_ranks_it_names(fasta, tmp_path, command):
+    """``--mesh 2,1`` in one process: the JAX CLI's refusal, before the
+    sampler runs."""
     argv = [command, "--fasta", fasta, "--mesh", "2,1", "--device", "cpu"]
     if command == "bayesfactor":
         argv += ["--tree", str(tmp_path / "none.nwk")]
-    with pytest.raises(SystemExit, match="Multi-device"):
+    with pytest.raises(SystemExit, match=r"--mesh 2,1: 2\*1 != 1 addressable devices"):
         torch_cli.main(argv)
 
 
-@pytest.mark.parametrize("command", ["mcmc", "bayesfactor", "date"])
+@pytest.mark.parametrize("spec", ["1,1", "auto"])
+def test_one_process_mesh_is_one_device(fasta, spec):
+    argv = ["mcmc", "--fasta", fasta, "--generations", "20", "--sample-every", "10",
+            "--runs", "1", "--chains", "2", "--device", "cpu"]
+    assert _json(torch_cli, argv + ["--mesh", spec]) == _json(torch_cli, argv)
+
+
+@pytest.mark.parametrize("command", ["date"])
 def test_launched_world_is_refused(fasta, tmp_path, monkeypatch, command):
-    """A launcher's two-rank world (``torchrun``'s environment) with no
-    ``--mesh`` flag is refused before any rank runs the sampler."""
+    """A launcher's two-rank world (``torchrun``'s environment) is refused
+    before any rank runs a command whose JAX counterpart has no ``--mesh``."""
     for name, value in (("RANK", "0"), ("WORLD_SIZE", "2"), ("LOCAL_RANK", "0"),
                         ("MASTER_ADDR", "localhost"), ("MASTER_PORT", "1")):
         monkeypatch.setenv(name, value)
-    argv = [command, "--fasta", fasta, "--device", "cpu"]
-    if command != "mcmc":
-        argv += ["--tree", str(tmp_path / "none.nwk")]
-    with pytest.raises(SystemExit, match="Multi-device"):
+    argv = [command, "--fasta", fasta, "--tree", str(tmp_path / "none.nwk"), "--device", "cpu"]
+    with pytest.raises(SystemExit, match=f"the JAX CLI's {command} has no --mesh"):
         torch_cli.main(argv)
 
 

@@ -67,34 +67,28 @@ def _make_cli_mesh(spec: str | None, divides: int | None = None):
     return make_mesh(tree_parallelism=t)
 
 
-def _join_world(args):
+def _join_world(args, divides: int | None = None):
     """Join a launcher's world (``torchrun``: every rank runs the command)
-    on ``--device``, then build ``--mesh``'s mesh (``_make_cli_mesh``)."""
+    on ``--device``, then build ``--mesh``'s mesh (``_make_cli_mesh``, with
+    ``divides``)."""
     from trex_tpu_torch.parallel.distributed import initialize_distributed
 
     initialize_distributed(device=args.device)
-    return _make_cli_mesh(getattr(args, "mesh", None))
+    return _make_cli_mesh(getattr(args, "mesh", None), divides)
 
 
 def refuse_world(command: str) -> None:
     """Refuse a launcher's world of more than one rank (``torchrun
     --nproc-per-node N``) for a command that runs on one device: each rank
-    would run the whole command and write the same files. Only ``infer``
-    and ``topotest`` join a world (``_join_world``)."""
+    would run the whole command and write the same files. The commands
+    whose JAX counterparts take ``--mesh`` (``infer``, ``topotest``,
+    ``mcmc``, ``bayesfactor``) join a world (``_join_world``)."""
     import os
 
     ranks = int(os.environ.get("WORLD_SIZE", "1"))
     if ranks > 1:
-        raise SystemExit(f"{command} runs on one device, not over {ranks} ranks: the "
-                         "Multi-device item of ROADMAP.md; launch it as one process")
-
-
-def is_output_rank() -> bool:
-    """True on the rank that prints and writes files: rank 0 of a world,
-    or the only process."""
-    import torch.distributed as dist
-
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+        raise SystemExit(f"{command} runs on one device, not over {ranks} ranks: the JAX "
+                         f"CLI's {command} has no --mesh; launch it as one process")
 
 
 def _add_device(p: argparse.ArgumentParser, what: str) -> None:

@@ -14,6 +14,13 @@ same way (``search.mcmc.default_draws``), so they match JAX's in
 distribution only. Non-jc models are fitted by ML (``optimize_model``) on
 the NJ start tree (``mcmc``) or the given tree (``date``, ``bayesfactor``
 for +g) and held fixed, as the JAX commands do.
+
+``mcmc`` and ``bayesfactor`` take ``--mesh`` and join a launcher's world
+(``torchrun --nproc-per-node N``), as the JAX commands take ``--mesh``:
+the chains (``mcmc``: runs x chains) or the rungs split over the mesh's
+'tree' axis (``--mesh auto`` and no flag in a world: the largest that
+divides them), every rank runs the command, and only rank 0 prints and
+writes files. The JSON is the single-process run's.
 """
 
 from __future__ import annotations
@@ -25,14 +32,14 @@ import numpy as np
 import torch
 
 from trex_tpu_torch._device import resolve_device
-from trex_tpu_torch.cli._common import _load_alignment, _outgroup_indices, lowest_states
+from trex_tpu_torch.cli._common import (
+    _join_world,
+    _load_alignment,
+    _outgroup_indices,
+    lowest_states,
+)
 from trex_tpu_torch.cli.trees import _read_trees
-
-
-def _check_mesh(args) -> None:
-    if getattr(args, "mesh", None) not in (None, "1,1"):
-        raise SystemExit("--mesh is not ported yet: the Multi-device item of ROADMAP.md; this "
-                         "port runs on one device")
+from trex_tpu_torch.parallel.mesh import is_output_rank
 
 
 def _patterns(args, device):
@@ -59,14 +66,14 @@ def _tree_on(args, names, device):
 
 
 def run_mcmc(args, timings: dict | None = None) -> dict:
-    """The printed JSON object of ``mcmc`` (writes ``--output-tree``,
+    """The printed JSON object of ``mcmc`` (rank 0 writes ``--output-tree``,
     ``--samples-out`` and ``--trace-out``). ``timings``: a dict that, when
     given, receives the sampler's wall seconds (``mcmc_sample``'s)."""
     from trex_tpu_torch.io import save_newick
     from trex_tpu_torch.search.mcmc import mcmc_sample
     from trex_tpu_torch.topology import from_numpy
 
-    _check_mesh(args)
+    mesh = _join_world(args, divides=args.runs * args.chains)
     device = resolve_device(args.device)
     names, masks, n_states, patterns, weights = _patterns(args, device)
     out: dict[str, object] = {
@@ -104,7 +111,7 @@ def run_mcmc(args, timings: dict | None = None) -> dict:
         out["model_fit"] = ("ML on NJ start tree, chain seed (sampled during MCMC)"
                             if args.full_bayes else "ML on NJ start tree, fixed during MCMC")
     res = mcmc_sample(
-        patterns, n_states, seed=args.seed, device=device,
+        patterns, n_states, seed=args.seed, device=device, mesh=mesh,
         n_generations=args.generations, n_runs=args.runs, n_chains=args.chains,
         heat=args.heat, sample_every=args.sample_every, burnin_frac=args.burnin,
         branch_moves_per_gen=args.branch_moves, topo_proposal=args.proposal,
@@ -134,6 +141,8 @@ def run_mcmc(args, timings: dict | None = None) -> dict:
         consensus_tree=res.consensus_newick,
         top_splits=[{"posterior": round(float(p), 3), "clade": c} for p, c in split_names[:10]],
     )
+    if not is_output_rank():
+        return out
     if args.output_tree:
         with open(args.output_tree, "w") as fh:
             fh.write(res.consensus_newick + "\n")
@@ -161,7 +170,9 @@ def run_mcmc(args, timings: dict | None = None) -> dict:
 
 
 def cmd_mcmc(args) -> None:
-    print(json.dumps(run_mcmc(args)))
+    out = run_mcmc(args)
+    if is_output_rank():
+        print(json.dumps(out))
 
 
 def run_bayesfactor(args, timings: dict | None = None) -> dict:
@@ -173,7 +184,7 @@ def run_bayesfactor(args, timings: dict | None = None) -> dict:
     from trex_tpu_torch.ops import likelihood
     from trex_tpu_torch.search.marginal import stepping_stone
 
-    _check_mesh(args)
+    mesh = _join_world(args, divides=args.rungs)
     device = resolve_device(args.device)
     names, masks, n_states, patterns, weights = _patterns(args, device)
     topo = _tree_on(args, names, device)
@@ -190,8 +201,8 @@ def run_bayesfactor(args, timings: dict | None = None) -> dict:
         if base not in ("jc", "gtr"):
             raise SystemExit(f"unsupported model {model!r} (jc/gtr[+g])")
         res = stepping_stone(
-            topo, patterns, n_states, seed=args.seed + i, device=device, n_rungs=args.rungs,
-            n_generations=args.generations, sample_model=base == "gtr",
+            topo, patterns, n_states, seed=args.seed + i, device=device, mesh=mesh,
+            n_rungs=args.rungs, n_generations=args.generations, sample_model=base == "gtr",
             gamma_shape=gamma_shape, site_weights=weights, sequences_are_masks=True,
             timings=None if timings is None else timings.setdefault(model, {}))
         results[model] = {
@@ -216,7 +227,9 @@ def run_bayesfactor(args, timings: dict | None = None) -> dict:
 
 
 def cmd_bayesfactor(args) -> None:
-    print(json.dumps(run_bayesfactor(args)))
+    out = run_bayesfactor(args)
+    if is_output_rank():
+        print(json.dumps(out))
 
 
 def run_date(args, timings: dict | None = None, clock_iterations: int | None = None) -> dict:

@@ -15,8 +15,8 @@ from trex_tpu_torch.cli._common import (
     _load_alignment,
     _outgroup_indices,
     _start_tree,
-    is_output_rank,
 )
+from trex_tpu_torch.parallel.mesh import is_output_rank
 from trex_tpu_torch.search.hillclimb import (
     SearchResult,
     constrained_start,

@@ -400,8 +400,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rungs", type=int, default=32)
     p.add_argument("--generations", type=int, default=3000)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--mesh", type=str, default=None, metavar="T,S",
-                   help="only '1,1' (one device) is ported")
+    _add_mesh_flag(p)
     _add_device(p, "the sampler")
     p.set_defaults(fn=cmd_bayesfactor)
 
@@ -474,8 +473,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stop-after", type=int, default=None,
                    help="run at most this many generations this invocation, then "
                         "checkpoint and exit")
-    p.add_argument("--mesh", type=str, default=None, metavar="T,S",
-                   help="only '1,1' (one device) is ported")
+    _add_mesh_flag(p)
     _add_device(p, "the sampler")
     p.set_defaults(fn=cmd_mcmc)
     return parser
@@ -486,7 +484,7 @@ def main(argv: list[str] | None = None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     args = build_parser().parse_args(argv)
-    if args.fn not in (cmd_infer, cmd_topotest):
+    if args.fn not in (cmd_infer, cmd_topotest, cmd_mcmc, cmd_bayesfactor):
         refuse_world(args.command)
     args.fn(args)
 

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from trex_tpu_torch._device import resolve_device
-from trex_tpu_torch.cli._common import _join_world, _load_alignment, is_output_rank
+from trex_tpu_torch.cli._common import _join_world, _load_alignment
+from trex_tpu_torch.parallel.mesh import is_output_rank
 
 
 def _read_trees(path: str) -> list[str]:

@@ -110,6 +110,16 @@ def local_mesh() -> Mesh:
                 ranks={TREE_AXIS: [rank], SITE_AXIS: [rank]})
 
 
+def is_output_rank(mesh: Mesh | None = None) -> bool:
+    """True on the one rank that prints and writes files: the rank at
+    coordinate (0, 0) of ``mesh`` (whose ranks all hold what is written),
+    or with no mesh that of the world's (``make_mesh`` lays ranks out
+    row-major: rank 0), or the only process."""
+    if mesh is not None:
+        return mesh.tree_index == 0 and mesh.site_index == 0
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def make_mesh(world_size: int | None = None, tree_parallelism: int | None = None) -> Mesh:
     """Build the ('tree', 'site') mesh of this rank.
 

@@ -77,6 +77,7 @@ def mcmc_date(
     seed: int = 0,
     draws=None,
     device=None,
+    mesh=None,
     n_generations: int = 4000,
     n_chains: int = 2,
     sample_every: int = 4,
@@ -121,10 +122,19 @@ def mcmc_date(
     ``timings``: a dict that, when given, receives the wall seconds of the
     clock fit ("start_fit", when it runs) and of the generations
     ("sampler": the start state on the device to the traces on the host).
+
+    ``mesh``: a ('tree', 'site') ``parallel.mesh.Mesh`` (None: this rank
+    alone) whose ``tree`` axis splits the chains, which it must divide.
+    The chains are independent: every rank runs the start fit and draws
+    each draw of the whole batch, then takes its rows; the accept counts
+    are summed over ``tree`` and the traces gathered once, at the end, so
+    every rank returns the single-device result.
     """
     from trex_tpu_torch._device import resolve_device
     from trex_tpu_torch.io import save_newick
     from trex_tpu_torch.ops.clock import ages_to_lengths, increments_to_ages, optimize_clock
+    from trex_tpu_torch.parallel.chains import chain_rows, gather_packed, psum_counts
+    from trex_tpu_torch.parallel.mesh import local_mesh
     from trex_tpu_torch.search import mcmc
     from trex_tpu_torch.search.mcmc import (
         _build_eval,
@@ -146,6 +156,9 @@ def mcmc_date(
     if tree_prior not in ("uniform", "coalescent"):
         raise ValueError(f"unknown tree_prior {tree_prior!r}")
     relaxed = clock == "relaxed"
+    mesh = mesh or local_mesh()
+    mine = chain_rows(mesh, n_chains, "n_chains")
+    n_local = mine.stop - mine.start
     if draws is None:
         draws = default_draws(seed, device)
 
@@ -183,7 +196,7 @@ def mcmc_date(
 
     batched_eval, _ = _build_eval(leaves, n_states, weights, sequences_are_masks, rates, freqs,
                                   gamma_shape, n_categories, False)
-    chain_children = topology.children[None].expand(n_chains, -1, -1).contiguous()
+    chain_children = topology.children[None].expand(n_local, -1, -1).contiguous()
 
     def lnl_of(ages, log_rates, log_cr):
         lengths = ages_to_lengths(topology, ages)
@@ -278,53 +291,54 @@ def mcmc_date(
 
     # --- the generations: tensor operations on the chain batch ----------------
     n_burnin = int(burnin_frac * n_generations)
-    put = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    put = lambda x: torch.as_tensor(x[mine], device=device)  # noqa: E731
     clock_t0 = time.perf_counter()
     ages, log_rates, log_cr, ne_vec = put(ages0), put(log_rates0), put(log_cr0), put(ne_init)
     lnl = lnl_of(ages, log_rates, log_cr)
-    rows = torch.arange(n_chains, device=device)
+    rows = torch.arange(n_local, device=device)
     acc = torch.zeros((4,), dtype=torch.int64, device=device)  # slide, root, rate, clock rate
-    log_tune = torch.log(torch.full((n_chains,), root_tuning, device=device))
+    log_tune = torch.log(torch.full((n_local,), root_tuning, device=device))
     tune_lo = torch.log(torch.tensor(1e-3, device=device))
     tune_hi = torch.log(torch.tensor(4.0, device=device))
     root_kids = children[-1]
-    tr_ages = torch.empty((n_generations, n_chains, n_all), device=device)
+    tr_ages = torch.empty((n_generations, n_local, n_all), device=device)
     tr_rates = torch.empty_like(tr_ages)
-    tr_cr = torch.empty((n_generations, n_chains), device=device)
+    tr_cr = torch.empty((n_generations, n_local), device=device)
     tr_ne = torch.empty_like(tr_cr)
     tr_lnl = torch.empty_like(tr_cr)
     cr_var2 = 2.0 * clock_rate_prior_sd ** 2
     for step in range(n_generations):
         if n_anc > 1:
-            node = n_leaves + draws.randint((n_chains,), 0, n_anc - 1)
+            node = n_leaves + draws.randint((n_chains,), 0, n_anc - 1)[mine]
             kid_pair = children[node - n_leaves]
             low = torch.maximum(
                 torch.maximum(ages[rows, kid_pair[:, 0]], ages[rows, kid_pair[:, 1]]),
                 cal_lo_dev[node])
             high = torch.minimum(ages[rows, parents[node]], cal_hi_dev[node])
-            prop_age = low + (high - low) * draws.uniform((n_chains,))
+            prop_age = low + (high - low) * draws.uniform((n_chains,))[mine]
             prop = ages.scatter(1, node[:, None], prop_age[:, None])
             prop_lnl = lnl_of(prop, log_rates, log_cr)
-            take = mcmc.metropolis_accept(draws.uniform((n_chains,)),
+            take = mcmc.metropolis_accept(draws.uniform((n_chains,))[mine],
                                           prop_lnl - lnl + dtree_logprior(prop, ages, ne_vec))
             ages = torch.where(take[:, None], prop, ages)
             lnl = torch.where(take, prop_lnl, lnl)
             acc[0] += take.sum()
         if relaxed:
-            rnode = draws.randint((n_chains,), 0, n_all - 1)
-            step_lr = rate_tuning * relaxed_sd * draws.normal((n_chains,))
+            rnode = draws.randint((n_chains,), 0, n_all - 1)[mine]
+            step_lr = rate_tuning * relaxed_sd * draws.normal((n_chains,))[mine]
             old_lr = log_rates.gather(1, rnode[:, None])[:, 0]
             new_lr = old_lr + step_lr
             prop_lr = log_rates.scatter(1, rnode[:, None], new_lr[:, None])
             prop_lnl = lnl_of(ages, prop_lr, log_cr)
             mu = -0.5 * sd2
             dprior = ((old_lr - mu) ** 2 - (new_lr - mu) ** 2) / (2.0 * sd2)
-            take = mcmc.metropolis_accept(draws.uniform((n_chains,)), prop_lnl - lnl + dprior)
+            take = mcmc.metropolis_accept(draws.uniform((n_chains,))[mine],
+                                          prop_lnl - lnl + dprior)
             log_rates = torch.where(take[:, None], prop_lr, log_rates)
             lnl = torch.where(take, prop_lnl, lnl)
             acc[2] += take.sum()
         # Root multiplier.
-        factor = torch.exp(torch.exp(log_tune) * (draws.uniform((n_chains,)) - 0.5))
+        factor = torch.exp(torch.exp(log_tune) * (draws.uniform((n_chains,))[mine] - 0.5))
         old_root = ages[:, -1]
         new_root = old_root * factor
         low = torch.maximum(torch.maximum(ages[:, root_kids[0]], ages[:, root_kids[1]]),
@@ -334,7 +348,7 @@ def mcmc_date(
         log_alpha = (prop_lnl - lnl - prior_rate * (new_root - old_root)
                      + dtree_logprior(prop, ages, ne_vec) + torch.log(factor))
         take = ((new_root > low) & (new_root <= cal_hi_dev[-1])
-                & mcmc.metropolis_accept(draws.uniform((n_chains,)), log_alpha))
+                & mcmc.metropolis_accept(draws.uniform((n_chains,))[mine], log_alpha))
         ages = torch.where(take[:, None], prop, ages)
         lnl = torch.where(take, prop_lnl, lnl)
         if step >= n_burnin:
@@ -343,16 +357,17 @@ def mcmc_date(
         log_tune = torch.clamp(log_tune + adapting * 0.08 * (take.float() - 0.4),
                                min=tune_lo, max=tune_hi)
         if calibrated:
-            new_cr = log_cr + 0.3 * draws.normal((n_chains,))
+            new_cr = log_cr + 0.3 * draws.normal((n_chains,))[mine]
             prop_lnl = lnl_of(ages, log_rates, new_cr)
             dprior = ((log_cr - log_clock_rate0) ** 2 - (new_cr - log_clock_rate0) ** 2) / cr_var2
-            take = mcmc.metropolis_accept(draws.uniform((n_chains,)), prop_lnl - lnl + dprior)
+            take = mcmc.metropolis_accept(draws.uniform((n_chains,))[mine],
+                                          prop_lnl - lnl + dprior)
             log_cr = torch.where(take, new_cr, log_cr)
             lnl = torch.where(take, prop_lnl, lnl)
             acc[3] += take.sum()
             # The joint (ages x f, rate / f) move: the likelihood is invariant
             # (lengths = rate x dt) unless fixed tips break the invariance.
-            f = torch.exp(0.5 * (draws.uniform((n_chains,)) - 0.5))
+            f = torch.exp(0.5 * (draws.uniform((n_chains,))[mine] - 0.5))
             prop_ages = torch.cat([ages[:, :n_leaves], ages[:, n_leaves:] * f[:, None]], dim=1)
             new_cr2 = log_cr - torch.log(f)
             inside = ((prop_ages[:, n_leaves:] >= cal_lo_dev[None, n_leaves:])
@@ -370,20 +385,22 @@ def mcmc_date(
             else:
                 prop_lnl = lnl
                 dlik = 0.0
-            take = inside & mcmc.metropolis_accept(draws.uniform((n_chains,)),
+            take = inside & mcmc.metropolis_accept(draws.uniform((n_chains,))[mine],
                                                    dlik + dprior + n_anc * torch.log(f))
             ages = torch.where(take[:, None], prop_ages, ages)
             log_cr = torch.where(take, new_cr2, log_cr)
             lnl = torch.where(take, prop_lnl, lnl)
         if sample_ne:
             area = coalescent_area(ages, n_leaves)
-            ne_vec = (ne_b0 + area) / draws.gamma(ne_a0 + (n_leaves - 1), (n_chains,))
+            ne_vec = (ne_b0 + area) / draws.gamma(ne_a0 + (n_leaves - 1), (n_chains,))[mine]
         tr_ages[step], tr_rates[step], tr_cr[step] = ages, log_rates, log_cr
         tr_ne[step], tr_lnl[step] = ne_vec, lnl
 
-    # --- summaries (host) ------------------------------------------------------
+    # --- summaries (host): the chains' traces gathered over 'tree' -------------
+    tr_ages, tr_rates, tr_cr, tr_ne, tr_lnl = (x.transpose(0, 1) for x in gather_packed(
+        mesh, [x.transpose(0, 1) for x in (tr_ages, tr_rates, tr_cr, tr_ne, tr_lnl)]))
     trace_ages = tr_ages.cpu().numpy()
-    acc_host = acc.cpu().numpy()
+    acc_host = psum_counts(mesh, acc).cpu().numpy()
     if timings is not None:
         timings["sampler"] = time.perf_counter() - clock_t0
     keep = np.arange(n_burnin, n_generations, sample_every)

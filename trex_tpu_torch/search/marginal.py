@@ -30,6 +30,7 @@ def stepping_stone(
     seed: int = 0,
     draws=None,
     device=None,
+    mesh=None,
     n_rungs: int = 32,
     n_generations: int = 3000,
     burnin_frac: float = 0.3,
@@ -59,8 +60,17 @@ def stepping_stone(
     rung's ESS of its power term). ``timings``: a dict that, when given,
     receives the wall seconds of the generations ("sampler": the start
     state on the device to the trace on the host).
+
+    ``mesh``: a ('tree', 'site') ``parallel.mesh.Mesh`` (None: this rank
+    alone) whose ``tree`` axis splits the rungs, which it must divide.
+    Every rank draws each draw of the whole ladder (a Dirichlet move
+    gathers the rungs' concentrations first) and takes its rows; the
+    accepts are summed over ``tree`` and the trace gathered once, at the
+    end, so every rank returns the single-device result.
     """
     from trex_tpu_torch._device import resolve_device
+    from trex_tpu_torch.parallel.chains import chain_rows, gather_rows, psum_counts
+    from trex_tpu_torch.parallel.mesh import local_mesh
     from trex_tpu_torch.search import mcmc
     from trex_tpu_torch.search.mcmc import (
         _build_eval,
@@ -72,6 +82,9 @@ def stepping_stone(
     if device is None:
         device = leaf_sequences.device if torch.is_tensor(leaf_sequences) else "cuda"
     device = resolve_device(device)
+    mesh = mesh or local_mesh()
+    mine = chain_rows(mesh, n_rungs, "n_rungs")
+    n_local = mine.stop - mine.start
     if draws is None:
         draws = default_draws(seed, device)
     topology = topology.to(device)
@@ -85,7 +98,7 @@ def stepping_stone(
         dtype=torch.float32, device=device)
     batched_eval, _ = _build_eval(leaves, n_states, weights, sequences_are_masks, rates, freqs,
                                   gamma_shape, n_categories, sample_model)
-    rung_children = topology.children[None].expand(n_rungs, -1, -1).contiguous()
+    rung_children = topology.children[None].expand(n_local, -1, -1).contiguous()
 
     def ev(lengths, rates_v, freqs_v):
         if sample_model:
@@ -95,7 +108,7 @@ def stepping_stone(
     k = np.arange(n_rungs)
     betas = (k / n_rungs) ** (1.0 / alpha)
     betas_up = ((k + 1) / n_rungs) ** (1.0 / alpha)
-    beta = torch.as_tensor(betas.astype(np.float32), device=device)
+    beta = torch.as_tensor(betas.astype(np.float32)[mine], device=device)
 
     rng = np.random.default_rng(int(seed))
     lengths0 = rng.exponential(brlen_prior_mean, size=(n_rungs, n_all)).astype(np.float32)
@@ -106,18 +119,18 @@ def stepping_stone(
 
     total_steps = n_generations * moves_per_generation
     clock = time.perf_counter()
-    lengths = torch.as_tensor(lengths0, device=device)
-    rates_v = torch.as_tensor(rates0, device=device)
-    freqs_v = torch.as_tensor(freqs0, device=device)
+    lengths = torch.as_tensor(lengths0[mine], device=device)
+    rates_v = torch.as_tensor(rates0[mine], device=device)
+    freqs_v = torch.as_tensor(freqs0[mine], device=device)
     lnl = ev(lengths, rates_v, freqs_v)
-    rows = torch.arange(n_rungs, device=device)
+    rows = torch.arange(n_local, device=device)
     accepted = torch.zeros((), dtype=torch.int64, device=device)
-    trace = torch.empty((total_steps, n_rungs), device=device)
+    trace = torch.empty((total_steps, n_local), device=device)
 
     def simplex_move(x, lnl, evaluate):
         """Power-posterior Dirichlet-centred move on a simplex batch."""
         conc = model_tuning * x
-        prop = draws.dirichlet(conc)
+        prop = draws.dirichlet(gather_rows(mesh, conc))[mine]
         lq_fwd = _dirichlet_logpdf(prop, conc)
         lq_rev = _dirichlet_logpdf(x, model_tuning * prop)
         inside = prop.amin(dim=-1) >= 1e-5
@@ -125,19 +138,19 @@ def stepping_stone(
         # current simplex stands in for it, so no eigensystem sees a degenerate one.
         prop_lnl = evaluate(torch.where(inside[:, None], prop, x))
         log_alpha = beta * (prop_lnl - lnl) + lq_rev - lq_fwd
-        take = inside & mcmc.metropolis_accept(draws.uniform((n_rungs,)), log_alpha)
+        take = inside & mcmc.metropolis_accept(draws.uniform((n_rungs,))[mine], log_alpha)
         return torch.where(take[:, None], prop, x), torch.where(take, prop_lnl, lnl)
 
     for step in range(total_steps):
-        node = draws.randint((n_rungs,), 0, n_all - 1)
-        factor = torch.exp(tuning * (draws.uniform((n_rungs,)) - 0.5))
+        node = draws.randint((n_rungs,), 0, n_all - 1)[mine]
+        factor = torch.exp(tuning * (draws.uniform((n_rungs,))[mine] - 0.5))
         old = lengths[rows, node]
         new = old * factor
         prop = lengths.scatter(1, node[:, None], new[:, None])
         prop_lnl = ev(prop, rates_v, freqs_v)
         # Power posterior: the prior unheated, the likelihood to the beta.
         log_alpha = beta * (prop_lnl - lnl) - prior_rate * (new - old) + torch.log(factor)
-        take = mcmc.metropolis_accept(draws.uniform((n_rungs,)), log_alpha)
+        take = mcmc.metropolis_accept(draws.uniform((n_rungs,))[mine], log_alpha)
         lengths = torch.where(take[:, None], prop, lengths)
         lnl = torch.where(take, prop_lnl, lnl)
         accepted += take.sum()
@@ -146,6 +159,8 @@ def stepping_stone(
             freqs_v, lnl = simplex_move(freqs_v, lnl, lambda fv: ev(lengths, rates_v, fv))
         trace[step] = lnl
 
+    trace = gather_rows(mesh, trace.T).T  # (total_steps, n_rungs)
+    accepted = psum_counts(mesh, accepted)
     samples = trace.cpu().numpy()[int(burnin_frac * total_steps):]
     if timings is not None:
         timings["sampler"] = time.perf_counter() - clock

@@ -489,6 +489,7 @@ def mcmc_sample(
     seed: int = 0,
     draws=None,
     device=None,
+    mesh=None,
     n_generations: int = 10_000,
     n_runs: int = 2,
     n_chains: int = 4,
@@ -521,8 +522,8 @@ def mcmc_sample(
 ) -> McmcResult:
     """Sample the tree posterior with Metropolis-coupled chains (the
     reference's arguments; ``seed`` and ``draws`` take the place of its
-    key, and ``device`` that of its mesh: the leaves' device when they are
-    a tensor, else ``cuda``).
+    key; ``device`` is the leaves' device when they are a tensor, else
+    ``cuda``).
 
     ``seed`` seeds the numpy start state (random start trees from
     ``io.sample_topologies``, Exponential start lengths) and, without
@@ -539,10 +540,32 @@ def mcmc_sample(
     receives the wall seconds of the generations ("sampler": from the
     first block to the samples read on the host, the scan's CUDA graph
     already captured).
+
+    ``mesh``: a ('tree', 'site') ``parallel.mesh.Mesh`` (None: this rank
+    alone, ``local_mesh``) whose ``tree`` axis splits the runs x chains
+    batch, which it must divide (``parallel.chains``). Every rank draws
+    each draw of the whole batch from the same stream and takes its rows
+    (a Dirichlet move gathers the batch's concentrations first), so the
+    trajectories are the single-device ones: every float operation is per
+    chain; the accept counters are summed over ``tree`` and an MC^3 swap
+    whose pair of chains straddles two ranks is decided on the gathered
+    batch, every rank taking its rows of the swapped state. Cold-chain
+    snapshots stay on each rank until a host boundary gathers them; the
+    checkpoint holds the whole state, written by the mesh's first rank
+    (a checkpoint resumes on any mesh). Every rank returns the same
+    result.
     """
     from trex_tpu_torch._device import resolve_device
     from trex_tpu_torch.io import canonicalize_topology, reroot_on_outgroup, sample_topologies
     from trex_tpu_torch.ops.tree_moves import nni_neighbor_device, nni_neighborhood_device
+    from trex_tpu_torch.parallel.chains import (
+        chain_rows,
+        gather_packed,
+        gather_rows,
+        mesh_barrier,
+        psum_counts,
+    )
+    from trex_tpu_torch.parallel.mesh import is_output_rank, local_mesh
     from trex_tpu_torch.search.consensus import majority_rule_consensus, split_frequencies
 
     if device is None:
@@ -560,6 +583,9 @@ def mcmc_sample(
     n_pairs = n_states * (n_states - 1) // 2
     if topo_proposal not in ("informed", "nni"):
         raise ValueError(f"unknown topo_proposal {topo_proposal!r}")
+    mesh = mesh or local_mesh()
+    mine = chain_rows(mesh, n_total, "n_runs * n_chains")
+    n_local = mine.stop - mine.start
     if draws is None:
         draws = default_draws(seed, device)
     rng = np.random.default_rng(int(seed))
@@ -602,13 +628,35 @@ def mcmc_sample(
         rates_host = np.zeros((n_total, 1), np.float32)
         freqs_host = np.zeros((n_total, 1), np.float32)
 
-    beta = torch.as_tensor(np.array(
+    beta_all = torch.as_tensor(np.array(
         [1.0 / (1.0 + heat * k) for _ in range(n_runs) for k in range(n_chains)],
         dtype=np.float32), device=device)
-    rows = torch.arange(n_total, device=device)
-    cold = torch.arange(n_runs, device=device) * n_chains
-    run_ids = torch.arange(n_runs, device=device)
+    beta = beta_all[mine]
+    rows = torch.arange(n_local, device=device)
     power = topo_informed_power
+    # The MC^3 swap: a rank whose rows hold whole runs swaps its own runs'
+    # chains; where a run straddles two ranks, every rank decides every
+    # run's swap on the gathered batch and takes its rows of the result
+    # (rank 0 counts the swaps).
+    straddles = n_chains > 1 and n_local % n_chains != 0
+    if straddles:
+        swap_runs, swap_rows, keep = slice(0, n_runs), torch.arange(n_total, device=device), mine
+        swap_beta = beta_all
+    else:
+        swap_runs = slice(mine.start // n_chains, mine.stop // n_chains)
+        swap_rows, keep, swap_beta = rows, slice(None), beta
+    swap_first = torch.arange(swap_runs.stop - swap_runs.start, device=device) * n_chains
+    count_swaps = int(not straddles or mesh.tree_index == 0)
+    # Cold-chain snapshots: each rank keeps its rows of the cold chains
+    # (padded with row 0 to the most any rank holds); ``cold_order`` picks
+    # the runs' rows, in run order, out of the gathered snapshots.
+    cold_chains = range(0, n_total, n_chains)
+    colds = [[c % n_local for c in cold_chains if c // n_local == t]
+             for t in range(n_total // n_local)]
+    width = max(map(len, colds))
+    cold = torch.as_tensor((colds[mesh.tree_index] + [0] * width)[:width], device=device)
+    cold_order = [c // n_local * width + colds[c // n_local].index(c % n_local)
+                  for c in cold_chains]
 
     def ev(ch, ln, rv, fv):
         return batched_eval(ch, ln, rv, fv) if sample_model else batched_eval(ch, ln)
@@ -617,13 +665,14 @@ def mcmc_sample(
         if nbr_lnl is not None:
             return nbr_lnl(ch, ln, rv, fv) if sample_model else nbr_lnl(ch, ln)
         nbr_c, nbr_l = nni_neighborhood_device(ch, ln, n_leaves)
-        rep = lambda x: x.repeat_interleave(n_nbr, dim=0, output_size=n_total * n_nbr)  # noqa: E731
+        rep = lambda x: x.repeat_interleave(n_nbr, dim=0, output_size=n_local * n_nbr)  # noqa: E731
         return ev(nbr_c.reshape(-1, n_anc, 2), nbr_l.reshape(-1, n_all), rep(rv),
-                  rep(fv)).view(n_total, n_nbr)
+                  rep(fv)).view(n_local, n_nbr)
 
     def simplex_move(s: McmcState, x, evaluate):
         alpha = model_tuning * x
-        prop = draws.dirichlet(alpha)
+        # Each row's concentration shapes its draw: the whole batch's, then ours.
+        prop = draws.dirichlet(gather_rows(mesh, alpha))[mine]
         lq_fwd = _dirichlet_logpdf(prop, alpha)
         lq_rev = _dirichlet_logpdf(x, model_tuning * prop)
         inside = prop.amin(dim=-1) >= 1e-5
@@ -631,7 +680,7 @@ def mcmc_sample(
         # current simplex stands in for it, so no eigensystem sees a degenerate one.
         prop_lnl = evaluate(torch.where(inside[:, None], prop, x))
         log_alpha = beta * (prop_lnl - s.lnl) + lq_rev - lq_fwd
-        take = inside & metropolis_accept(draws.uniform((n_total,)), log_alpha)
+        take = inside & metropolis_accept(draws.uniform((n_total,))[mine], log_alpha)
         return take, prop, prop_lnl
 
     def gen_step(s: McmcState) -> None:
@@ -639,8 +688,8 @@ def mcmc_sample(
         if branch_moves_per_gen > 0:
             logprior = _exp_logprior(s.lengths, prior_rate)
             for _ in range(branch_moves_per_gen):
-                node = draws.randint((n_total,), 0, n_all - 1)
-                factor = torch.exp(tuning * (draws.uniform((n_total,)) - 0.5))
+                node = draws.randint((n_total,), 0, n_all - 1)[mine]
+                factor = torch.exp(tuning * (draws.uniform((n_total,))[mine] - 0.5))
                 old = s.lengths.gather(1, node[:, None])[:, 0]
                 new = old * factor
                 prop = s.lengths.scatter(1, node[:, None], new[:, None])
@@ -648,7 +697,7 @@ def mcmc_sample(
                 prop_logprior = logprior - prior_rate * (new - old)
                 log_alpha = (beta * (prop_lnl - s.lnl + prop_logprior - logprior)
                              + torch.log(factor))
-                take = metropolis_accept(draws.uniform((n_total,)), log_alpha)
+                take = metropolis_accept(draws.uniform((n_total,))[mine], log_alpha)
                 s.lengths = torch.where(take[:, None], prop, s.lengths)
                 s.lnl = torch.where(take, prop_lnl, s.lnl)
                 logprior = torch.where(take, prop_logprior, logprior)
@@ -669,7 +718,7 @@ def mcmc_sample(
                 lnl_x_nbr = neighbourhood_lnl(s.children, s.lengths, s.rates, s.freqs)
                 logw_x = power * beta[:, None] * lnl_x_nbr
                 z_x = torch.logsumexp(logw_x, dim=1)
-                pick = torch.argmax(draws.gumbel((n_total, n_nbr)) + logw_x, dim=1)
+                pick = torch.argmax(draws.gumbel((n_total, n_nbr))[mine] + logw_x, dim=1)
                 prop_lnl = lnl_x_nbr[rows, pick]
                 prop_c, prop_l = nni_neighbor_device(
                     s.children, s.lengths, pick // 2, pick % 2, n_leaves)
@@ -677,29 +726,36 @@ def mcmc_sample(
                 z_y = torch.logsumexp(power * beta[:, None] * lnl_y_nbr, dim=1)
                 log_alpha = (1.0 - power) * beta * (prop_lnl - s.lnl) + z_x - z_y
             else:
-                edge = draws.randint((n_total,), 0, n_anc - 1)
-                variant = draws.randint((n_total,), 0, 2)
+                edge = draws.randint((n_total,), 0, n_anc - 1)[mine]
+                variant = draws.randint((n_total,), 0, 2)[mine]
                 prop_c, prop_l = nni_neighbor_device(s.children, s.lengths, edge, variant,
                                                      n_leaves)
                 prop_lnl = ev(prop_c, prop_l, s.rates, s.freqs)
                 log_alpha = beta * (prop_lnl - s.lnl)
-            take = metropolis_accept(draws.uniform((n_total,)), log_alpha)
+            take = metropolis_accept(draws.uniform((n_total,))[mine], log_alpha)
             s.children = torch.where(take[:, None, None], prop_c, s.children)
             s.lengths = torch.where(take[:, None], prop_l, s.lengths)
             s.lnl = torch.where(take, prop_lnl, s.lnl)
             s.acc[1] += take.sum()
         if n_chains > 1:
-            i = run_ids * n_chains + draws.randint((n_runs,), 0, n_chains - 1)
+            pick = draws.randint((n_runs,), 0, n_chains - 1)[swap_runs]
+            u = draws.uniform((n_runs,))[swap_runs]
+            parts = [s.children, s.lengths, s.lnl, s.rates, s.freqs]
+            if straddles:
+                parts = gather_packed(mesh, parts)
+            children, lengths, lnl, rates_v, freqs_v = parts
+            i = swap_first + pick
             j = i + 1
-            post = s.lnl + _exp_logprior(s.lengths, prior_rate)
-            log_alpha = (beta[i] - beta[j]) * (post[j] - post[i])
-            take = metropolis_accept(draws.uniform((n_runs,)), log_alpha)
-            shift = (((rows[None, :] == i[:, None]).long() - (rows[None, :] == j[:, None]).long())
+            post = lnl + _exp_logprior(lengths, prior_rate)
+            log_alpha = (swap_beta[i] - swap_beta[j]) * (post[j] - post[i])
+            take = metropolis_accept(u, log_alpha)
+            shift = (((swap_rows[None, :] == i[:, None]).long()
+                      - (swap_rows[None, :] == j[:, None]).long())
                      * take[:, None].long()).sum(dim=0)
-            perm = rows + shift
-            s.children, s.lengths, s.lnl = s.children[perm], s.lengths[perm], s.lnl[perm]
-            s.rates, s.freqs = s.rates[perm], s.freqs[perm]
-            s.acc[2] += take.sum()
+            perm = (swap_rows + shift)[keep]
+            s.children, s.lengths, s.lnl = children[perm], lengths[perm], lnl[perm]
+            s.rates, s.freqs = rates_v[perm], freqs_v[perm]
+            s.acc[2] += take.sum() * count_swaps
 
     total_blocks = n_generations // sample_every
     trailing = n_generations - total_blocks * sample_every
@@ -735,10 +791,16 @@ def mcmc_sample(
             if sample_model and "s_rates" in ck:
                 samples_rates = list(ck["s_rates"])
                 samples_freqs = list(ck["s_freqs"])
+    # This rank's rows; the counters' sum over 'tree' is the checkpoint's.
+    host = {key: value if key == "acc" else value[mine] for key, value in host.items()}
+    if mesh.tree_index:
+        host["acc"] = np.zeros_like(host["acc"])
     if lnl_host is None:
-        start_state = McmcState.from_numpy(dict(host, lnl=np.zeros(n_total, np.float32)), device)
+        start_state = McmcState.from_numpy(dict(host, lnl=np.zeros(n_local, np.float32)), device)
         lnl_host = ev(start_state.children, start_state.lengths, start_state.rates,
                       start_state.freqs).cpu().numpy()
+    else:
+        lnl_host = lnl_host[mine]
     state = McmcState.from_numpy(dict(host, lnl=lnl_host), device)
     if do_topo and topo_proposal == "informed" and nbr_lnl is not None:
         # Builds the scan's CUDA graph (on the card) before the first block.
@@ -747,26 +809,40 @@ def mcmc_sample(
 
     pending: list[tuple[int, list]] = []
 
+    def cold_rows(snaps) -> list[np.ndarray]:
+        """The runs' cold-chain rows of snapshots (block, then field) as
+        host arrays (n_runs, blocks, ...): one gather over 'tree'."""
+        fields = [torch.stack([snap[f] for snap in snaps], dim=1) for f in range(5)]
+        return [x[cold_order].cpu().numpy() for x in gather_packed(mesh, fields)]
+
     def flush_pending() -> None:
-        for first_blk, blocks in pending:
-            for i, snap in enumerate(blocks):
-                gen = (first_blk + i) * sample_every
-                if gen <= n_burnin:
-                    continue
-                s_children, s_lengths, s_lnl, s_rates, s_freqs = (x.cpu().numpy() for x in snap)
-                for r in range(n_runs):
-                    samples_children.append(s_children[r].astype(np.int32))
-                    samples_lengths.append(s_lengths[r])
-                    samples_lnl.append(float(s_lnl[r]))
-                    samples_run.append(r)
-                    if sample_model:
-                        samples_rates.append(s_rates[r])
-                        samples_freqs.append(s_freqs[r])
+        blocks = [(first_blk + i, snap) for first_blk, snaps in pending
+                  for i, snap in enumerate(snaps)]
         pending.clear()
+        if not blocks:
+            return
+        s_children, s_lengths, s_lnl, s_rates, s_freqs = cold_rows([snap for _, snap in blocks])
+        for b, (blk_no, _) in enumerate(blocks):
+            if blk_no * sample_every <= n_burnin:
+                continue
+            for r in range(n_runs):
+                samples_children.append(s_children[r, b].astype(np.int32))
+                samples_lengths.append(s_lengths[r, b])
+                samples_lnl.append(float(s_lnl[r, b]))
+                samples_run.append(r)
+                if sample_model:
+                    samples_rates.append(s_rates[r, b])
+                    samples_freqs.append(s_freqs[r, b])
 
     def write_checkpoint(s: McmcState, gens_now: int) -> None:
         flush_pending()
-        payload = dict(s.to_numpy(), gens_done=gens_now, draws_state=draws.get_state(),
+        whole = gather_packed(mesh, [s.children, s.lengths, s.lnl, s.rates, s.freqs])
+        acc = psum_counts(mesh, s.acc)
+        if not is_output_rank(mesh):
+            mesh_barrier(mesh, device)
+            return
+        payload = dict(McmcState(*whole, acc).to_numpy(), gens_done=gens_now,
+                       draws_state=draws.get_state(),
                        s_children=np.stack(samples_children) if samples_children
                        else np.zeros((0, n_anc, 2), np.int32),
                        s_lengths=np.stack(samples_lengths) if samples_lengths
@@ -781,6 +857,7 @@ def mcmc_sample(
         tmp = ckpt_path + ".tmp.npz"
         np.savez(tmp, **payload)
         os.replace(tmp, ckpt_path)
+        mesh_barrier(mesh, device)
 
     # --- main loop: sample blocks, the host reading only at boundaries --------
     blocks_done = gens_done // sample_every
@@ -808,8 +885,10 @@ def mcmc_sample(
         gens_done = blk * sample_every
         if prog_blocks and blk // prog_blocks > last_progress:
             last_progress = blk // prog_blocks
-            cold_str = " ".join(f"{v:.2f}" for v in snaps[-1][2].cpu().numpy())
-            print(f"[mcmc] gen {gens_done}/{n_generations} cold lnL: {cold_str}")
+            cold_lnl = gather_rows(mesh, snaps[-1][2])[cold_order].cpu().numpy()
+            if is_output_rank(mesh):
+                cold_str = " ".join(f"{v:.2f}" for v in cold_lnl)
+                print(f"[mcmc] gen {gens_done}/{n_generations} cold lnL: {cold_str}")
         at_stop = stop_blocks is not None and executed >= stop_blocks and blk < total_blocks
         if ckpt_path is not None and (blk % ck_blocks == 0 or at_stop):
             write_checkpoint(state, gens_done)
@@ -824,7 +903,7 @@ def mcmc_sample(
         if ckpt_path is not None:
             write_checkpoint(state, gens_done)
     flush_pending()
-    acc_host = state.acc.cpu().numpy()
+    acc_host = psum_counts(mesh, state.acc).cpu().numpy()
     if timings is not None:
         timings["sampler"] = time.perf_counter() - clock
 
@@ -876,8 +955,8 @@ def mcmc_sample(
 def run_blocks(state: McmcState, n_blocks: int, sample_every: int, gen_step,
                cold: torch.Tensor) -> list[tuple[torch.Tensor, ...]]:
     """``n_blocks`` sample blocks of ``sample_every`` generations on the
-    device, each block's cold-chain snapshot (children, lengths, lnl,
-    rates, freqs) kept on the device: no host sync."""
+    device, each block's snapshot of the ``cold`` rows (children, lengths,
+    lnl, rates, freqs) kept on the device: no host sync."""
     snaps = []
     for _ in range(n_blocks):
         for _ in range(sample_every):
