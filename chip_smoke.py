@@ -3603,6 +3603,17 @@ DNDS_SEARCH_STEPS = 300
 CODON_CLIMB_ROUNDS = 2
 K34_Q61_WIDE = dict(n_taxa=512, n_sites=1000, batch=32)
 K34_Q5 = dict(n_taxa=64, n_sites=1024, batch=256)
+# The small-Q shapes at K34_Q5's size: Q on states and on masks (the fixed
+# kernels' zero-padded widths 4 and 8); Q = 5 with a P per branch (the Q = 5
+# sampler's mode); Q = 11 (width 12), 13 with a P per branch (width 16), 19
+# on masks (width 20, padded); Q = 21, the first Q above the widest fixed
+# kernel, and 25 on masks (the runtime-Q kernel's 32 pitch); Q = 100 (its
+# runtime pitch), on K34_WIDE_Q_TREES trees.
+K34_SMALL_Q = ((2, False, False), (2, True, False), (3, False, False), (3, True, False),
+               (7, False, False), (7, True, False), (5, False, True), (11, False, False),
+               (13, False, True), (19, True, False), (21, False, False), (25, True, False),
+               (100, False, False))
+K34_WIDE_Q_TREES = 32  # trees of a shape above 64 states (a pitch the kernel reads at run time)
 MODELS_REF = dict(n_taxa=10, n_sites=300, iterations=50)
 
 
@@ -3610,18 +3621,20 @@ def k34_any_q(torch, dev, children, leaves, weights, prior, transition, timer,
               masks: bool = False, force_global: bool = False) -> dict:
     """K3/K4 at a runtime Q held within rtol K34_RTOL of its plain version,
     timed (ms, back to back, plain, device ms of a CUDA graph), with its
-    launch plan and bound; ``force_global``: the kernel's global-slot mode
-    at the same shape (the plan's width, its slots in global memory)."""
+    launch plan, bound and the seconds the whole check took;
+    ``force_global``: the kernel's global-slot mode at the same shape (the
+    plan's width, its slots in global memory)."""
     from trex_tpu_torch._device import device_limits
     from trex_tpu_torch.ops import likelihood_cuda as lc
 
+    t0 = time.perf_counter()
     q = prior.shape[0]
     per_branch = transition.dim() == 4
     plan = lc.launch_plan(leaves.shape[0], q, not per_branch, masks,
                           device_limits(dev).smem_optin)
     if force_global:
         plan = dataclasses.replace(plan, mode="global", smem_bytes=plan.smem_bytes
-                          - 4 * plan.slots * q * plan.sites_per_block)
+                                   - 4 * plan.slots * lc.slot_states(q) * plan.sites_per_block)
 
     def run(fn):
         return lambda: fn(children, leaves, weights, prior, transition, sequences_are_masks=masks)
@@ -3639,7 +3652,43 @@ def k34_any_q(torch, dev, children, leaves, weights, prior, transition, timer,
     finally:
         lc.launch_plan = chosen
     return dict(trees=batch, n_taxa=n_taxa, patterns=int(leaves.shape[1]), n_states=q,
-                per_branch=per_branch, masks=masks, plan=dataclasses.asdict(plan), **got, **times)
+                per_branch=per_branch, masks=masks, kernel_width=lc.kernel_width(q),
+                plan=dataclasses.asdict(plan), **got, **times, seconds=time.perf_counter() - t0)
+
+
+def small_q_inputs(torch, dev, rng, q: int, masks: bool, per_branch: bool,
+                   size: dict | None = None):
+    """(children, leaves, weights, prior, transition) of a K34_SMALL_Q shape
+    (or of ``size``, a dict as K34_Q5): random trees, a GTR-like P at 0.1
+    (or at random lengths a branch), 5%
+    missing states and 0.2% states >= Q (such a leaf zeroes its site's
+    likelihood), or masks with a bit at or above Q (below 8, or up to Q + 3
+    from 8 states on) in 3% of them."""
+    from trex_tpu_torch.ops.likelihood import gtr_generator
+
+    n, length, batch = (size or K34_Q5).values()
+    if size is None and q > 64:
+        batch = K34_WIDE_Q_TREES
+    rates = rng.gamma(2.0, 1.0, (q, q))
+    prior = torch.as_tensor(rng.dirichlet(np.full(q, 5.0)).astype(np.float32), device=dev)
+    gen = gtr_generator(torch.as_tensor((rates + rates.T) / 2, device=dev), prior)
+    if per_branch:
+        lengths = rng.uniform(0.02, 0.5, (batch, 2 * n - 1, 1, 1)).astype(np.float32)
+        transition = torch.linalg.matrix_exp(gen * torch.as_tensor(lengths, device=dev))
+    else:
+        transition = torch.linalg.matrix_exp(gen * 0.1)
+    if masks:
+        leaves = rng.integers(1, 1 << q, (n, length))
+        high = rng.random(leaves.shape) < 0.03
+        leaves[high] |= 1 << rng.integers(q, 8 if q < 8 else q + 4, int(high.sum()))
+    else:
+        leaves = rng.integers(0, q, (n, length))
+        leaves[rng.random(leaves.shape) < 0.05] = -1
+        high = rng.random(leaves.shape) < 0.002
+        leaves[high] = rng.integers(q, q + 4, int(high.sum()))
+    return (torch.as_tensor(random_trees(rng, n, batch), device=dev),
+            torch.as_tensor(leaves.astype(np.int32), device=dev),
+            torch.ones((length,), device=dev), prior, transition.contiguous())
 
 
 def simulate_routes(torch, dev, workdir: str, reset_counts, launch_counts) -> dict:
@@ -3845,6 +3894,10 @@ def dnds_routes(torch, dev, workdir: str, reset_counts, launch_counts, timer) ->
     at["q5"] = k34_any_q(torch, dev, torch.as_tensor(random_trees(rng, n, batch), device=dev),
                          torch.as_tensor(states5, device=dev), torch.ones((length,), device=dev),
                          prior5, p5.contiguous(), timer)
+    for q, masks, per_branch in K34_SMALL_Q:
+        key = f"q{q}" + ("_masks" if masks else "") + ("_per_branch" if per_branch else "")
+        at[key] = k34_any_q(torch, dev, *small_q_inputs(torch, dev, rng, q, masks, per_branch),
+                            timer, masks=masks)
     for key, row in at.items():
         emit("k34_runtime_q", shape=key, **row)
     found["k34"] = at

@@ -47,31 +47,41 @@
 // shared P from shared memory, a per-branch P from global memory). The
 // per-step arithmetic and its order are the plain version's: messages as
 // acc += p * d over j = 0..Q-1, the product, the max, the exact scale and
-// the int32 exponent sum. The site sum is deterministic: each thread
-// writes its weighted site value, and a second kernel adds a tree's sites
-// in 128-site pairwise blocks, the blocks in index order — no float
-// atomics, so a run reproduces itself bit for bit.
-// - Q = 4 and Q = 20 (fixed kernels): Q is a template parameter, so the
-//   state loops unroll into registers; one thread per site walks its
-//   tree's plan with no block synchronisation.
-// - Any other Q >= 2 (runtime-Q kernel, as K5's in sankoff_batched.cu):
-//   one thread per (site, tile of 16 parent states), the tiles of a site
-//   sharing its slot column, (slot, state, site). Each thread streams the
-//   two child rows once for its tile (a shared P sits transposed in shared
-//   memory, Pt[j][s], so one 16-byte load gives four parent states' entries
-//   for one child state; a per-branch P is read a row entry at a time from
-//   global memory, a uniform load for the warp). The site's maximum is the
-//   maximum of its tiles' maxima, posted in shared memory, so the block
-//   synchronises twice a step: every tile has read the children and posted
-//   its maximum before any writes the new row (which may take a child's
-//   slot), and the row is in place before the next step reads it. The
-//   root's row goes to its slot like any other, and the site's first tile
-//   adds prior_i root_i over i = 0..Q-1 in order. Under a shared P in state
-//   mode a leaf child's message is a row of a table each block computes
-//   first (a row per state, one for a missing state, one for a state >= Q).
-//   Where even 32 sites' slot columns do not fit a block's shared memory
-//   the same slot stack sits in a global buffer of slots x Q x L floats a
-//   tree (the global-slot mode).
+// the int32 exponent sum. Every sum is written in explicit round-to-nearest
+// intrinsics (a product, then one FMA a term; the log and the exponent
+// term added unfused), so its rounding does not depend on how the compiler
+// contracts it, and every width and both kernels round alike. The site sum
+// is deterministic: each thread writes its weighted site value, and a
+// second kernel adds a tree's sites in 128-site pairwise blocks, the blocks
+// in index order — no float atomics, so a run reproduces itself bit for
+// bit.
+// - Up to 20 states (fixed kernels): Q is a template parameter W = 4, 8, 12,
+//   16 or 20, the least that holds Q, so the state loops unroll into
+//   registers; one thread per site walks its tree's plan with no block
+//   synchronisation. A Q below W runs on zero-padded states (the kernel pads
+//   a shared P and the prior, the wrapper a per-branch P): a padded state
+//   meets a zero row and column of P and a zero prior, so every padded term
+//   adds +0 and the result is Q's bit for bit (a state or mask bit >= Q
+//   meets a zero column, as it met no column before).
+// - Above 20 states (runtime-Q kernel): a site's ceil(Q / 16) tiles of 16
+//   parent states are lanes of one warp, and each thread computes its tile
+//   for two adjacent sites, so a 16-byte load of P feeds 8 FMAs. P sits in
+//   shared memory row-major, each tile's rows shifted 4 floats on so the
+//   tiles of a warp read different banks; a per-branch P's two child
+//   matrices are copied there by 4-byte cp.async a step ahead (its rows of
+//   Q floats are not 16-byte aligned at Q = 61), into the second of two
+//   buffers, behind one block barrier a step. The site's maximum is taken
+//   over its tiles by warp shuffles, and __syncwarp orders a step's reads
+//   of the children before the new row (which may take a child's slot) is
+//   written, and the row before the next step reads it: no other barrier.
+//   A child message is one FMA chain from 0 over j = 0..Q-1 (rounded up to
+//   4: P's padded columns add +0), a mul-then-FMA chain's value. The root's
+//   row goes to its slot like any other, and the site's first tile adds
+//   prior_i root_i over i = 0..Q-1 in order. Under a shared P in state mode
+//   a leaf child's message is a row of a table each block computes first (a
+//   row per state, one for a missing state, one for a state >= Q). Where
+//   the slot columns do not fit a block's shared memory the same slot stack
+//   sits in a global buffer (the global-slot mode).
 
 #include <cuda_runtime.h>
 
@@ -80,7 +90,6 @@ namespace {
 constexpr int kSumThreads = 128;  // sites per pairwise block of the site sum
 constexpr int kSites = 128;       // sites (threads) per block of the fixed kernels
 constexpr int kTile = 16;         // parent states per thread of the runtime-Q kernel
-constexpr int kMaxAnyThreads = 512;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Four entries of a row of P: a shared P from shared memory, a per-branch
@@ -109,17 +118,17 @@ __device__ __forceinline__ void message(const float (&d)[Q], const float* p, flo
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
     float4 pv = p4<kShared>(p + i * Q);
-    float acc = pv.x * d[0];
-    acc += pv.y * d[1];
-    acc += pv.z * d[2];
-    acc += pv.w * d[3];
+    float acc = __fmul_rn(pv.x, d[0]);
+    acc = __fmaf_rn(pv.y, d[1], acc);
+    acc = __fmaf_rn(pv.z, d[2], acc);
+    acc = __fmaf_rn(pv.w, d[3], acc);
 #pragma unroll
     for (int j = 4; j < Q; j += 4) {
       pv = p4<kShared>(p + i * Q + j);
-      acc += pv.x * d[j];
-      acc += pv.y * d[j + 1];
-      acc += pv.z * d[j + 2];
-      acc += pv.w * d[j + 3];
+      acc = __fmaf_rn(pv.x, d[j], acc);
+      acc = __fmaf_rn(pv.y, d[j + 1], acc);
+      acc = __fmaf_rn(pv.z, d[j + 2], acc);
+      acc = __fmaf_rn(pv.w, d[j + 3], acc);
     }
     m[i] = acc;
   }
@@ -151,25 +160,25 @@ __device__ __forceinline__ void messages(const float (&d1)[Q], const float* p1,
   for (int i = 0; i < Q; ++i) {
     float4 a = p4<kShared>(p1 + i * Q);
     float4 b = p4<kShared>(p2 + i * Q);
-    float acc1 = a.x * d1[0], acc2 = b.x * d2[0];
-    acc1 += a.y * d1[1];
-    acc2 += b.y * d2[1];
-    acc1 += a.z * d1[2];
-    acc2 += b.z * d2[2];
-    acc1 += a.w * d1[3];
-    acc2 += b.w * d2[3];
+    float acc1 = __fmul_rn(a.x, d1[0]), acc2 = __fmul_rn(b.x, d2[0]);
+    acc1 = __fmaf_rn(a.y, d1[1], acc1);
+    acc2 = __fmaf_rn(b.y, d2[1], acc2);
+    acc1 = __fmaf_rn(a.z, d1[2], acc1);
+    acc2 = __fmaf_rn(b.z, d2[2], acc2);
+    acc1 = __fmaf_rn(a.w, d1[3], acc1);
+    acc2 = __fmaf_rn(b.w, d2[3], acc2);
 #pragma unroll
     for (int j = 4; j < Q; j += 4) {
       a = p4<kShared>(p1 + i * Q + j);
       b = p4<kShared>(p2 + i * Q + j);
-      acc1 += a.x * d1[j];
-      acc2 += b.x * d2[j];
-      acc1 += a.y * d1[j + 1];
-      acc2 += b.y * d2[j + 1];
-      acc1 += a.z * d1[j + 2];
-      acc2 += b.z * d2[j + 2];
-      acc1 += a.w * d1[j + 3];
-      acc2 += b.w * d2[j + 3];
+      acc1 = __fmaf_rn(a.x, d1[j], acc1);
+      acc2 = __fmaf_rn(b.x, d2[j], acc2);
+      acc1 = __fmaf_rn(a.y, d1[j + 1], acc1);
+      acc2 = __fmaf_rn(b.y, d2[j + 1], acc2);
+      acc1 = __fmaf_rn(a.z, d1[j + 2], acc1);
+      acc2 = __fmaf_rn(b.z, d2[j + 2], acc2);
+      acc1 = __fmaf_rn(a.w, d1[j + 3], acc1);
+      acc2 = __fmaf_rn(b.w, d2[j + 3], acc2);
     }
     m1[i] = acc1;
     m2[i] = acc2;
@@ -244,7 +253,7 @@ pruning_kernel(const int4* __restrict__ plan,      // (B, n_anc)
                const float* __restrict__ prior,    // (Q,)
                const float* __restrict__ weights,  // (L,)
                float* __restrict__ per_site,       // (B, L)
-               int tree0, int n_leaves, int length) {
+               int tree0, int n_leaves, int length, int q) {
   extern __shared__ __align__(16) float smem[];
   const int tree = tree0 + blockIdx.y;
   const int site = blockIdx.x * kSites + threadIdx.x;
@@ -254,7 +263,11 @@ pruning_kernel(const int4* __restrict__ plan,      // (B, n_anc)
   float* p_shared = smem;
   float* table = smem + (kShared ? Q * Q : 0);
   if (kShared) {
-    for (int k = threadIdx.x; k < Q * Q; k += kSites) p_shared[k] = pmats[k];
+    // A shared P of q <= Q states is zero-padded to (Q, Q) here.
+    for (int k = threadIdx.x; k < Q * Q; k += kSites) {
+      const int s = k / Q, j = k % Q;
+      p_shared[k] = s < q && j < q ? pmats[s * q + j] : 0.0f;
+    }
     __syncthreads();
     for (int code = threadIdx.x; code < kCodes; code += kSites) {
       float d[Q], m[Q];
@@ -340,22 +353,44 @@ pruning_kernel(const int4* __restrict__ plan,      // (B, n_anc)
       }
     }
   }
-  float site_lik = __ldg(prior) * root[0];
+  // A padded state's prior is 0: its term adds +0 to the chain.
+  float site_lik = __fmul_rn(__ldg(prior), root[0]);
 #pragma unroll
-  for (int i = 1; i < Q; ++i) site_lik += __ldg(prior + i) * root[i];
-  const float per = logf(fmaxf(site_lik, 1e-30f)) + static_cast<float>(exp_sum) * kLn2;
+  for (int i = 1; i < Q; ++i) {
+    site_lik = __fmaf_rn(i < q ? __ldg(prior + i) : 0.0f, root[i], site_lik);
+  }
+  const float per =
+      __fadd_rn(logf(fmaxf(site_lik, 1e-30f)), __fmul_rn(static_cast<float>(exp_sum), kLn2));
   per_site[static_cast<size_t>(tree) * length + site] = per * __ldg(weights + site);
 }
 
-// One child of a runtime-Q step: a leaf (its state or mask `obs`) or an
-// ancestor row (`row`, states `stride` floats apart), and, under a
-// per-branch P, the (Q, Q) matrix of the branch above it (`p`).
-struct AnyChild {
-  bool leaf;
-  int obs;
-  const float* row;
-  const float* p;
-};
+// Runtime-Q kernel (Q > 20). A site's partial rows hold h = 16 ceil(Q / 16)
+// states (zero past Q); P sits in shared memory row-major, h rows of pitch =
+// kPitch (32 or 64, a compile-time class) or h (kPitch 0) floats laid out by
+// `p_row`, zero past Q in both dimensions. A site's ceil(Q / 16) tiles are
+// `lanes` (that count rounded up to a power of two) lanes of one warp, lane
+// = tile * (32 / lanes) + group; each thread computes its tile for kSpt
+// adjacent sites.
+constexpr int kSpt = 2;  // sites per thread of the runtime-Q kernel
+constexpr int kMaxAnyThreads = 256;
+
+__host__ __device__ __forceinline__ int any_rows(int q) { return (q + kTile - 1) / kTile * kTile; }
+
+// Float offset of P's row s in shared memory: rows `pitch` floats apart,
+// each tile's 16 rows shifted by 4 floats more than the tile before, so the
+// four (or more) tiles of a warp read P in different banks.
+__host__ __device__ __forceinline__ int p_row(int s, int pitch) {
+  return s * pitch + (s / kTile) * 4;
+}
+
+// Floats of one P matrix in shared memory (h rows).
+__host__ __device__ __forceinline__ int p_floats_for(int h, int pitch) { return p_row(h, pitch); }
+
+__host__ __device__ __forceinline__ int any_lanes(int q) {
+  int lanes = 1;
+  while (lanes * kTile < q) lanes <<= 1;
+  return lanes;
+}
 
 template <bool kMasks>
 __device__ __forceinline__ float tip_value(int obs, int j) {
@@ -363,185 +398,319 @@ __device__ __forceinline__ float tip_value(int obs, int j) {
   return allowed ? 1.0f : 0.0f;
 }
 
-template <bool kMasks>
-__device__ __forceinline__ float child_at(const AnyChild& c, int j, size_t stride) {
-  return c.leaf ? tip_value<kMasks>(c.obs, j) : c.row[j * stride];
+static_assert(kSpt == 2, "a thread's sites are read and written as one float2");
+
+__device__ __forceinline__ void load_sites(const float* p, float (&d)[kSpt]) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  d[0] = v.x;
+  d[1] = v.y;
 }
 
-// This thread's tile of a message under a shared P: t[v] = sum_j P[s0 + v,
-// j] d[j], j = 0..Q-1 in order, from Pt (Q x pitch floats, zero past Q).
-template <bool kMasks>
-__device__ __forceinline__ void tile_message_shared(const AnyChild& c, int q, int pitch,
-                                                    const float* pt, int s0, size_t stride,
-                                                    float (&t)[kTile]) {
-  {
-    const float a = child_at<kMasks>(c, 0, stride);
-#pragma unroll
-    for (int v = 0; v < kTile; v += 4) {
-      const float4 pv = *reinterpret_cast<const float4*>(pt + s0 + v);
-      t[v] = pv.x * a;
-      t[v + 1] = pv.y * a;
-      t[v + 2] = pv.z * a;
-      t[v + 3] = pv.w * a;
-    }
-  }
-  for (int j = 1; j < q; ++j) {
-    const float a = child_at<kMasks>(c, j, stride);
-    const float* pj = pt + j * pitch + s0;
-#pragma unroll
-    for (int v = 0; v < kTile; v += 4) {
-      const float4 pv = *reinterpret_cast<const float4*>(pj + v);
-      t[v] += pv.x * a;
-      t[v + 1] += pv.y * a;
-      t[v + 2] += pv.z * a;
-      t[v + 3] += pv.w * a;
-    }
-  }
+__device__ __forceinline__ void store_sites(float* p, const float (&d)[kSpt]) {
+  *reinterpret_cast<float2*>(p) = make_float2(d[0], d[1]);
 }
 
-// The same under the child's own P (row-major (Q, Q) in global memory);
-// states past Q are 0.
-template <bool kMasks>
-__device__ __forceinline__ void tile_message_branch(const AnyChild& c, int q, int s0,
-                                                    size_t stride, float (&t)[kTile]) {
-  const int rows = q - s0 < kTile ? q - s0 : kTile;
-  const float* p = c.p + static_cast<size_t>(s0) * q;
-  {
-    const float a = child_at<kMasks>(c, 0, stride);
+// 4-byte asynchronous copy global -> shared (the per-branch P's staging).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One child's message for this thread's tile and sites: t[v][k] = sum_j
+// P[s0 + v, j] d_k[j] over j = 0..Q-1 in order, as one FMA chain from 0 (P's
+// columns past Q are 0, so the chain's padded terms add +0; j runs to Q
+// rounded up to 4). `p` is P's row s0; d comes from the child's slot row
+// (`row`: this thread's first site, states `stride` floats apart) or, for a
+// leaf child, from its tip values at `obs`.
+template <int kPitch, bool kMasks>
+__device__ __forceinline__ void tile_message(bool leaf, const int (&obs)[kSpt], const float* row,
+                                             size_t stride, const float* p, int pitch, int q4,
+                                             float (&t)[kTile][kSpt]) {
+  const int ld = kPitch ? kPitch : pitch;
 #pragma unroll
-    for (int v = 0; v < kTile; ++v) t[v] = v < rows ? __ldg(p + v * q) * a : 0.0f;
+  for (int v = 0; v < kTile; ++v) {
+#pragma unroll
+    for (int k = 0; k < kSpt; ++k) t[v][k] = 0.0f;
   }
-  for (int j = 1; j < q; ++j) {
-    const float a = child_at<kMasks>(c, j, stride);
+  for (int j = 0; j < q4; j += 4) {
+    float d[4][kSpt];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (leaf) {
+#pragma unroll
+        for (int k = 0; k < kSpt; ++k) d[i][k] = tip_value<kMasks>(obs[k], j + i);
+      } else {
+        load_sites(row + (j + i) * stride, d[i]);
+      }
+    }
 #pragma unroll
     for (int v = 0; v < kTile; ++v) {
-      if (v < rows) t[v] += __ldg(p + v * q + j) * a;
+      const float4 pv = *reinterpret_cast<const float4*>(p + v * ld + j);
+#pragma unroll
+      for (int k = 0; k < kSpt; ++k) {
+        t[v][k] = __fmaf_rn(pv.x, d[0][k], t[v][k]);
+        t[v][k] = __fmaf_rn(pv.y, d[1][k], t[v][k]);
+        t[v][k] = __fmaf_rn(pv.z, d[2][k], t[v][k]);
+        t[v][k] = __fmaf_rn(pv.w, d[3][k], t[v][k]);
+      }
     }
   }
 }
 
-// Any Q >= 2: blocks of `sites` x tiles threads, thread (tile, site) =
-// threadIdx.x / sites, % sites, computing parent states 16 * tile .. + 15
-// of its site. Dynamic shared memory: Pt (q x pitch floats, pitch = q
-// rounded up to 16; shared P only), the leaf-message table ((q + 2) x pitch
-// floats, `use_table` != 0: shared P, state mode), the tiles' maxima
-// (tiles x sites floats), then, in the shared mode, the slot columns
-// (slots, q, sites); the global mode's slots are (chunk, slots, q, L)
-// floats in `slots_g`.
-template <bool kShared, bool kMasks, bool kGlobal>
-__global__ void __launch_bounds__(kMaxAnyThreads)
+// Site k's 16 entries of a leaf-message table row (16-byte aligned).
+__device__ __forceinline__ void table_tile(const float* row, float (&t)[kTile][kSpt], int k) {
+#pragma unroll
+  for (int v = 0; v < kTile; v += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(row + v);
+    t[v][k] = x.x;
+    t[v + 1][k] = x.y;
+    t[v + 2][k] = x.z;
+    t[v + 3][k] = x.w;
+  }
+}
+
+// Copy two (q, q) row-major matrices from global memory into shared rows
+// (`p_row`), a 4-byte cp.async an entry, this thread's entries k =
+// threadIdx.x + i * blockDim.x at (s, j) = (k / q, k % q) stepped by (ds, dj).
+__device__ __forceinline__ void stage_pair(float* dst1, float* dst2, const float* src1,
+                                           const float* src2, int q, int pitch, int s, int j,
+                                           int ds, int dj) {
+  for (int k = threadIdx.x; k < q * q; k += blockDim.x) {
+    cp_async4(dst1 + p_row(s, pitch) + j, src1 + k);
+    cp_async4(dst2 + p_row(s, pitch) + j, src2 + k);
+    j += dj;
+    s += ds;
+    if (j >= q) {
+      j -= q;
+      ++s;
+    }
+  }
+  cp_async_commit();
+}
+
+// Blocks of `sites` sites, sites * lanes / kSpt threads. Dynamic shared
+// memory: P (shared P: one (h, pitch) matrix; per-branch P: two buffers of
+// the step's two child matrices, the next step's copied while this one
+// computes), the leaf-message table ((q + 2) x h floats, `use_table` != 0:
+// shared P, state mode), then, in the shared mode, the slot columns (slots,
+// h, sites). The global mode's slots are (chunk, slots, h, L rounded up to
+// 4) floats in `slots_g`. A step synchronises only the warp (a site's tiles
+// post their maxima by shuffles; __syncwarp before the new row is written,
+// since it may take a child's slot, and after); a per-branch P adds one
+// block barrier a step, for its staging.
+template <int kPitch, bool kShared, bool kMasks, bool kGlobal>
+__global__ void __launch_bounds__(kMaxAnyThreads, 1)
 pruning_any_kernel(const int4* __restrict__ plan, const int2* __restrict__ children,
                    const int* __restrict__ leaves, const float* __restrict__ pmats,
                    const float* __restrict__ prior, const float* __restrict__ weights,
                    float* __restrict__ slots_g, float* __restrict__ per_site, int tree0,
                    int n_leaves, int length, int q, int n_slots, int sites, int use_table) {
   extern __shared__ __align__(16) float smem[];
-  const int pitch = (q + kTile - 1) / kTile * kTile;
-  const int tiles = pitch / kTile;
-  const int lane = threadIdx.x % sites;
-  const int tile = threadIdx.x / sites;
-  const int s0 = tile * kTile;
+  const int h = any_rows(q);
+  const int pitch = kPitch ? kPitch : h;
+  const int q4 = (q + 3) & ~3;
+  const int groups = 32 / any_lanes(q);
+  const int lane = threadIdx.x % 32;
+  const int tile = lane / groups;
+  const bool idle = tile * kTile >= h;  // a lane past the site's last tile
+  const int s0 = idle ? 0 : tile * kTile;
+  const int local = ((threadIdx.x / 32) * groups + lane % groups) * kSpt;
+  const int site0 = blockIdx.x * sites + local;
   const int tree = tree0 + blockIdx.y;
-  const int site = blockIdx.x * sites + lane;
-  const bool active = site < length;
   const int n_anc = n_leaves - 1;
   const int n_all = 2 * n_leaves - 1;
-  const size_t len = static_cast<size_t>(length);
-  float* pt = smem;
-  float* table = pt + (kShared ? q * pitch : 0);
-  float* maxes = table + (use_table ? (q + 2) * pitch : 0);
-  float* cols = maxes + tiles * sites;
+  const int p_floats = p_floats_for(h, pitch);
+  float* pbuf = smem;
+  float* table = pbuf + (kShared ? 1 : 4) * p_floats;
+  float* cols = table + (use_table ? (q + 2) * h : 0);
+  const int4* steps = plan + static_cast<size_t>(tree) * n_anc;
+  const int2* tree_children = children + static_cast<size_t>(tree) * n_anc;
+  const float* tree_p = pmats + static_cast<size_t>(tree) * n_all * q * q;
+  const int s_first = threadIdx.x / q, j_first = threadIdx.x % q;
+  const int ds = blockDim.x / q, dj = blockDim.x % q;
+
+  int4 st = __ldg(steps);
+  int4 nx = n_anc > 1 ? __ldg(steps + 1) : st;
+  int2 nodes_nx = make_int2(0, 0);
   if (kShared) {
-    for (int k = threadIdx.x; k < q * pitch; k += blockDim.x) {
-      const int j = k / pitch, s = k % pitch;
-      pt[k] = s < q ? __ldg(pmats + s * q + j) : 0.0f;
+    for (int k = threadIdx.x; k < h * pitch; k += blockDim.x) {
+      const int s = k / pitch, j = k % pitch;
+      pbuf[p_row(s, pitch) + j] = s < q && j < q ? __ldg(pmats + s * q + j) : 0.0f;
     }
     __syncthreads();
     // table[code][s] = sum_j P[s, j] tip(code, j); code q: a missing state,
     // code q + 1: any state >= q.
-    for (int e = threadIdx.x; use_table && e < (q + 2) * pitch; e += blockDim.x) {
-      const int code = e / pitch, s = e % pitch;
+    for (int e = threadIdx.x; use_table && e < (q + 2) * h; e += blockDim.x) {
+      const int code = e / h, s = e % h;
       const int obs = code < q ? code : code == q ? -1 : q;
-      float t = pt[s] * tip_value<false>(obs, 0);
-      for (int j = 1; j < q; ++j) t += pt[j * pitch + s] * tip_value<false>(obs, j);
+      const float* ps = pbuf + p_row(s, pitch);
+      float t = ps[0] * tip_value<false>(obs, 0);
+      for (int j = 1; j < q; ++j) t += ps[j] * tip_value<false>(obs, j);
       table[e] = t;
     }
     __syncthreads();
+  } else {
+    // Zero both buffers (their padding stays 0), then copy step 0's pair.
+    for (int k = threadIdx.x; k < 4 * p_floats; k += blockDim.x) pbuf[k] = 0.0f;
+    __syncthreads();
+    const int2 nodes = __ldg(tree_children + st.x);
+    stage_pair(pbuf, pbuf + p_floats, tree_p + static_cast<size_t>(nodes.x) * q * q,
+               tree_p + static_cast<size_t>(nodes.y) * q * q, q, pitch, s_first, j_first, ds,
+               dj);
+    if (n_anc > 1) nodes_nx = __ldg(tree_children + nx.x);
   }
 
-  float* base;
+  // This thread's slot rows: its first site's column, states `stride`
+  // floats apart. Global mode: a thread whose sites all lie past L touches
+  // no memory (L is padded to 4, so a thread's kSpt sites lie in the row).
+  const bool touch = !kGlobal || site0 < length;
   size_t stride;
+  float* base;
   if (kGlobal) {
-    base = slots_g + static_cast<size_t>(blockIdx.y) * n_slots * q * len + site;
-    stride = len;
+    stride = static_cast<size_t>((length + 3) & ~3);
+    base = slots_g + static_cast<size_t>(blockIdx.y) * n_slots * h * stride + site0;
   } else {
-    base = cols + lane;
     stride = static_cast<size_t>(sites);
+    base = cols + local;
   }
-  const size_t slot_stride = static_cast<size_t>(q) * stride;
-  const int4* steps = plan + static_cast<size_t>(tree) * n_anc;
-  const int2* tree_children = children + static_cast<size_t>(tree) * n_anc;
-  const float* tree_p = pmats + static_cast<size_t>(tree) * n_all * q * q;
-  const int* leaf_col = leaves + site;
-  int exp_sum = 0;
-  int root_slot = 0;
-  for (int k = 0; k < n_anc; ++k) {
-    const int4 st = __ldg(steps + k);
-    float m1[kTile], m2[kTile];
-    float mx = 0.0f;
-    if (active) {
-      const int obs1 = st.y >= 0 ? __ldg(leaf_col + st.y * length) : 0;
-      const int obs2 = st.z >= 0 ? __ldg(leaf_col + st.z * length) : 0;
-      const int2 nodes = kShared ? make_int2(0, 0) : __ldg(tree_children + st.x);
-      const AnyChild c1{st.y >= 0, obs1, st.y >= 0 ? nullptr : base + ~st.y * slot_stride,
-                        kShared ? nullptr : tree_p + static_cast<size_t>(nodes.x) * q * q};
-      const AnyChild c2{st.z >= 0, obs2, st.z >= 0 ? nullptr : base + ~st.z * slot_stride,
-                        kShared ? nullptr : tree_p + static_cast<size_t>(nodes.y) * q * q};
-      if (kShared) {
-        const bool table1 = use_table && c1.leaf, table2 = use_table && c2.leaf;
-        if (!table1) tile_message_shared<kMasks>(c1, q, pitch, pt, s0, stride, m1);
-        if (!table2) tile_message_shared<kMasks>(c2, q, pitch, pt, s0, stride, m2);
-        const int code1 = c1.obs < 0 ? q : c1.obs < q ? c1.obs : q + 1;
-        const int code2 = c2.obs < 0 ? q : c2.obs < q ? c2.obs : q + 1;
+  const size_t slot_stride = static_cast<size_t>(h) * stride;
+  const int* leaf_col = leaves + site0;
+  int obs1[kSpt], obs2[kSpt];
 #pragma unroll
-        for (int v = 0; v < kTile; ++v) {
-          if (table1) m1[v] = table[code1 * pitch + s0 + v];
-          if (table2) m2[v] = table[code2 * pitch + s0 + v];
+  for (int k = 0; k < kSpt; ++k) {
+    const bool in = site0 + k < length;
+    obs1[k] = in && st.y >= 0 ? __ldg(leaf_col + st.y * length + k) : 0;
+    obs2[k] = in && st.z >= 0 ? __ldg(leaf_col + st.z * length + k) : 0;
+  }
+  int exp_sum[kSpt];
+#pragma unroll
+  for (int k = 0; k < kSpt; ++k) exp_sum[k] = 0;
+  int root_slot = 0;
+  for (int step = 0; step < n_anc; ++step) {
+    const float* p1 = pbuf;
+    if (!kShared) {
+      cp_async_wait_all();
+      __syncthreads();  // this step's pair is in place; the other buffer is free
+      if (step + 1 < n_anc) {
+        float* next = pbuf + ((step + 1) & 1) * 2 * p_floats;
+        stage_pair(next, next + p_floats, tree_p + static_cast<size_t>(nodes_nx.x) * q * q,
+                   tree_p + static_cast<size_t>(nodes_nx.y) * q * q, q, pitch, s_first,
+                   j_first, ds, dj);
+      }
+      p1 = pbuf + (step & 1) * 2 * p_floats;
+    }
+    const float* p2 = kShared ? p1 : p1 + p_floats;
+    // The next step's leaf states, and the step after it (its P's nodes).
+    int4 after = nx;
+    int2 nodes_after = nodes_nx;
+    int next1[kSpt], next2[kSpt];
+    if (step + 1 < n_anc) {
+      if (step + 2 < n_anc) {
+        after = __ldg(steps + step + 2);
+        if (!kShared) nodes_after = __ldg(tree_children + after.x);
+      }
+#pragma unroll
+      for (int k = 0; k < kSpt; ++k) {
+        const bool in = site0 + k < length;
+        next1[k] = in && nx.y >= 0 ? __ldg(leaf_col + nx.y * length + k) : 0;
+        next2[k] = in && nx.z >= 0 ? __ldg(leaf_col + nx.z * length + k) : 0;
+      }
+    }
+    float m1[kTile][kSpt], m2[kTile][kSpt];
+    float mx[kSpt];
+#pragma unroll
+    for (int k = 0; k < kSpt; ++k) mx[k] = 0.0f;
+    if (!idle && touch) {
+      const bool leaf1 = st.y >= 0, leaf2 = st.z >= 0;
+      const float* row1 = leaf1 ? nullptr : base + ~st.y * slot_stride;
+      const float* row2 = leaf2 ? nullptr : base + ~st.z * slot_stride;
+      if (use_table && leaf1) {
+#pragma unroll
+        for (int k = 0; k < kSpt; ++k) {
+          const int code = obs1[k] < 0 ? q : obs1[k] < q ? obs1[k] : q + 1;
+          table_tile(table + code * h + s0, m1, k);
         }
       } else {
-        tile_message_branch<kMasks>(c1, q, s0, stride, m1);
-        tile_message_branch<kMasks>(c2, q, s0, stride, m2);
+        tile_message<kPitch, kMasks>(leaf1, obs1, row1, stride, p1 + p_row(s0, pitch), pitch,
+                                      q4, m1);
+      }
+      if (use_table && leaf2) {
+#pragma unroll
+        for (int k = 0; k < kSpt; ++k) {
+          const int code = obs2[k] < 0 ? q : obs2[k] < q ? obs2[k] : q + 1;
+          table_tile(table + code * h + s0, m2, k);
+        }
+      } else {
+        tile_message<kPitch, kMasks>(leaf2, obs2, row2, stride, p2 + p_row(s0, pitch), pitch,
+                                      q4, m2);
       }
 #pragma unroll
       for (int v = 0; v < kTile; ++v) {
-        m1[v] *= m2[v];
-        mx = fmaxf(mx, m1[v]);
+#pragma unroll
+        for (int k = 0; k < kSpt; ++k) {
+          m1[v][k] *= m2[v][k];
+          mx[k] = fmaxf(mx[k], m1[v][k]);
+        }
       }
     }
-    maxes[tile * sites + lane] = mx;
-    __syncthreads();  // every tile has read the children and posted its maximum
-    for (int t = 0; t < tiles; ++t) mx = fmaxf(mx, maxes[t * sites + lane]);
+    // The site's maximum over its tiles (lanes `groups` apart).
+#pragma unroll
+    for (int k = 0; k < kSpt; ++k) {
+      for (int o = groups; o < 32; o <<= 1) {
+        mx[k] = fmaxf(mx[k], __shfl_xor_sync(0xffffffffu, mx[k], o));
+      }
+    }
     // Biased exponent of the site's max (0 when it is 0 or denormal);
     // 2^(127 - e) built from its bits is exact.
-    const unsigned e = __float_as_uint(mx) >> 23;
-    const float inv = __uint_as_float((254u - e) << 23);
-    exp_sum += static_cast<int>(e) - 127;
+    float inv[kSpt];
+#pragma unroll
+    for (int k = 0; k < kSpt; ++k) {
+      const unsigned e = __float_as_uint(mx[k]) >> 23;
+      inv[k] = __uint_as_float((254u - e) << 23);
+      exp_sum[k] += static_cast<int>(e) - 127;
+    }
     root_slot = st.w;
-    if (active) {
-      float* dst = base + st.w * slot_stride;
+    __syncwarp();  // every tile of the warp's sites has read the children
+    if (!idle && touch) {
+      float* dst = base + st.w * slot_stride + s0 * stride;
 #pragma unroll
       for (int v = 0; v < kTile; ++v) {
-        if (s0 + v < q) dst[(s0 + v) * stride] = m1[v] * inv;
+        float out[kSpt];
+#pragma unroll
+        for (int k = 0; k < kSpt; ++k) out[k] = m1[v][k] * inv[k];
+        store_sites(dst + v * stride, out);
       }
     }
-    __syncthreads();  // the new row is in place (and the maxima read)
+    __syncwarp();  // the new rows are in place
+    st = nx;
+    nx = after;
+#pragma unroll
+    for (int k = 0; k < kSpt; ++k) {
+      obs1[k] = next1[k];
+      obs2[k] = next2[k];
+    }
+    nodes_nx = nodes_after;
   }
-  if (tile == 0 && active) {
+  if (tile == 0 && touch) {
     const float* root = base + root_slot * slot_stride;
-    float site_lik = __ldg(prior) * root[0];
-    for (int i = 1; i < q; ++i) site_lik += __ldg(prior + i) * root[i * stride];
-    const float per = logf(fmaxf(site_lik, 1e-30f)) + static_cast<float>(exp_sum) * kLn2;
-    per_site[static_cast<size_t>(tree) * len + site] = per * __ldg(weights + site);
+#pragma unroll
+    for (int k = 0; k < kSpt; ++k) {
+      const int site = site0 + k;
+      if (site >= length) continue;
+      float site_lik = __fmul_rn(__ldg(prior), root[k]);
+      for (int i = 1; i < q; ++i) {
+        site_lik = __fmaf_rn(__ldg(prior + i), root[i * stride + k], site_lik);
+      }
+      const float per = __fadd_rn(logf(fmaxf(site_lik, 1e-30f)),
+                                  __fmul_rn(static_cast<float>(exp_sum[k]), kLn2));
+      per_site[static_cast<size_t>(tree) * length + site] = per * __ldg(weights + site);
+    }
   }
 }
 
@@ -589,26 +758,27 @@ int launch_chunks(const Args& a) {
   const int n_blocks = (a.length + kSites - 1) / kSites;
   for (int tree0 = 0; tree0 < a.batch; tree0 += a.chunk) {
     const int trees = a.batch - tree0 < a.chunk ? a.batch - tree0 : a.chunk;
-    pruning_kernel<Q, kShared, kMasks><<<dim3(n_blocks, trees), kSites, a.smem, a.stream>>>(
+    pruning_kernel<Q, kShared, kMasks>
+        <<<dim3(n_blocks, trees), kSites, a.smem, a.stream>>>(
         a.plan, a.children, a.leaves, a.pmats, a.prior, a.weights, a.per_site, tree0,
-        a.n_leaves, a.length);
+        a.n_leaves, a.length, a.q);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
-template <bool kShared, bool kMasks, bool kGlobal>
+template <int kPitch, bool kShared, bool kMasks, bool kGlobal>
 int launch_any(const Args& a) {
-  cudaError_t err = cudaFuncSetAttribute(pruning_any_kernel<kShared, kMasks, kGlobal>,
+  cudaError_t err = cudaFuncSetAttribute(pruning_any_kernel<kPitch, kShared, kMasks, kGlobal>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (a.q + kTile - 1) / kTile;
+  const int threads = a.sites * any_lanes(a.q) / kSpt;
   const int n_blocks = (a.length + a.sites - 1) / a.sites;
   for (int tree0 = 0; tree0 < a.batch; tree0 += a.chunk) {
     const int trees = a.batch - tree0 < a.chunk ? a.batch - tree0 : a.chunk;
-    pruning_any_kernel<kShared, kMasks, kGlobal>
-        <<<dim3(n_blocks, trees), a.sites * tiles, a.smem, a.stream>>>(
+    pruning_any_kernel<kPitch, kShared, kMasks, kGlobal>
+        <<<dim3(n_blocks, trees), threads, a.smem, a.stream>>>(
             a.plan, a.children, a.leaves, a.pmats, a.prior, a.weights, a.slots_g, a.per_site,
             tree0, a.n_leaves, a.length, a.q, a.n_slots, a.sites, a.use_table);
     err = cudaGetLastError();
@@ -619,16 +789,32 @@ int launch_any(const Args& a) {
 
 template <int Q>
 int dispatch(const Args& a, bool shared, bool masks) {
-  if (shared) return masks ? launch_chunks<Q, true, true>(a) : launch_chunks<Q, true, false>(a);
-  return masks ? launch_chunks<Q, false, true>(a) : launch_chunks<Q, false, false>(a);
+  if (shared) {
+    return masks ? launch_chunks<Q, true, true>(a)
+                 : launch_chunks<Q, true, false>(a);
+  }
+  return masks ? launch_chunks<Q, false, true>(a)
+               : launch_chunks<Q, false, false>(a);
 }
 
-template <bool kGlobal>
+// State-set masks hold at most 31 states: the 32-pitch class alone takes them.
+template <int kPitch, bool kGlobal>
 int dispatch_any(const Args& a, bool shared, bool masks) {
-  if (shared) {
-    return masks ? launch_any<true, true, kGlobal>(a) : launch_any<true, false, kGlobal>(a);
+  if (masks) {
+    if constexpr (kPitch == 32) {
+      return shared ? launch_any<32, true, true, kGlobal>(a)
+                    : launch_any<32, false, true, kGlobal>(a);
+    }
+    return -1;
   }
-  return masks ? launch_any<false, true, kGlobal>(a) : launch_any<false, false, kGlobal>(a);
+  return shared ? launch_any<kPitch, true, false, kGlobal>(a)
+                : launch_any<kPitch, false, false, kGlobal>(a);
+}
+
+template <int kPitch>
+int dispatch_pitch(const Args& a, bool shared, bool masks, bool global_slots) {
+  return global_slots ? dispatch_any<kPitch, true>(a, shared, masks)
+                      : dispatch_any<kPitch, false>(a, shared, masks);
 }
 
 }  // namespace
@@ -637,41 +823,52 @@ int dispatch_any(const Args& a, bool shared, bool masks) {
 // children (B, n_anc, 2) int32, 8-byte aligned (read for per-branch P);
 // leaves (n_leaves, L) int32 states (negative = missing) or state-set
 // masks (`masks` != 0, Q <= 31), n_leaves x L < 2^31; pmats (Q, Q) f32 when
-// `shared` != 0, else (B, n_all, Q, Q) f32, 16-byte aligned; prior (Q,)
-// f32; weights (L,) f32; per_site (B, L) f32, each site's log-likelihood
-// times its weight; out (B,) f32 their sums, or null to launch no site sum
-// (the rows alone). Q = 4 and 20: blocks of 128 threads, one a site. Any
-// other Q >= 2: blocks of `sites` sites, ceil(Q / 16) threads each (at
-// most 512 a block), `n_slots` slot rows a site; `global_slots` != 0 keeps
-// the slots in slots_g, (chunk, n_slots, Q, L) f32; `use_table` != 0
-// (shared P, state mode) keeps the leaf-message table. Each with `smem`
-// bytes of dynamic shared memory, laid out as the kernels above say (the
-// wrapper's launch plan). Trees are walked `chunk` at a time (chunk <=
-// 65535). Launches on `stream`, does not synchronise, allocates nothing.
-// Returns the CUDA error code (0 = launched; -1 = Q < 2).
+// `shared` != 0, else (B, n_all, W, W) f32 for a fixed width W, (B, n_all,
+// Q, Q) for the runtime-Q kernel, 16-byte aligned; prior (Q,) f32; weights
+// (L,) f32; per_site (B, L) f32, each site's log-likelihood times its
+// weight; out (B,) f32 their sums, or null to launch no site sum (the rows
+// alone). `width` 4, 8, 12, 16 or 20 (>= Q): the fixed kernel of that
+// width, the states zero-padded (a shared P and the prior here, a
+// per-branch P by the caller), blocks of 128 threads, one a site. `width`
+// 0 and Q > 20: the runtime-Q kernel, blocks of `sites` sites, lanes / 2
+// threads each (lanes = ceil(Q / 16) rounded up to a power of two; at most
+// 256 a block), `n_slots` slot rows a site; `global_slots` != 0 keeps the
+// slots in slots_g, (chunk, n_slots, 16 ceil(Q / 16), L rounded up to 4)
+// f32; `use_table` != 0 (shared P, state mode) keeps the leaf-message
+// table. Each with `smem` bytes of dynamic shared memory, laid out as the
+// kernels above say (the wrapper's launch plan). Trees are walked `chunk`
+// at a time (chunk <= 65535). Launches on `stream`, does not synchronise,
+// allocates nothing. Returns the CUDA error code (0 = launched; -1 = a
+// width or Q it does not take).
 extern "C" int trex_likelihood_batched(const void* plan, const void* children,
                                        const void* leaves, const void* pmats,
                                        const void* prior, const void* weights, void* slots_g,
                                        void* per_site, void* out, int batch, int n_leaves,
-                                       int length, int n_states, int shared, int masks,
-                                       int n_slots, int sites, int global_slots, int use_table,
-                                       int chunk, int smem, void* stream) {
+                                       int length, int n_states, int width, int shared,
+                                       int masks, int n_slots, int sites, int global_slots,
+                                       int use_table, int chunk, int smem, void* stream) {
   const Args a{static_cast<const int4*>(plan),    static_cast<const int2*>(children),
                static_cast<const int*>(leaves),   static_cast<const float*>(pmats),
                static_cast<const float*>(prior),  static_cast<const float*>(weights),
                static_cast<float*>(slots_g),      static_cast<float*>(per_site),
                batch, n_leaves, length, n_states, n_slots, sites, use_table, chunk, smem,
                static_cast<cudaStream_t>(stream)};
+  const bool sh = shared != 0, mk = masks != 0, gl = global_slots != 0;
+  if (n_states < 2 || (width != 0 && width < n_states)) return -1;
   int rc;
-  if (n_states == 4) {
-    rc = dispatch<4>(a, shared != 0, masks != 0);
-  } else if (n_states == 20) {
-    rc = dispatch<20>(a, shared != 0, masks != 0);
-  } else if (n_states >= 2) {
-    rc = global_slots != 0 ? dispatch_any<true>(a, shared != 0, masks != 0)
-                           : dispatch_any<false>(a, shared != 0, masks != 0);
-  } else {
-    return -1;
+  switch (width) {
+    case 4: rc = dispatch<4>(a, sh, mk); break;
+    case 8: rc = dispatch<8>(a, sh, mk); break;
+    case 12: rc = dispatch<12>(a, sh, mk); break;
+    case 16: rc = dispatch<16>(a, sh, mk); break;
+    case 20: rc = dispatch<20>(a, sh, mk); break;
+    case 0:
+      if (n_states <= 20) return -1;
+      rc = n_states <= 32   ? dispatch_pitch<32>(a, sh, mk, gl)
+           : n_states <= 64 ? dispatch_pitch<64>(a, sh, mk, gl)
+                            : dispatch_pitch<0>(a, sh, mk, gl);
+      break;
+    default: return -1;
   }
   if (rc != 0 || out == nullptr) return rc;
   sum_sites_kernel<<<batch, kSumThreads, 0, a.stream>>>(

@@ -14,18 +14,22 @@ pruning grid (one per 65535 trees), then one site-sum grid (none with
 ``"shared"`` (one (Q, Q) P, the K3 regime) and ``"per_branch"`` (a P per
 branch and tree, K4's), and ``"per_site"`` counts again the grids of the
 calls that returned per-site rows.
-``launch_plan`` picks the kernel and its block width: the fixed kernels at
-Q = 4 and 20 (a thread a site, slots in shared memory), the runtime-Q
-kernel at any other Q >= 2 (a thread a 16-state tile of a site; its slots
-in shared memory, or where no width fits in a global buffer, one pruning
-grid per chunk of trees whose slots fit ``GLOBAL_SLOT_BYTES``). Forward
-only, as the TPU kernel: branch-length derivatives come from
-``ops.likelihood_asr``.
+``launch_plan`` picks the kernel and its block width: up to 20 states a
+fixed kernel (a thread a site, slots in shared memory) at the least width
+of ``WIDTHS`` that holds Q, the states zero-padded to it (``pad_states``:
+padded states meet zero rows and columns of P and a zero prior, so every
+padded term adds +0 and the result is bit for bit Q's); above 20 the
+runtime-Q kernel (a site's 16-state tiles in lanes of one warp, each
+thread a tile of two sites; its slots in shared memory, or where no width
+fits in a global buffer, one pruning grid per chunk of trees whose slots
+fit ``GLOBAL_SLOT_BYTES``). Forward only, as the TPU kernel: branch-length
+derivatives come from ``ops.likelihood_asr``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -33,14 +37,28 @@ import torch
 from trex_tpu_torch._device import device_limits
 from trex_tpu_torch.ops import _nvcc
 from trex_tpu_torch.ops.likelihood import highest_matmul_precision, tip_partials
-from trex_tpu_torch.ops.tree_plan import SlotPlan, slot_plan, slots_for, tree_plan
+from trex_tpu_torch.ops.tree_plan import (
+    SlotPlan,
+    resident_threads,
+    slot_plan,
+    slots_for,
+    tree_plan,
+)
 from trex_tpu_torch.utils.chunking import scan_budget_bytes
 
-_FIXED_STATES = (4, 20)  # template instantiations; other Q: runtime-Q kernel
+WIDTHS = (4, 8, 12, 16, 20)  # the fixed kernels' state counts; above 20: runtime-Q kernel
 _MAX_CHUNK = 65535  # grid.y limit: trees per kernel launch
 _SITES = 128  # sites (threads) per block of the fixed kernels
-_TILE = 16  # parent states per thread of the runtime-Q kernel (its P pitch)
-_MAX_ANY_THREADS = 512  # threads per block of the runtime-Q kernel
+_TILE = 16  # parent states per thread of the runtime-Q kernel
+_SITES_PER_THREAD = 2  # sites per thread of the runtime-Q kernel
+_MAX_ANY_THREADS = 256  # threads per block of the runtime-Q kernel
+# A P per branch in the runtime-Q kernel: below this many threads resident
+# an SM in the shared-slot mode, the global-slot mode at the same width.
+# Set at Q = 61 on 64 taxa (an H100, PERF.md §6: 128 threads shared against
+# 384 global, 8.90 against 7.55 ms). It keeps Q = 21 on 64 taxa shared (2.55
+# against 2.99 ms global) but takes Q = 61 on 512 taxa global, where shared
+# is faster (18.48 against 22.56 ms): the rule is not yet right there.
+_BRANCH_GLOBAL_BELOW = 256
 _MASK_STATES = 31  # int32 state-set masks (bit 31 is the sign)
 GLOBAL_SLOT_BYTES = 32 << 20  # global-slot mode: slots of the trees in flight, L2-sized
 _LN2 = 0.6931471805599453
@@ -120,6 +138,36 @@ def batched_log_likelihood_plain(
     return (out, rows_out) if per_site else out
 
 
+def kernel_width(q: int) -> int:
+    """The states of the fixed kernel that runs Q = ``q``: the least of
+    ``WIDTHS`` that holds it, or 0 above 20 (the runtime-Q kernel)."""
+    return next((w for w in WIDTHS if w >= q), 0)
+
+
+def pad_states(x: torch.Tensor, width: int, dims: int) -> torch.Tensor:
+    """``x`` (a P or a prior) zero-padded to ``width`` states in its last
+    ``dims`` dimensions; ``x`` itself when it has them."""
+    pad = width - x.shape[-1]
+    return x if pad == 0 else torch.nn.functional.pad(x, (0, pad) * dims)
+
+
+def slot_states(q: int) -> int:
+    """The states a runtime-Q slot row holds: Q rounded up to a tile of 16
+    (zero past Q); P's rows likewise."""
+    return -(-q // _TILE) * _TILE
+
+
+def _p_pitch(q: int) -> int:
+    """The runtime-Q kernel's P row pitch: its compile-time classes 32 and
+    64, else ``slot_states(q)``."""
+    return 32 if q <= 32 else 64 if q <= 64 else slot_states(q)
+
+
+def _lanes(q: int) -> int:
+    """Lanes of a site's tiles: ceil(Q / 16) rounded up to a power of two."""
+    return 1 << (-(-q // _TILE) - 1).bit_length()
+
+
 def leaf_codes(q: int, shared_p: bool, masks: bool) -> int:
     """Rows of the fixed kernels' leaf-message table under a shared P: a
     row per state, one for a missing state and one for a state >= Q, or a
@@ -134,29 +182,39 @@ def leaf_codes(q: int, shared_p: bool, masks: bool) -> int:
 
 def launch_plan(n_leaves: int, q: int, shared_p: bool, masks: bool, smem_optin: int) -> SlotPlan:
     """K3/K4's blocks for ``n_leaves``-taxon trees at Q = ``q``. The fixed
-    kernels (Q = 4, 20): 128 sites, a thread each, with a shared P (Q^2
-    floats), the leaf-message table and ``slots`` rows of Q floats a site
-    in shared memory. The runtime-Q kernel: ceil(Q / 16) threads a site (at
-    most 512 a block), a shared P transposed at a pitch of Q rounded up to
-    16, the leaf-message table (shared P, state mode: Q + 2 rows at that
-    pitch) where P and the table take at most half a block's shared memory,
-    a float a thread for the tiles' maxima, and either ``slots`` rows of Q
-    floats a site or, where those do not fit, nothing more (the
+    kernel of width W = ``kernel_width(q)`` (Q <= 20): 128 sites, a thread
+    each, with a shared P (W^2 floats), the leaf-message table and ``slots``
+    rows of W floats a site in shared memory. The runtime-Q kernel (Q >
+    20): ``_lanes(q) / 2`` threads a site (at most 256 a block); P in
+    (``slot_states(q)``, ``_p_pitch(q)``) floats, one matrix under a shared
+    P, four under a P per branch (two buffers of a step's two children); the
+    leaf-message table (shared P, state mode: Q + 2 rows of
+    ``slot_states(q)``) where P and the table take at most half a block's
+    shared memory; and either ``slots`` rows of ``slot_states(q)`` floats a
+    site or, where those do not fit (or, under a P per branch, leave fewer
+    than ``_BRANCH_GLOBAL_BELOW`` threads resident an SM), nothing more (the
     global-slot mode)."""
     slots = slots_for(n_leaves)
-    if q in _FIXED_STATES:
-        codes = leaf_codes(q, shared_p, masks)
-        fixed = 4 * (q * q if shared_p else 0) + 4 * codes * q
-        return slot_plan(slots, 4 * slots * q, fixed, smem_optin, widths=(_SITES,),
+    width = kernel_width(q)
+    if width:
+        codes = leaf_codes(width, shared_p, masks)
+        fixed = 4 * (width * width if shared_p else 0) + 4 * codes * width
+        return slot_plan(slots, 4 * slots * width, fixed, smem_optin, widths=(_SITES,),
                          leaf_table=codes > 0)
-    pitch = -(-q // _TILE) * _TILE
-    tiles = pitch // _TILE
-    p_bytes = 4 * q * pitch if shared_p else 0
-    table_bytes = 4 * (q + 2) * pitch
+    rows = slot_states(q)
+    # P's rows, each tile's 16 shifted 4 floats on (the kernel's p_row).
+    p_bytes = 4 * (rows * _p_pitch(q) + rows // _TILE * 4) * (1 if shared_p else 4)
+    table_bytes = 4 * (q + 2) * rows
     table = shared_p and not masks and p_bytes + table_bytes <= smem_optin // 2
-    return slot_plan(slots, 4 * (tiles + slots * q), p_bytes + (table_bytes if table else 0),
-                     smem_optin, threads_per_site=tiles, max_threads=_MAX_ANY_THREADS,
-                     global_column_bytes=4 * tiles, leaf_table=table)
+    fixed = p_bytes + (table_bytes if table else 0)
+    plan = slot_plan(slots, 4 * slots * rows, fixed, smem_optin,
+                     threads_per_site=_lanes(q) // _SITES_PER_THREAD,
+                     max_threads=_MAX_ANY_THREADS, global_column_bytes=0, leaf_table=table)
+    if not shared_p and plan.mode == "shared" and plan.resident_threads < _BRANCH_GLOBAL_BELOW:
+        threads = plan.sites_per_block * plan.threads_per_site
+        plan = dataclasses.replace(plan, mode="global", smem_bytes=fixed,
+                                   resident_threads=resident_threads(fixed, threads))
+    return plan
 
 
 def _check(children, leaves, weights, root_prior, transition, sequences_are_masks) -> None:
@@ -204,9 +262,9 @@ def batched_log_likelihood_cuda(
 ):
     """(B,) f32 log-likelihoods: K3/K4 on CUDA tensors, the plain version on
     CPU tensors. Arguments as ``batched_log_likelihood_plain``; any Q >= 2
-    (masks up to 31 states; under a shared P up to the Q whose transposed P
-    fits a block's shared memory, 240 on an H100, above it ``ValueError``
-    from ``launch_plan``). With ``per_site=True``, ``(sums, rows)``: the
+    (masks up to 31 states; up to the Q whose P fits a block's shared
+    memory, on an H100 240 under a shared P and 112 under a P per branch,
+    above it ``ValueError`` from ``launch_plan``). With ``per_site=True``, ``(sums, rows)``: the
     kernel's (B, L) per-site rows under unit weights, without its site-sum
     grid, and their weighted sums as ``batched_log_likelihood_plain`` sums
     them."""
@@ -239,6 +297,12 @@ def batched_log_likelihood_cuda(
     children = children.contiguous()
     if children.data_ptr() % 8:
         children = children.clone()
+    width = kernel_width(q)
+    if width and not shared:
+        # A per-branch P zero-padded to the fixed kernel's width (a fill and
+        # a copy where Q is not one of WIDTHS); a shared P and the prior are
+        # padded by the kernel.
+        transition = pad_states(transition, width, 2)
     transition = transition.contiguous()
     if transition.data_ptr() % 16:
         transition = transition.clone()
@@ -247,7 +311,7 @@ def batched_log_likelihood_cuda(
     chunk = min(batch, _MAX_CHUNK)
     slots_g = None
     if plan.mode == "global":
-        per_tree = 4 * plan.slots * q * length
+        per_tree = 4 * plan.slots * slot_states(q) * (-(-length // 4) * 4)
         chunk = max(1, min(chunk, GLOBAL_SLOT_BYTES // per_tree))
         slots_g = torch.empty((chunk * per_tree // 4,), dtype=torch.float32, device=device)
     rows = torch.empty((batch, length), dtype=torch.float32, device=device)
@@ -259,9 +323,9 @@ def batched_log_likelihood_cuda(
         root_prior.data_ptr(), row_weights.data_ptr(),
         None if slots_g is None else slots_g.data_ptr(), rows.data_ptr(),
         None if per_site else out.data_ptr(),
-        batch, n_anc + 1, length, q, int(shared), int(sequences_are_masks),
+        batch, n_anc + 1, length, q, width, int(shared), int(sequences_are_masks),
         plan.slots, plan.sites_per_block, int(plan.mode == "global"),
-        int(plan.leaf_table and q not in _FIXED_STATES), chunk, plan.smem_bytes,
+        int(plan.leaf_table and not width), chunk, plan.smem_bytes,
         torch.cuda.current_stream().cuda_stream,
     )
     if rc != 0:
@@ -295,6 +359,6 @@ batched_log_likelihood_cuda.launches_by_mode = {"shared": 0, "per_branch": 0, "p
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("likelihood_batched")
     fn = lib.trex_likelihood_batched
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

@@ -94,7 +94,9 @@ class SlotPlan:
     leaf_table: bool = False
 
 
-def _resident_threads(smem_bytes: int, threads: int) -> int:
+def resident_threads(smem_bytes: int, threads: int) -> int:
+    """Threads of blocks of ``threads`` threads and ``smem_bytes`` of
+    dynamic shared memory that one SM holds at once."""
     blocks = min(_MAX_BLOCKS_PER_SM, _MAX_THREADS_PER_SM // threads,
                  _SM_SHARED // (smem_bytes + _BLOCK_RESERVED))
     return blocks * threads
@@ -120,7 +122,7 @@ def slot_plan(
         smem = fixed_bytes + column_bytes * sites
         if smem > smem_optin:
             continue
-        threads = _resident_threads(smem, sites * threads_per_site)
+        threads = resident_threads(smem, sites * threads_per_site)
         if best is None or threads > best.resident_threads:
             best = SlotPlan("shared", slots, sites, smem, threads, threads_per_site, leaf_table)
     if best is not None:
@@ -129,7 +131,7 @@ def slot_plan(
         smem = fixed_bytes + global_column_bytes * sites
         if smem <= smem_optin:
             return SlotPlan("global", slots, sites, smem,
-                            _resident_threads(smem, sites * threads_per_site),
+                            resident_threads(smem, sites * threads_per_site),
                             threads_per_site, leaf_table)
     raise ValueError(
         f"tree-DP kernel: {slots} slots of {column_bytes} bytes a site beside "
